@@ -4,6 +4,8 @@
 #   make test         tier-1 test suite (the gate every PR must keep green;
 #                     includes the public-API surface snapshot,
 #                     tests/test_api_surface.py vs tests/api_surface.json)
+#   make test-torch   the PyTorch/CUDA port's differential tests only
+#                     (tests/test_torch_*.py: port vs reference, on the CPU)
 #   make bench-smoke  SCALE-parameterized run of every benchmark section
 #                     (default tiny) — catches import rot and shape bugs in
 #                     minutes, not numbers; writes BENCH_<section>.json
@@ -27,10 +29,13 @@ CHAOS_FAULTS ?= kernel.fallback cap.exhaust ovf.exhaust color.corrupt \
 	service.step service.submit
 CHAOS_BACKENDS ?= pallas_interpret jnp
 
-.PHONY: test bench-smoke bench bench-report chaos
+.PHONY: test test-torch bench-smoke bench bench-report chaos
 
 test:
 	python -m pytest -x -q
+
+test-torch:
+	python -m pytest -q tests/test_torch_*.py
 
 chaos:
 	@mkdir -p deadletters

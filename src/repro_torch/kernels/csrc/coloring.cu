@@ -1,0 +1,253 @@
+// Hand-written Hopper (sm_90a) kernels of the coloring hot loop:
+//
+//   coloring_firstfit        replaces the Pallas kernel
+//                            src/repro/kernels/firstfit.py::firstfit
+//   coloring_detect_recolor  replaces the Pallas kernel
+//                            src/repro/kernels/detect_recolor.py::detect_recolor
+//
+// Both are one template, pass_kernel<G, NW, DETECT>: for each row of an
+// (R, W) row-major int32 ELL tile, gather the neighbours' colours (and, with
+// DETECT, priorities) from the full (n,) vectors, OR the colours into a packed
+// forbidden bitset, and take the smallest free colour (mex).  With DETECT the
+// same gather also feeds the defect test (same colour as a higher-priority
+// neighbour) and the epilogue keeps or replaces the row's colour.
+//
+// What the design is about.  The work is a data-dependent gather with a few
+// integer operations per gathered value: it is bound by bytes, not by
+// arithmetic (R*W*4 bytes of ELL, up to 4 or 8 bytes gathered per live slot,
+// O(R) vectors; no floating point at all).
+//
+//  * G lanes share a row (G a power of two, 1..32, chosen by the wrapper as
+//    the smallest power of two >= W, capped at a warp).  Lane l reads slots
+//    l, l+G, ... of the row, so a group reads consecutive words of the
+//    row-major table; the lanes' partial bitsets are OR-ed with xor-shuffles
+//    inside the group and their defect flags with a vote.  G = 1 is the
+//    thread-per-row form; G = 32 the warp-per-row form.
+//  * The forbidden words live in registers: NW words per lane, updated with
+//    an unrolled compare-and-select so the array is never indexed
+//    dynamically (which would push it to local memory).  NW*32 >= C is the
+//    single-window fast case.  A larger cap is swept in windows of NW words,
+//    re-reading the row for each window and stopping at the first window
+//    with a free colour, so any C >= 1 runs and nothing is allocated.
+//  * The (n,) colour and priority vectors are read straight from global
+//    memory through L2; there is no residency limit on n.
+//  * The result goes to newc (R,), never into colors: every row of a launch
+//    sees the colours as they were before the launch, whatever the order in
+//    which blocks run.  The caller commits newc afterwards.
+//  * Ragged edges are masked here: any R >= 1, any W >= 1.
+//
+// Bit conventions (equal to core/bitset.py): bit (c & 31) of word (c >> 5) is
+// colour c; bits for colours >= C are pre-forbidden; colours outside [0, C)
+// and FILL (< 0) slots contribute nothing; an all-ones row gives mex = 0 with
+// the overflow flag set.  __ffs(~w) - 1 is the index of the lowest zero bit.
+//
+// Plain C interface, no PyTorch headers: each function launches on the given
+// stream, does not synchronise, allocates nothing and returns
+// cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;   // threads per block (a multiple of every G)
+
+// Word k of the all-free table: bits of colours >= C are set.
+__device__ __forceinline__ unsigned tail_word(int k, int C) {
+  const int live = C - k * 32;
+  if (live >= 32) return 0u;
+  if (live <= 0) return 0xFFFFFFFFu;
+  return ~((1u << live) - 1u);
+}
+
+// Lanes of the calling thread's group, as a shuffle mask.
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if constexpr (G == 32) {
+    return 0xFFFFFFFFu;
+  } else {
+    const unsigned lane = threadIdx.x & 31u;
+    return ((1u << G) - 1u) << (lane & ~static_cast<unsigned>(G - 1));
+  }
+}
+
+template <int G, int NW, bool DETECT>
+__global__ void __launch_bounds__(kThreads)
+pass_kernel(const int* __restrict__ ell,             // (R, W)
+            const int* __restrict__ colors,          // (n,)
+            const int* __restrict__ pri,             // (n,)      DETECT
+            const uint8_t* __restrict__ U,           // (R,)      DETECT
+            const int* __restrict__ forb0,           // (R, nW)   or null
+            const uint8_t* __restrict__ extra_defect,  // (R,)    or null
+            const uint8_t* __restrict__ force,       // (R,)      or null
+            const uint8_t* __restrict__ valid,       // (R,)      or null
+            int* __restrict__ out_c,                 // (R,) mex / new colour
+            uint8_t* __restrict__ out_rec,           // (R,)      DETECT
+            uint8_t* __restrict__ out_ovf,           // (R,)
+            int R, int W, int n, int C, int nW, int row_start) {
+  const long long gtid =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long row = gtid / G;
+  const int lane = static_cast<int>(threadIdx.x) % G;
+  // a group never straddles the edge: G divides kThreads, so its lanes
+  // share `row` and leave together
+  if (row >= R) return;
+  const unsigned mask = group_mask<G>();
+
+  int c_r = -1, p_r = -1;
+  if constexpr (DETECT) {
+    c_r = colors[row_start + row];
+    p_r = pri[row_start + row];
+    // work = valid & ((U & defect) | force) can only be true on these rows;
+    // every other row keeps its colour without its ELL row being read
+    const bool may_work = (valid == nullptr || valid[row] != 0) &&
+                          (U[row] != 0 || (force != nullptr && force[row] != 0));
+    if (!may_work) {
+      if (lane == 0) {
+        out_c[row] = c_r;
+        out_rec[row] = 0;
+        out_ovf[row] = 0;
+      }
+      return;
+    }
+  }
+
+  const int* __restrict__ ell_row = ell + row * W;
+  bool defect = false;
+  int mex = -1;
+  // window loop: one trip when NW*32 >= C; its condition is uniform within
+  // the group because every lane holds the reduced words
+  for (int wb = 0; wb < nW && mex < 0; wb += NW) {
+    unsigned w[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      w[k] = tail_word(wb + k, C);
+      if (forb0 != nullptr && lane == 0 && wb + k < nW)
+        w[k] |= static_cast<unsigned>(forb0[row * nW + wb + k]);
+    }
+    for (int j = lane; j < W; j += G) {
+      int idx = ell_row[j];
+      if (idx < 0) continue;                 // FILL: colour -1, priority -1
+      idx = min(idx, n - 1);
+      const int c = colors[idx];
+      if constexpr (DETECT) {
+        if (wb == 0 && c == c_r && c_r >= 0 && pri[idx] > p_r) defect = true;
+      }
+      if (c >= 0 && c < C) {
+        const int wi = (c >> 5) - wb;
+        const unsigned bit = 1u << (c & 31);
+#pragma unroll
+        for (int k = 0; k < NW; ++k)
+          if (wi == k) w[k] |= bit;
+      }
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int k = 0; k < NW; ++k) w[k] |= __shfl_xor_sync(mask, w[k], off);
+    }
+    // descending, so the lowest word with a zero bit wins
+#pragma unroll
+    for (int k = NW - 1; k >= 0; --k)
+      if (w[k] != 0xFFFFFFFFu) mex = (wb + k) * 32 + __ffs(~w[k]) - 1;
+  }
+  const bool ovf = mex < 0;
+  if (ovf) mex = 0;
+
+  if constexpr (!DETECT) {
+    if (lane == 0) {
+      out_c[row] = mex;
+      out_ovf[row] = ovf ? 1 : 0;
+    }
+  } else {
+    defect = __any_sync(mask, defect) != 0;
+    if (extra_defect != nullptr && extra_defect[row] != 0) defect = true;
+    bool work = (U[row] != 0) && defect;
+    if (force != nullptr && force[row] != 0) work = true;
+    if (valid != nullptr && valid[row] == 0) work = false;
+    if (lane == 0) {
+      out_c[row] = work ? mex : c_r;
+      out_rec[row] = work ? 1 : 0;
+      out_ovf[row] = (ovf && work) ? 1 : 0;
+    }
+  }
+}
+
+template <int G, int NW, bool DETECT>
+cudaError_t launch(const int* ell, const int* colors, const int* pri,
+                   const uint8_t* U, const int* forb0,
+                   const uint8_t* extra_defect, const uint8_t* force,
+                   const uint8_t* valid, int* out_c, uint8_t* out_rec,
+                   uint8_t* out_ovf, int R, int W, int n, int C,
+                   int row_start, cudaStream_t stream) {
+  const int nW = (C + 31) / 32;
+  const long long rows_per_block = kThreads / G;
+  const long long blocks = (R + rows_per_block - 1) / rows_per_block;
+  pass_kernel<G, NW, DETECT><<<static_cast<unsigned>(blocks), kThreads, 0,
+                               stream>>>(
+      ell, colors, pri, U, forb0, extra_defect, force, valid, out_c, out_rec,
+      out_ovf, R, W, n, C, nW, row_start);
+  return cudaGetLastError();
+}
+
+template <int G, bool DETECT, typename... Args>
+cudaError_t pick_window(int window, Args... args) {
+  switch (window) {
+    case 2:  return launch<G, 2, DETECT>(args...);
+    case 8:  return launch<G, 8, DETECT>(args...);
+    case 16: return launch<G, 16, DETECT>(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool DETECT, typename... Args>
+cudaError_t pick_lanes(int lanes, int window, Args... args) {
+  switch (lanes) {
+    case 1:  return pick_window<1, DETECT>(window, args...);
+    case 2:  return pick_window<2, DETECT>(window, args...);
+    case 4:  return pick_window<4, DETECT>(window, args...);
+    case 8:  return pick_window<8, DETECT>(window, args...);
+    case 16: return pick_window<16, DETECT>(window, args...);
+    case 32: return pick_window<32, DETECT>(window, args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// lanes: lanes per row, one of 1 2 4 8 16 32.
+// window: forbidden words held in registers, one of 2 8 16.
+extern "C" int coloring_firstfit(const void* ell, const void* colors,
+                                 const void* forb0, void* mex, void* ovf,
+                                 int R, int W, int n, int C, int lanes,
+                                 int window, void* stream) {
+  if (R < 1 || W < 1 || n < 1 || C < 1) return cudaErrorInvalidValue;
+  return static_cast<int>(pick_lanes<false>(
+      lanes, window, static_cast<const int*>(ell),
+      static_cast<const int*>(colors), static_cast<const int*>(nullptr),
+      static_cast<const uint8_t*>(nullptr), static_cast<const int*>(forb0),
+      static_cast<const uint8_t*>(nullptr),
+      static_cast<const uint8_t*>(nullptr),
+      static_cast<const uint8_t*>(nullptr), static_cast<int*>(mex),
+      static_cast<uint8_t*>(nullptr), static_cast<uint8_t*>(ovf), R, W, n, C,
+      0, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int coloring_detect_recolor(
+    const void* ell, const void* colors, const void* pri, const void* U,
+    const void* forb0, const void* extra_defect, const void* force,
+    const void* valid, void* newc, void* recolored, void* ovf, int R, int W,
+    int n, int C, int row_start, int lanes, int window, void* stream) {
+  if (R < 1 || W < 1 || n < 1 || C < 1 || row_start < 0 ||
+      static_cast<long long>(row_start) + R > n)
+    return cudaErrorInvalidValue;
+  return static_cast<int>(pick_lanes<true>(
+      lanes, window, static_cast<const int*>(ell),
+      static_cast<const int*>(colors), static_cast<const int*>(pri),
+      static_cast<const uint8_t*>(U), static_cast<const int*>(forb0),
+      static_cast<const uint8_t*>(extra_defect),
+      static_cast<const uint8_t*>(force), static_cast<const uint8_t*>(valid),
+      static_cast<int*>(newc), static_cast<uint8_t*>(recolored),
+      static_cast<uint8_t*>(ovf), R, W, n, C, row_start,
+      static_cast<cudaStream_t>(stream)));
+}

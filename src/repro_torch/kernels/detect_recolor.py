@@ -1,0 +1,87 @@
+"""RSOC's fused detect-and-recolor over one chunk: CUDA kernel + plain version.
+
+Replaces the Pallas kernel
+``src/repro/kernels/detect_recolor.py::detect_recolor`` (body
+``_detect_recolor_kernel``): for rows ``[row_start, row_start + R)`` one
+gather of the neighbours' colours and priorities feeds both the defect test
+(same colour as a higher-priority neighbour) and the packed forbidden
+bitset; rows that must work take their mex, all others keep their colour.
+The kernel is ``coloring_detect_recolor`` in ``csrc/coloring.cu``; the plain
+PyTorch version is ``detect_recolor_ref`` (``kernels/ref.py``, re-exported
+here).
+
+The optional inputs carry what the engine's chunk pass does beyond the
+reference kernel: ``forb0`` (R, n_words(C)) int32 is OR-ed into the initial
+forbidden words (the overflow-COO snapshot slice), ``extra_defect`` (R,) bool
+into the defect flags (overflow-edge conflicts), and ``work = valid & ((U &
+defect) | force)``.  With all four absent the outputs are bit-identical to
+the reference's.
+
+Bound on the card: bytes.  Rows outside ``valid & (U | force)`` cost their
+O(1) vector entries only; each other row costs its ``W*4`` bytes of ELL plus
+a 4-byte colour and a 4-byte priority per live slot (at most the two whole
+``n*4``-byte vectors once), and every row writes 6 bytes.  No floating point.
+As for ``firstfit`` the design aims at the reads: ``lanes`` lanes share a
+row, the words stay in registers, colours and priorities come through L2.
+The kernel writes ``newc`` and never ``colors``: every row of a launch sees
+the pre-launch colours whatever the block order; the caller commits.
+
+``detect_recolor`` launches the kernel for CUDA tensors and takes the plain
+version for CPU tensors — for those only: on a CUDA tensor it launches or
+raises.  ``detect_recolor.launches`` counts the launches.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.firstfit import (check_common, check_launch,
+                                          check_tensor, ptr)
+from repro_torch.kernels.ref import detect_recolor_ref  # noqa: F401
+
+
+def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
+                   forb0=None, extra_defect=None, force=None, valid=None, *,
+                   lanes: Optional[int] = None, window: Optional[int] = None):
+    """Fused RSOC pass for rows [row_start, row_start + R).
+
+    ell (R, W) int32 tile of those rows; colors, pri (n,) int32; U_rows (R,)
+    bool; optional forb0 (R, n_words(C)) int32 and extra_defect / force /
+    valid (R,) bool.  Returns (new row colors (R,) int32, recolored (R,)
+    bool, overflow (R,) bool).
+    """
+    R, W, n, lanes, window = check_common(ell, colors, C, forb0, lanes,
+                                          window)
+    device = ell.device
+    check_tensor("pri", pri, torch.int32, (n,), device)
+    check_tensor("U_rows", U_rows, torch.bool, (R,), device)
+    for name, t in (("extra_defect", extra_defect), ("force", force),
+                    ("valid", valid)):
+        if t is not None:
+            check_tensor(name, t, torch.bool, (R,), device)
+    row_start = int(row_start)
+    if row_start < 0 or row_start + R > n:
+        raise ValueError(f"rows [{row_start}, {row_start + R}) lie outside "
+                         f"the (n={n},) color vector")
+    if device.type != "cuda":
+        return detect_recolor_ref(ell, colors, pri, row_start, U_rows, C,
+                                  forb0=forb0, extra_defect=extra_defect,
+                                  force=force, valid=valid)
+    lib = _build.library()
+    newc = torch.empty((R,), dtype=torch.int32, device=device)
+    rec = torch.empty((R,), dtype=torch.bool, device=device)
+    ovf = torch.empty((R,), dtype=torch.bool, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.coloring_detect_recolor(
+            ptr(ell), ptr(colors), ptr(pri), ptr(U_rows), ptr(forb0),
+            ptr(extra_defect), ptr(force), ptr(valid), ptr(newc), ptr(rec),
+            ptr(ovf), R, W, n, int(C), row_start, lanes, window, stream)
+    check_launch("detect_recolor", err)
+    detect_recolor.launches += 1
+    return newc, rec, ovf
+
+
+detect_recolor.launches = 0

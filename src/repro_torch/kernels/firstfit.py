@@ -1,0 +1,131 @@
+"""First-fit tentative coloring over an ELL tile: CUDA kernel + plain version.
+
+Replaces the Pallas kernel ``src/repro/kernels/firstfit.py::firstfit`` (body
+``_firstfit_kernel``): per ELL row, gather the neighbours' colours, OR them
+into a packed forbidden bitset (tail bits >= C pre-forbidden) and return the
+smallest free colour ``mex`` and the all-forbidden flag ``ovf`` (``mex=0`` on
+an all-ones row).  The kernel is ``coloring_firstfit`` in
+``csrc/coloring.cu``; the plain PyTorch version of the same function is
+``firstfit_ref`` (``kernels/ref.py``, re-exported here).
+
+Bound on the card: bytes.  It must read the ``R*W*4`` bytes of the ELL tile
+and one 4-byte colour per live slot (at most the whole ``n*4``-byte vector
+once), optionally the ``R*nW*4`` bytes of ``forb0``, and write ``R*5`` bytes;
+it does a handful of integer operations per slot and no floating point.  The
+design therefore aims only at the reads: ``lanes`` lanes share a row and read
+consecutive slots of it, the forbidden words stay in registers, and the
+colour vector is read through L2 with no size limit (see the source note in
+``csrc/coloring.cu``).
+
+``firstfit`` launches the kernel for CUDA tensors and takes the plain version
+for CPU tensors — for those only: on a CUDA tensor it launches or raises.
+``firstfit.launches`` counts the launches.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import bitset
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import firstfit_ref  # noqa: F401  (plain version)
+
+LANES = (1, 2, 4, 8, 16, 32)     # lanes per row compiled into the library
+WINDOWS = (2, 8, 16)             # register-resident forbidden words
+
+
+def pick_lanes(W: int) -> int:
+    """Smallest compiled group size that covers a row of W slots in one
+    stride (a warp at most)."""
+    return next((g for g in LANES if g >= W), LANES[-1])
+
+
+def pick_window(C: int) -> int:
+    """Smallest compiled window that holds all ``n_words(C)`` words; the
+    widest one (swept repeatedly by the kernel) for larger caps."""
+    nW = bitset.n_words(C)
+    return next((w for w in WINDOWS if w >= nW), WINDOWS[-1])
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor "
+                        f"(got {type(t).__name__})")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype} (got {t.dtype})")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)} "
+                         f"(got {tuple(t.shape)})")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_common(ell, colors, C, forb0, lanes, window):
+    """Checks shared by both wrappers; returns (R, W, n, lanes, window)."""
+    if not isinstance(ell, torch.Tensor) or ell.dim() != 2:
+        raise ValueError("ell must be a 2-D tensor (R, W)")
+    R, W = ell.shape
+    if R < 1 or W < 1:
+        raise ValueError(f"ell must have R >= 1 and W >= 1 (got {R}x{W})")
+    if int(C) < 1:
+        raise ValueError(f"C must be >= 1 (got {C})")
+    device = ell.device
+    check_tensor("ell", ell, torch.int32, (R, W), device)
+    if not isinstance(colors, torch.Tensor) or colors.dim() != 1 \
+            or colors.shape[0] < 1:
+        raise ValueError("colors must be a non-empty 1-D tensor (n,)")
+    n = colors.shape[0]
+    check_tensor("colors", colors, torch.int32, (n,), device)
+    if forb0 is not None:
+        check_tensor("forb0", forb0, torch.int32, (R, bitset.n_words(C)),
+                     device)
+    lanes = pick_lanes(W) if lanes is None else int(lanes)
+    window = pick_window(C) if window is None else int(window)
+    if lanes not in LANES:
+        raise ValueError(f"lanes must be one of {LANES} (got {lanes})")
+    if window not in WINDOWS:
+        raise ValueError(f"window must be one of {WINDOWS} (got {window})")
+    return R, W, n, lanes, window
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed "
+                           f"(cudaError {err})")
+
+
+def firstfit(ell, colors, C: int, forb0=None, *, lanes: Optional[int] = None,
+             window: Optional[int] = None):
+    """First-fit colours for every ELL row.
+
+    ell (R, W) int32 (FILL = -1), colors (n,) int32, optional forb0
+    (R, n_words(C)) int32 OR-ed into the forbidden words.  Returns
+    (mex (R,) int32, overflow (R,) bool).  ``lanes`` / ``window`` override
+    the kernel's launch shape (tuning and tests; the result does not depend
+    on them).
+    """
+    R, W, n, lanes, window = check_common(ell, colors, C, forb0, lanes,
+                                          window)
+    if ell.device.type != "cuda":
+        return firstfit_ref(ell, colors, C, forb0=forb0)
+    lib = _build.library()
+    mex = torch.empty((R,), dtype=torch.int32, device=ell.device)
+    ovf = torch.empty((R,), dtype=torch.bool, device=ell.device)
+    with torch.cuda.device(ell.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.coloring_firstfit(
+            ptr(ell), ptr(colors), ptr(forb0), ptr(mex), ptr(ovf),
+            R, W, n, int(C), lanes, window, stream)
+    check_launch("firstfit", err)
+    firstfit.launches += 1
+    return mex, ovf
+
+
+firstfit.launches = 0

@@ -1,0 +1,84 @@
+"""Dispatch wrappers for the coloring kernels.
+
+``backend="auto"`` follows the tensors: a CUDA tensor launches the
+hand-written CUDA kernel or raises (no build, load or launch failure ever
+gives way to the plain version), a CPU tensor takes the plain PyTorch
+version (``kernels/ref.py``) — the CPU tests run there.  ``backend="torch"``
+asks for the plain version wherever the tensors lie; ``backend="cuda"`` asks
+for the kernel and raises on a CPU tensor.
+
+The dispatchers take ``impl`` ("bitset" | "dense"), forwarded to the plain
+versions; the kernels are the packed-bitset expression by construction
+(DESIGN.md §10) and ignore it — every (backend, impl) corner must agree
+bit-for-bit.
+
+The only route from a CUDA tensor under ``backend="auto"`` to the plain
+version is the ``kernel.fallback`` fault site, armed explicitly through
+``REPRO_FAULTS`` / ``faults.inject()`` and counted in
+``kernels.fallback{kernel=,reason=forced}``.  Every dispatch decision is
+counted in ``kernels.dispatch{kernel=,backend=}``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.detect_recolor import detect_recolor as _dr_cuda
+from repro_torch.kernels.firstfit import firstfit as _firstfit_cuda
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.resilience import faults
+
+BACKENDS = ("auto", "torch", "cuda")
+
+
+def _resolve(backend: str, t: torch.Tensor) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown kernel backend {backend!r}; "
+                         f"known: {BACKENDS}")
+    if backend == "auto":
+        return "cuda" if t.device.type == "cuda" else "torch"
+    if backend == "cuda" and t.device.type != "cuda":
+        raise ValueError(
+            f"backend='cuda' needs CUDA tensors (got a tensor on {t.device})")
+    return backend
+
+
+def _forced_fallback(kernel: str, b: str) -> str:
+    """``kernel.fallback`` fault site (DESIGN.md §14.4): force the plain
+    torch version — bit-identical output by the parity contract, so chaos
+    runs exercise the fallback plumbing without changing results.  With
+    faults off this is one module-global None check."""
+    if b != "torch" and faults.fires("kernel.fallback", kernel=kernel):
+        obs_metrics.counter("kernels.fallback", kernel=kernel,
+                            reason="forced").inc()
+        return "torch"
+    return b
+
+
+def _dispatched(kernel: str, backend: str) -> None:
+    """Count every dispatch decision: ``kernels.dispatch{kernel=,backend=}``
+    tells a perf report which path actually ran (DESIGN.md §12)."""
+    obs_metrics.counter("kernels.dispatch", kernel=kernel,
+                        backend=backend).inc()
+
+
+def firstfit(ell, colors, C: int = 64, backend: str = "auto",
+             impl: str = "bitset", forb0=None, **kw):
+    b = _forced_fallback("firstfit", _resolve(backend, ell))
+    _dispatched("firstfit", b)
+    if b == "torch":
+        return ref.firstfit_ref(ell, colors, C, impl=impl, forb0=forb0)
+    return _firstfit_cuda(ell, colors, C, forb0, **kw)
+
+
+def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int = 64,
+                   backend: str = "auto", impl: str = "bitset", forb0=None,
+                   extra_defect=None, force=None, valid=None, **kw):
+    b = _forced_fallback("detect_recolor", _resolve(backend, ell))
+    _dispatched("detect_recolor", b)
+    if b == "torch":
+        return ref.detect_recolor_ref(
+            ell, colors, pri, row_start, U_rows, C, impl=impl, forb0=forb0,
+            extra_defect=extra_defect, force=force, valid=valid)
+    return _dr_cuda(ell, colors, pri, U_rows, row_start, C, forb0,
+                    extra_defect, force, valid, **kw)

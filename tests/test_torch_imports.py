@@ -1,0 +1,116 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor anything of the reference package ``repro``."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+PKG = os.path.join(SRC, "repro_torch")
+
+# `import jax`, `from jax...`, `import repro`, `from repro...` — `repro` as a
+# whole word, so `repro_torch` does not match
+FORBIDDEN = re.compile(
+    r"^\s*(?:import\s+(?:jax|repro)\b(?!_)|from\s+(?:jax|repro)\b(?!_))",
+    re.MULTILINE)
+
+
+def _py_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _modules():
+    import repro_torch
+    names = ["repro_torch"]
+    for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(m.name)
+    # sub-packages without an __init__ (namespace packages) are not walked
+    for d, _, files in os.walk(PKG):
+        rel = os.path.relpath(d, SRC).replace(os.sep, ".")
+        for f in files:
+            if f.endswith(".py") and f != "__init__.py":
+                names.append(f"{rel}.{f[:-3]}")
+    return sorted(set(names))
+
+
+def test_regex_is_sound():
+    assert FORBIDDEN.search("import jax\n")
+    assert FORBIDDEN.search("  from jax.numpy import x\n")
+    assert FORBIDDEN.search("from repro.core import bitset\n")
+    assert FORBIDDEN.search("import repro\n")
+    assert FORBIDDEN.search("from repro import api\n")
+    assert not FORBIDDEN.search("from repro_torch.core import bitset\n")
+    assert not FORBIDDEN.search("import repro_torch\n")
+    assert not FORBIDDEN.search("# replaces src/repro/kernels/firstfit.py\n")
+
+
+@pytest.mark.parametrize("path", _py_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_has_no_jax_or_reference_import(path):
+    with open(path) as f:
+        hit = FORBIDDEN.search(f.read())
+    assert hit is None, f"{path}: {hit.group(0).strip()!r}"
+
+
+def test_every_module_is_found():
+    mods = _modules()
+    for m in ("repro_torch.api", "repro_torch.registry",
+              "repro_torch.core.bitset", "repro_torch.core.coloring",
+              "repro_torch.core.context", "repro_torch.graphs.csr",
+              "repro_torch.graphs.generators", "repro_torch.kernels._build",
+              "repro_torch.kernels.firstfit",
+              "repro_torch.kernels.detect_recolor", "repro_torch.kernels.ops",
+              "repro_torch.kernels.ref", "repro_torch.obs.export",
+              "repro_torch.obs.metrics", "repro_torch.obs.trace",
+              "repro_torch.resilience.errors", "repro_torch.resilience.faults"):
+        assert m in mods, m
+
+
+def test_fresh_interpreter_imports_without_jax_or_reference():
+    """Import every module of the port in a new interpreter (with the
+    reference package importable, as in this test run) and look at
+    ``sys.modules``.  Importing must also build nothing: a machine without
+    a CUDA compiler imports every module."""
+    code = (
+        "import importlib, sys\n"
+        f"mods = {_modules()!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'jaxlib' or k == 'repro' or "
+        "k.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "from repro_torch.kernels import _build\n"
+        "assert _build._lib is None and _build.build_seconds is None\n"
+        "print('ok', len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("REPRO_FAULTS", None)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu_or_the_package(tmp_path):
+    """Without a GPU the script exits non-zero and prints no result line;
+    alone in a directory (no package beside it) it fails too."""
+    import shutil
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the refusal path is not taken")
+    for cwd, script in ((ROOT, os.path.join(ROOT, "chip_smoke.py")),
+                        (str(tmp_path), str(tmp_path / "chip_smoke.py"))):
+        if cwd != ROOT:
+            shutil.copy(os.path.join(ROOT, "chip_smoke.py"), script)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        proc = subprocess.run([sys.executable, script], env=env, cwd=cwd,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
