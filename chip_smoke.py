@@ -10,15 +10,25 @@ ends the run with a non-zero exit code:
   2. build    build the kernels from src/repro_torch/kernels/csrc
   3. kernels  each kernel against its plain PyTorch version on the card,
               bit-equal (tolerance 0: integer arithmetic), over shape sweeps
-  4. golden   paper_suite("tiny") x seeds 0-2 through repro_torch.api.color on
-              the card against tests/torch_golden.json (made by the JAX
+  4. golden   paper_suite("tiny") x seeds 0-2 at distance 1 and 2, and two
+              bipartite graphs (mode="partial"), through repro_torch.api.color
+              on the card against tests/torch_golden.json (made by the JAX
               reference package)
   5. main     repro_torch.api.color(g), default spec, on the paper's graph
               classes at real size; launch counters zeroed before, read after
-  5b. plain   the same problems through the plain versions on the card
-              (kernel.fallback fault site), results equal field by field
+  5c. d2      api.color(g, distance=2) on the meshes and RMAT-ER,
+              mode="partial" on a 2^20 x 2^20 Jacobian pattern,
+              algorithm="rsoc_compact" on the meshes and RMAT-B; counters
+              zeroed before, read after; properness by the host oracles (in
+              worker processes) or, for RMAT-ER, on the card
+  5b. plain   the problems of 5 and the distance-2 and rsoc_compact meshes
+              of 5c through the plain versions on the card (kernel.fallback
+              fault site), results equal field by field
   6. times    per-kernel time / plain-version time / bound at the shapes
-              phase 5 used
+              phases 5 and 5c used; one compacted repair pass per
+              compacted path (detect_recolor with row_ids, forb0 and
+              extra_defect on RMAT-B; twohop with row_ids on RMAT-ER),
+              kernels against plain versions on the same inputs
 
 The last line of the standard output is the result object; the line before
 it the card's name and power limit; before that one JSON object per kernel.
@@ -31,7 +41,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import hashlib
 import json
 import multiprocessing
 import os
@@ -89,12 +98,15 @@ def rand_words(rng, R, C, device, density=0.2):
     return bitset.pack_dense(dev(dense, device), C).contiguous()
 
 
+KERNELS = ("firstfit", "detect_recolor", "twohop_detect_recolor")
+
+
 class Cmp:
     """Kernel-vs-plain comparisons, collected per kernel."""
 
     def __init__(self):
-        self.max_err = {"firstfit": 0, "detect_recolor": 0}
-        self.cases = {"firstfit": [], "detect_recolor": []}
+        self.max_err = {k: 0 for k in KERNELS}
+        self.cases = {k: [] for k in KERNELS}
 
     def check(self, kernel, label, got, want, names):
         for g, w, nm in zip(got, want, names):
@@ -205,42 +217,186 @@ def phase_kernels(device, launch: bool) -> Cmp:
                                          lanes=lanes, window=window),
                           want_dr, names)
         torch.cuda.synchronize()
+    phase_kernels_rows(device, launch, cmp)
+    phase_kernels_twohop(device, launch, cmp)
     return cmp
+
+
+def phase_kernels_rows(device, launch: bool, cmp: Cmp):
+    """``detect_recolor`` with ``row_ids`` (the compacted-frontier pass):
+    rows of the full table, ids unsorted, clamped dead slots included."""
+    from repro_torch.kernels import ops, ref
+    kb = "cuda" if launch else "torch"
+    names = ("newc", "recolored", "ovf")
+    # (R, W, n, C)
+    for R, W, n, C in [(256, 8, 1024, 32), (1000, 7, 3000, 33),
+                       (77, 40, 500, 512), (333, 70, 2000, 1024)]:
+        rng = np.random.default_rng(R + 7 * W)
+        ell = dev(rand_ell(rng, n, W, n), device)
+        colors = rng.integers(0, max(C // 2, 1), size=(n,)).astype(np.int32)
+        colors[rng.integers(0, n, size=n // 10)] = -1
+        colors = dev(colors, device)
+        pri = dev(rng.permutation(n).astype(np.int32), device)
+        ids = rng.permutation(n)[:R].astype(np.int32)
+        ids[rng.random(R) < 0.1] = n + 5          # dead slots, clamped
+        ids = dev(ids, device)
+        U = dev(rng.random(R) < 0.7, device)
+        opt = dict(forb0=rand_words(rng, R, C, device),
+                   extra_defect=dev(rng.random(R) < 0.2, device),
+                   force=dev(rng.random(R) < 0.2, device),
+                   valid=dev(rng.random(R) < 0.8, device))
+        for keys in ((), ("force",), tuple(opt)):
+            kw = {k: opt[k] for k in keys}
+            want = ref.detect_recolor_ref(ell, colors, pri, 0, U, C,
+                                          row_ids=ids, **kw)
+            got = ops.detect_recolor(ell, colors, pri, U, 0, C, backend=kb,
+                                     row_ids=ids, **kw)
+            cmp.check("detect_recolor",
+                      f"R{R} W{W} n{n} C{C} +row_ids{'+' if keys else ''}"
+                      f"{'+'.join(keys)}", got, want, names)
+
+
+def twohop_case(rng, R, W, n, C, device, n_all=None, top=None, fill=0.3):
+    """Random inputs of one two-hop case: (ell_all, colors, pri, U)."""
+    n_all = n if n_all is None else n_all
+    ell_all = dev(rand_ell(rng, n_all, W, n_all, fill), device)
+    top = max(C // 2, 1) if top is None else top
+    colors = rng.integers(0, top, size=(n,)).astype(np.int32)
+    colors[rng.integers(0, n, size=n // 10)] = -1
+    return (ell_all, dev(colors, device),
+            dev(rng.permutation(n).astype(np.int32), device),
+            dev(rng.random(R) < 0.7, device))
+
+
+def phase_kernels_twohop(device, launch: bool, cmp: Cmp):
+    """``twohop_detect_recolor`` against ``twohop_ref`` on the card."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.firstfit import LANES, WINDOWS
+    from repro_torch.kernels.twohop import twohop_detect_recolor
+    kb = "cuda" if launch else "torch"
+    names = ("newc", "recolored", "ovf")
+    K = "twohop_detect_recolor"
+
+    def both(label, ell_rows, ell_all, colors, pri, U, row_start, C, **kw):
+        want = ref.twohop_ref(ell_rows, ell_all, colors, pri, row_start, U,
+                              C, **{k: v for k, v in kw.items()
+                                    if k != "page_rows"})
+        got = ops.twohop(ell_rows, ell_all, colors, pri, U, row_start, C,
+                         backend=kb, **kw)
+        cmp.check(K, label, got, want, names)
+        return got
+
+    # (R, W, n, C, row_start): the reference's test shapes, then caps
+    # 32 / 33 / 512 / 1024 (the last two past one register window); the
+    # 1024 case draws colours so that many rows need the second window
+    shapes = [(128, 4, 512, 32, 0, None), (128, 8, 512, 64, 128, None),
+              (256, 2, 1024, 32, 256, None), (128, 6, 128, 32, 0, None),
+              (333, 20, 2000, 32, 1, None), (333, 20, 2000, 33, 1, None),
+              (200, 30, 3000, 512, 7, None), (64, 64, 4096, 1024, 100, 560),
+              (1, 1, 1, 1, 0, None)]
+    for R, W, n, C, rs, top in shapes:
+        rng = np.random.default_rng(R * W + C)
+        ell_all, colors, pri, U = twohop_case(rng, R, W, n, C, device,
+                                              top=top)
+        lab = f"R{R} W{W} n{n} C{C} rs{rs}"
+        both(lab, ell_all[rs:rs + R], ell_all, colors, pri, U, rs, C)
+        # the optional inputs, alone and together
+        force = dev(rng.random(R) < 0.2, device)
+        valid = dev(rng.random(R) < 0.8, device)
+        ids = rng.permutation(n)[:R].astype(np.int32)
+        ids[rng.random(R) < 0.1] = n + 3          # dead slots, clamped
+        ids = dev(ids, device)
+        for kw in (dict(force=force), dict(valid=valid),
+                   dict(detect=False), dict(row_ids=ids),
+                   dict(force=force, valid=valid, row_ids=ids),
+                   dict(force=force, valid=valid, row_ids=ids,
+                        detect=False)):
+            rows = None if "row_ids" in kw else ell_all[rs:rs + R]
+            both(f"{lab} +{'+'.join(kw)}", rows, ell_all, colors, pri, U,
+                 rs, C, **kw)
+    # colours shorter than the table (n < n_all): gathers clamp to n
+    rng = np.random.default_rng(3)
+    ell_all, colors, pri, U = twohop_case(rng, 100, 9, 700, 64, device,
+                                          n_all=900)
+    both("R100 W9 n700 n_all900 C64", ell_all[50:150], ell_all, colors, pri,
+         U, 50, 64)
+    # ragged page_rows: accepted, and the result does not depend on it
+    rng = np.random.default_rng(1000)
+    ell_all, colors, pri, U = twohop_case(rng, 128, 8, 1000, 32, device)
+    for page_rows, rs in ((96, 0), (100, 128), (256, 256), (1, 5)):
+        both(f"R128 W8 n1000 C32 rs{rs} page_rows{page_rows}",
+             ell_all[rs:rs + 128], ell_all, colors, pri, U, rs, 32,
+             page_rows=page_rows)
+    # the saturation case of the reference's tests: ovf must fire
+    rng = np.random.default_rng(33)
+    n, W, R, C = 512, 16, 256, 4
+    ell_all = dev(rand_ell(rng, n, W, n, 0.05), device)
+    colors = dev(rng.integers(0, C, size=(n,)).astype(np.int32), device)
+    pri = dev(rng.permutation(n).astype(np.int32), device)
+    U = torch.ones(R, dtype=torch.bool, device=device)
+    got = both("saturation C4", ell_all[:R], ell_all, colors, pri, U, 0, C)
+    if not bool(got[2].any()):
+        fail("twohop saturation case (C=4) did not raise the overflow flag")
+    # every compiled (lanes, window) pair computes the same function
+    if launch:
+        rng = np.random.default_rng(6)
+        R, W, n, C = 300, 45, 3000, 700
+        ell_all, colors, pri, U = twohop_case(rng, R, W, n, C, device,
+                                              top=300)
+        ids = dev(rng.permutation(n)[:R].astype(np.int32), device)
+        force = dev(rng.random(R) < 0.2, device)
+        want = ref.twohop_ref(None, ell_all, colors, pri, 0, U, C,
+                              row_ids=ids, force=force)
+        for lanes in LANES:
+            for window in WINDOWS:
+                cmp.check(K, f"R{R} W{W} n{n} C{C} lanes{lanes} "
+                          f"window{window}",
+                          twohop_detect_recolor(
+                              None, ell_all, colors, pri, U, 0, C,
+                              row_ids=ids, force=force, lanes=lanes,
+                              window=window), want, names)
+        torch.cuda.synchronize()
 
 
 # --------------------------------------------------------------------------
 # phase 4: golden file
 # --------------------------------------------------------------------------
 
-RESULT_FIELDS = ("n_rounds", "total_conflicts", "final_C", "retries",
-                 "n_colors")
-
-
-def golden_entry(res) -> dict:
-    d = {f: int(getattr(res, f)) for f in RESULT_FIELDS}
-    d["colors_sha256"] = hashlib.sha256(
-        np.ascontiguousarray(res.colors, dtype=np.int32).tobytes()).hexdigest()
-    return d
+def golden_module():
+    """``tests/make_torch_golden.py``: the run list and entry format of
+    ``tests/torch_golden.json`` (numpy only; it imports the reference
+    package only in its ``main``, which is not called here)."""
+    import importlib.util
+    path = os.path.join(HERE, "tests", "make_torch_golden.py")
+    spec = importlib.util.spec_from_file_location("make_torch_golden", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def phase_golden(device) -> int:
     from repro_torch import api
-    from repro_torch.core.coloring import is_proper
-    from repro_torch.graphs.generators import paper_suite
-    path = os.path.join(HERE, "tests", "torch_golden.json")
-    with open(path) as f:
+    from repro_torch.core.distance2 import (is_bipartite_partial_proper,
+                                            is_distance_d_proper)
+    from repro_torch.graphs import generators
+    gm = golden_module()
+    with open(gm.PATH) as f:
         golden = json.load(f)["results"]
     n = 0
-    for name, g in paper_suite("tiny").items():
-        for seed in (0, 1, 2):
-            res = api.color(g, device=device, seed=seed)
-            got, want = golden_entry(res), golden[f"{name}/seed={seed}"]
-            if got != want:
-                fail(f"golden mismatch for {name} seed={seed}: "
-                     f"got {got}, file has {want}")
-            if not is_proper(g, res.colors):
-                fail(f"golden run {name} seed={seed} is not a proper coloring")
-            n += 1
+    for key, g, kw in gm.runs(generators):
+        res = api.color(g, device=device, **kw)
+        got, want = gm.entry(res), golden[key]
+        if got != want:
+            fail(f"golden mismatch for {key}: got {got}, file has {want}")
+        if kw.get("mode") == "partial":
+            proper = is_bipartite_partial_proper(g, kw["n_left"], res.colors)
+        else:
+            proper = is_distance_d_proper(g, res.colors, kw.get("distance", 1))
+        if not proper:
+            fail(f"golden run {key} is not a proper coloring")
+        n += 1
+    if n != len(golden):
+        fail(f"golden: {n} runs for {len(golden)} entries in the file")
     return n
 
 
@@ -331,8 +487,8 @@ def phase_main(rmats, device, rehearse: bool):
     rows, kept = [], {}
     obs.metrics.reset()
     # counts to 0 just before the main path is driven ...
-    firstfit.launches = 0
-    detect_recolor.launches = 0
+    for w in launch_counters().values():
+        w.launches = 0
     for name, make in build_graphs(rmats, rehearse).items():
         g, gen_s = make()
         ff0, dr0 = firstfit.launches, detect_recolor.launches
@@ -355,16 +511,14 @@ def phase_main(rmats, device, rehearse: bool):
             fail(f"{name}: colors have shape {res.colors.shape} "
                  f"dtype {res.colors.dtype}")
         if device.type == "cuda":
-            want_ff = n_chunks * (1 + res.retries)
-            if ff1 - ff0 != want_ff:
+            exact_launch_counts(name, res)
+            if ff1 - ff0 != n_chunks:
                 fail(f"{name}: firstfit launched {ff1 - ff0} times, expected "
-                     f"n_chunks*(1+retries) = {want_ff}")
-            d = dr1 - dr0
-            if (res.retries == 0 and d != n_chunks * res.n_rounds) or \
-                    d < n_chunks * res.n_rounds or d % n_chunks:
-                fail(f"{name}: detect_recolor launched {d} times, expected "
-                     f"n_chunks*n_rounds = {n_chunks * res.n_rounds} per "
-                     f"cap attempt")
+                     f"n_chunks = {n_chunks}")
+            if dr1 - dr0 != n_chunks * res.n_rounds:
+                fail(f"{name}: detect_recolor launched {dr1 - dr0} times, "
+                     f"expected n_chunks*n_rounds = "
+                     f"{n_chunks * res.n_rounds}")
         fb = obs.metrics.counters_matching("kernels.fallback")
         if fb:
             fail(f"{name}: kernels.fallback counters are not empty: {fb}")
@@ -386,30 +540,53 @@ def phase_main(rmats, device, rehearse: bool):
             kept[name] = (g, res)
         del g
     # ... and read just after
-    counts = {"firstfit": firstfit.launches,
-              "detect_recolor": detect_recolor.launches}
+    counts = launch_counts()
     if device.type == "cuda":
-        for k, v in counts.items():
-            if v < 1:
+        for k in ("firstfit", "detect_recolor"):
+            if counts[k] < 1:
                 fail(f"the main path never launched the {k} kernel")
+        if counts["twohop_detect_recolor"]:
+            fail("the main path launched the two-hop kernel")
     return rows, kept, counts
 
 
-def phase_plain(device, kept):
-    """The kept problems through the plain versions on the card."""
-    from repro_torch import api, obs
+def exact_launch_counts(what: str, res):
+    """The launch checks are exact for one cap attempt: a run that doubled
+    its cap ran earlier attempts whose round counts the result does not
+    carry, so its launches cannot be checked exactly and the run fails.
+    (Every graph here is seeded and needs no retry at the default cap.)"""
+    if res.retries:
+        fail(f"{what}: {res.retries} cap-doubling retries; the launch counts "
+             f"of the earlier attempts cannot be checked exactly")
+
+
+def launch_counters() -> dict:
+    """Kernel name -> its wrapper, whose ``.launches`` counts launches."""
     from repro_torch.kernels.detect_recolor import detect_recolor
     from repro_torch.kernels.firstfit import firstfit
+    from repro_torch.kernels.twohop import twohop_detect_recolor
+    return {"firstfit": firstfit, "detect_recolor": detect_recolor,
+            "twohop_detect_recolor": twohop_detect_recolor}
+
+
+def launch_counts() -> dict:
+    return {k: w.launches for k, w in launch_counters().items()}
+
+
+def phase_plain(device, kept, skip=("rmat_b",), **kw):
+    """The kept problems through the plain versions on the card: the same
+    ``api.color(g, **kw)`` call under the ``kernel.fallback`` fault site."""
+    from repro_torch import api, obs
     from repro_torch.resilience import faults
     done = []
     for name, (g, res) in kept.items():
-        if name.startswith("rmat_b"):
+        if name.startswith(skip):
             continue       # W = ell_cap rows: the plain pack is (rows, W, nW)
-        before = (firstfit.launches, detect_recolor.launches)
+        before = launch_counts()
         obs.metrics.reset()
         with faults.inject("kernel.fallback"):
-            plain = api.color(g, device=device)
-        if (firstfit.launches, detect_recolor.launches) != before:
+            plain = api.color(g, device=device, **kw)
+        if launch_counts() != before:
             fail(f"{name}: the plain run launched a kernel")
         forced = obs.metrics.total_matching("kernels.fallback")
         torch_disp = sum(v for k, v in obs.metrics.counters_matching(
@@ -417,10 +594,180 @@ def phase_plain(device, kept):
         if device.type == "cuda" and (forced == 0 or forced != torch_disp):
             fail(f"{name}: plain run dispatched {torch_disp} plain calls for "
                  f"{forced} forced fallbacks")
-        assert_same_result(res, plain, f"{name}: kernel path vs plain path")
+        assert_same_result(res, plain, f"{name} {kw}: kernel path vs plain "
+                                       f"path")
         done.append(name)
     obs.metrics.reset()
     return done
+
+
+# --------------------------------------------------------------------------
+# phase 5c: distance-2, bipartite partial and frontier compaction at real
+# size
+# --------------------------------------------------------------------------
+
+D2_MESHES = ("mesh2d", "bmw3_2", "pwtk")
+BIPARTITE_DEGREE = 8.0     # nonzeros per column of the Jacobian pattern
+
+
+def make_bipartite(log2: int):
+    """Worker-process body: the bipartite (Jacobian) pattern, as arrays."""
+    from repro_torch.graphs import generators as gen
+    t = time.perf_counter()
+    g = gen.bipartite_random(2 ** log2, 2 ** log2, BIPARTITE_DEGREE, seed=0)
+    return g.indptr, g.indices, g.n_vertices, time.perf_counter() - t
+
+
+def host_check(indptr, indices, n: int, colors, n_left=None) -> bool:
+    """Worker-process body: the package's host oracle on one result —
+    ``is_distance_d_proper(g, colors, 2)``, or with ``n_left``
+    ``is_bipartite_partial_proper``."""
+    from repro_torch.core.distance2 import (is_bipartite_partial_proper,
+                                            is_distance_d_proper)
+    from repro_torch.graphs.csr import CSRGraph
+    g = CSRGraph(indptr=indptr, indices=indices, n_vertices=n)
+    if n_left is None:
+        return is_distance_d_proper(g, colors, 2)
+    return is_bipartite_partial_proper(g, n_left, colors)
+
+
+def d2_conflicts_on_card(g, colors, device) -> int:
+    """Distance-2 conflicts of a full coloring, counted on the card in plain
+    torch (not the kernel), a block of rows at a time: pairs (v, u) with u
+    within two hops of v, u != v, and the same colour.  For graphs whose G²
+    is too large to build on the host."""
+    from repro_torch.graphs.csr import to_ell
+    ell = torch.from_numpy(to_ell(g)).to(device)
+    col = torch.from_numpy(np.ascontiguousarray(colors)).to(device)
+    if bool((col < 0).any()):
+        return -1
+    n, W = ell.shape
+    step = max(1, 2 ** 24 // (W + W * W))
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    for lo in range(0, n, step):
+        e1 = ell[lo:lo + step]
+        R = e1.shape[0]
+        v = torch.arange(lo, lo + R, device=device)
+        c_v = col[lo:lo + R][:, None]
+        live1 = e1 >= 0
+        s1 = e1.clamp(min=0).long()
+        e2 = ell[s1.reshape(-1)].reshape(R, W * W)
+        live2 = (live1.repeat_interleave(W, dim=1) & (e2 >= 0)
+                 & (e2 != v[:, None]))
+        bad += (live1 & (col[s1] == c_v)).sum()
+        bad += (live2 & (col[e2.clamp(min=0).long()] == c_v)).sum()
+    return int(bad)
+
+
+def phase_distance2(kept, bip, device, rehearse: bool, pool):
+    """``api.color(g, distance=2)`` on the meshes and the uniform RMAT,
+    ``mode="partial"`` on the bipartite pattern, ``algorithm=
+    "rsoc_compact"`` on the meshes and the skewed RMAT.  Returns the rows,
+    the problems phase 5b / 6 reuse (two-hop runs, compacted runs), the
+    launch counts of the whole phase and the pending host checks."""
+    from repro_torch import api, obs
+    from repro_torch.core.coloring import is_proper
+    from repro_torch.graphs.csr import CSRGraph
+    n_chunks = api.ColoringSpec().n_chunks
+    rmat_er = next(k for k in kept if k.startswith("rmat_er"))
+    rmat_b = next(k for k in kept if k.startswith("rmat_b"))
+    indptr, indices, n_bip, bip_gen_s = bip.get()
+    g_bip = CSRGraph(indptr=indptr, indices=indices, n_vertices=n_bip)
+    n_left = n_bip // 2
+    bip_name = f"bipartite_{int(np.log2(n_left))}"
+    runs = ([(nm, kept[nm][0], dict(distance=2)) for nm in D2_MESHES]
+            + [(rmat_er, kept[rmat_er][0], dict(distance=2)),
+               (bip_name, g_bip, dict(distance=2, mode="partial",
+                                      n_left=n_left))]
+            + [(nm, kept[nm][0], dict(algorithm="rsoc_compact"))
+               for nm in D2_MESHES + (rmat_b,)])
+    rows, kept_d2, kept_compact, checks = [], {}, {}, {}
+    # counts to 0 just before this path is driven ...
+    for w in launch_counters().values():
+        w.launches = 0
+    for name, g, kw in runs:
+        what = "partial" if "mode" in kw else (
+            "distance2" if "distance" in kw else "rsoc_compact")
+        obs.metrics.reset()
+        c0 = launch_counts()
+        traced_only = what == "rsoc_compact"
+        sync(device)
+        t = time.perf_counter()
+        res = api.color(g, device=device, trace=traced_only, **kw)
+        sync(device)
+        e2e_ms = (time.perf_counter() - t) * 1e3
+        c1 = launch_counts()
+        d = {k: c1[k] - c0[k] for k in c1}
+        res2 = res if traced_only else api.color(g, device=device,
+                                                 trace=True, **kw)
+        if not traced_only:
+            assert_same_result(res, res2, f"{name} {what}: traced vs "
+                                          f"untraced run")
+        if device.type == "cuda":
+            exact_launch_counts(f"{name} {what}", res)
+            # rsoc_compact: firstfit n_chunks, detect_recolor
+            # n_chunks*n_rounds; the two-hop engines: twohop
+            # n_chunks*(1+n_rounds) (round 0 is a two-hop pass too)
+            want = ({"firstfit": n_chunks,
+                     "detect_recolor": n_chunks * res.n_rounds,
+                     "twohop_detect_recolor": 0} if traced_only else
+                    {"firstfit": 0, "detect_recolor": 0,
+                     "twohop_detect_recolor": n_chunks * (1 + res.n_rounds)})
+            if d != want:
+                fail(f"{name} {what}: launches {d}, expected {want}")
+        fb = obs.metrics.counters_matching("kernels.fallback")
+        if fb:
+            fail(f"{name} {what}: kernels.fallback counters are not "
+                 f"empty: {fb}")
+        # properness: host oracles in worker processes (collected at the
+        # end), on the card for the RMAT, whose G² the host cannot build
+        want_shape = (n_left,) if what == "partial" else (g.n_vertices,)
+        if res.colors.shape != want_shape or res.colors.dtype != np.int32 \
+                or (res.colors < 0).any():
+            fail(f"{name} {what}: colors have shape {res.colors.shape} "
+                 f"dtype {res.colors.dtype}, or uncolored vertices")
+        if what == "rsoc_compact":
+            if not is_proper(g, res.colors):
+                fail(f"{name} {what}: result is not a proper coloring")
+            check = "is_proper (host)"
+        elif name == rmat_er:
+            bad = d2_conflicts_on_card(g, res.colors, device)
+            if bad != 0:
+                fail(f"{name} {what}: {bad} distance-2 conflicts on the card")
+            check = "distance-2 conflicts on the card: 0"
+        else:
+            checks[f"{name} {what}"] = pool.apply_async(
+                host_check, (g.indptr, g.indices, g.n_vertices, res.colors,
+                             n_left if what == "partial" else None))
+            check = ("is_bipartite_partial_proper (host, worker)"
+                     if what == "partial" else
+                     "is_distance_d_proper(g, colors, 2) (host, worker)")
+        row = {"graph": name, "run": what, "n": g.n_vertices,
+               "directed_edges": g.n_edges, "max_degree": g.max_degree,
+               "n_colors": res.n_colors, "n_rounds": res.n_rounds,
+               "conflicts": res.total_conflicts, "retries": res.retries,
+               "final_C": res.final_C, "e2e_cold_ms": round(e2e_ms, 2),
+               "prepare_ms": round(res2.trace.phase_wall_s("prepare") * 1e3,
+                                   2),
+               "solve_ms": round(res2.trace.phase_wall_s("solve") * 1e3, 3),
+               "launches": d, "check": check}
+        if what == "partial":
+            row["n_left"] = n_left
+            row["generate_ms"] = round(bip_gen_s * 1e3, 1)
+        log("distance2", json.dumps(row))
+        rows.append(row)
+        if what == "rsoc_compact":
+            kept_compact[name] = (g, res)
+        else:
+            kept_d2[name] = (g, res, kw)
+    # ... and read just after
+    counts = launch_counts()
+    if device.type == "cuda":
+        for k, v in counts.items():
+            if v < 1:
+                fail(f"the distance-2 / compacted path never launched the "
+                     f"{k} kernel")
+    return rows, kept_d2, kept_compact, counts, checks
 
 
 # --------------------------------------------------------------------------
@@ -454,19 +801,71 @@ def time_ms(fn, device, reps: int, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
-def phase_times(device, kept, cmp: Cmp, launch: bool):
-    """One chunk of each kept graph: kernel ms, plain ms, bound ms.
+def gather_bytes(ell_k, colors, vids, work, test, *, own: bool, ell=None):
+    """The gathered part of the bytes a pass must move, each input read
+    once, counted on this call's data.  ``vids`` (R,) are the rows' vertex
+    ids, ``work`` the rows that can work, ``test`` the rows whose defect
+    test reads priorities (in U, unforced, coloured).  Counted:
 
-    Bound: the bytes the function must move over the card's memory rate.
-    Inputs read once, outputs written once: the ELL rows of the rows that
-    can work (all rows for firstfit), one 4-byte colour (and priority) per
-    live slot of those rows but at most the whole vector once, the per-row
-    flag and colour/priority entries, the forb0 words where given, and the
-    outputs.  The integer work (a few operations per slot) is far below any
-    operation peak of the card, so bytes bound both kernels.
+      * the ELL row of each working row, W*4 B;
+      * with ``ell`` (the full table: a two-hop pass), the row of each
+        distinct live hop-1 neighbour of a working row, once, W*4 B;
+      * 4 B of colour per distinct vertex in a live slot of a working row
+        (either hop; the row itself is no hop-2 slot), and of every row
+        itself where ``own`` (its colour is its output when it keeps it);
+      * 4 B of priority per distinct vertex that is a tested row or sits in
+        a live slot of a tested row with the row's colour: the defect test
+        reads no other.
+
+    Returns (bytes, live slots of the working rows)."""
+    n = colors.shape[0]
+    W = ell_k.shape[1]
+    need_row = torch.zeros(n, dtype=torch.bool, device=colors.device)
+    need_col = torch.zeros_like(need_row)
+    need_pri = torch.zeros_like(need_row)
+    if own:
+        need_col[vids.long()] = True
+    need_pri[vids[test].long()] = True
+    rows = torch.nonzero(work)[:, 0]
+    live = 0
+    step = max(1, 2 ** 24 // (W * (W if ell is not None else 1)))
+    for s in range(0, rows.numel(), step):
+        r = rows[s:s + step]
+        v = vids[r].long()
+        c_v, t = colors[v][:, None], test[r][:, None]
+        e = ell_k[r].long()
+        ok = e >= 0
+        e = e.clamp(0, n - 1)
+        slots = [(e, ok)]
+        if ell is not None:
+            need_row[e[ok]] = True
+            e2 = ell[e].long()                                # (b, W, W)
+            ok2 = ok[:, :, None] & (e2 >= 0) & (e2 != v[:, None, None])
+            slots.append((e2.clamp(0, n - 1).reshape(len(r), -1),
+                          ok2.reshape(len(r), -1)))
+        for ids, ok_s in slots:
+            live += int(ok_s.sum())
+            need_col[ids[ok_s]] = True
+            need_pri[ids[ok_s & t & (colors[ids] == c_v)]] = True
+    nbytes = (int(work.sum()) * W * 4 + int(need_row.sum()) * W * 4
+              + 4 * int(need_col.sum()) + 4 * int(need_pri.sum()))
+    return nbytes, live
+
+
+def phase_times(device, kept, kept_compact, cmp: Cmp, launch: bool):
+    """One chunk of each kept graph: kernel ms, plain ms, bound ms; and on
+    the skewed RMAT one compacted pass, kernels against plain versions
+    (``check_compact_pass``).
+
+    Bound: the bytes the function must move over the card's memory rate,
+    inputs read once and outputs written once (``gather_bytes`` for the ELL
+    rows, colours and priorities), plus the per-row flags, the forb0 words
+    where given, and the outputs.  The integer work (a few operations per
+    slot) is far below any operation peak of the card, so bytes bound both
+    kernels.
     """
     from repro_torch import api
-    from repro_torch.core import coloring
+    from repro_torch.core import coloring, frontier
     from repro_torch.core.context import PassContext
     from repro_torch.kernels import ops, ref
     spec = api.ColoringSpec()
@@ -497,15 +896,17 @@ def phase_times(device, kept, cmp: Cmp, launch: bool):
         if has_ovf:
             f0 = coloring._snapshot_coo(prob.ovf_src, prob.ovf_dst, colors,
                                         n_pad, C, "bitset")[lo:hi].contiguous()
-        live = int((ell_k >= 0).sum())
         nW = -(-C // 32)
         reps = 20
 
         def bound(nbytes):
             return nbytes / HBM_BYTES_PER_S * 1e3
 
-        ff_bytes = (cs * W * 4 + 4 * min(n_pad, live)
-                    + (cs * nW * 4 if has_ovf else 0) + cs * 5)
+        vids = torch.arange(lo, hi, device=device)
+        all_k = torch.ones(cs, dtype=torch.bool, device=device)
+        ff_bytes, live = gather_bytes(ell_k, colors, vids, all_k, ~all_k,
+                                      own=False)
+        ff_bytes += (cs * nW * 4 if has_ovf else 0) + cs * 5
         ff = lambda: ops.firstfit(ell_k, colors, C, backend=kb, forb0=f0)
         ff_plain = lambda: ref.firstfit_ref(ell_k, colors, C, forb0=f0)
         cmp.check("firstfit", f"{name} chunk R{cs} W{W} n{n_pad} C{C}",
@@ -517,8 +918,9 @@ def phase_times(device, kept, cmp: Cmp, launch: bool):
                      "bound_ms": bound(ff_bytes)})
         # state after a whole round 0
         colors = torch.full((n_pad,), -1, dtype=torch.int32, device=device)
-        coloring._chunked_pass(ctx, prob.ell, prob.ovf_src, prob.ovf_dst,
-                               prob.pri, colors, zeros, valid, detect=False)
+        _, U0, _, _ = coloring._chunked_pass(
+            ctx, prob.ell, prob.ovf_src, prob.ovf_dst, prob.pri, colors,
+            zeros, valid, detect=False)
         U_k, valid_k, force_k = valid[lo:hi], valid[lo:hi], zeros[lo:hi]
         xd = None
         if has_ovf:
@@ -526,12 +928,13 @@ def phase_times(device, kept, cmp: Cmp, launch: bool):
                                         n_pad, C, "bitset")[lo:hi].contiguous()
             xd = coloring._ovf_conflict(prob.ovf_src, prob.ovf_dst, colors,
                                         prob.pri, n_pad)[lo:hi]
-        may = int((valid_k & (U_k | force_k)).sum())
-        live_may = int(((ell_k >= 0) & (valid_k & (U_k | force_k))[:, None])
-                       .sum())
-        dr_bytes = (may * W * 4 + 2 * 4 * min(n_pad, live_may)
-                    + cs * (8 + 3 + (1 if has_ovf else 0))
-                    + (may * nW * 4 if has_ovf else 0) + cs * 6)
+        work_k = valid_k & (U_k | force_k)
+        test_k = work_k & U_k & ~force_k & (colors[lo:hi] >= 0)
+        dr_bytes, live_may = gather_bytes(ell_k, colors, vids, work_k, test_k,
+                                          own=True)
+        may = int(work_k.sum())
+        dr_bytes += (cs * (3 + (1 if has_ovf else 0))
+                     + (may * nW * 4 if has_ovf else 0) + cs * 6)
         kw = dict(forb0=f0, extra_defect=xd, force=force_k, valid=valid_k)
         dr = lambda: ops.detect_recolor(ell_k, colors, prob.pri, U_k, lo, C,
                                         backend=kb, **kw)
@@ -546,10 +949,185 @@ def phase_times(device, kept, cmp: Cmp, launch: bool):
                      "bound_ms": bound(dr_bytes)})
         for r in rows[-2:]:
             log("times", json.dumps(r))
-        del prob, colors, ell_k, f0, xd
+        if name.startswith("rmat_b"):
+            ctx_c = PassContext.for_problem(prob, n_chunks=spec.n_chunks,
+                                            C=kept_compact[name][1].final_C)
+            small, full = frontier._d1_passes(ctx_c, prob.ell, prob.ovf_src,
+                                              prob.ovf_dst, prob.pri)
+            check_compact_pass(cmp, "detect_recolor", name, n_pad,
+                               colors.clone(), U0, small, full, spec)
+        del prob, colors, ell_k, f0, xd, U0
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return rows
+
+
+def phase_times_twohop(device, kept_d2, cmp: Cmp, launch: bool):
+    """One chunk of each distance-2 graph: kernel ms, plain ms, bound ms;
+    and on the uniform RMAT one compacted pass, kernel against plain
+    version (``check_compact_pass``).
+
+    The chunk is chunk n_chunks/2 of repair round 1 (U = every row to
+    colour, after a whole round 0): the widest two-hop pass.  Bound: bytes
+    over the card's memory rate — ``gather_bytes`` with the full table (the
+    ELL rows of the rows that can work, each distinct hop-2 row once, the
+    colours and priorities the function reads, each once), 3 B of per-row
+    flags and 6 B of outputs per row.  Integer work only: bytes bound
+    it."""
+    from repro_torch import api
+    from repro_torch.core import distance2
+    from repro_torch.core.context import PassContext
+    from repro_torch.kernels import ops, ref
+    spec = api.ColoringSpec()
+    kb = "cuda" if launch else "torch"
+    K = "twohop_detect_recolor"
+    rows = []
+    for name, (g, res, kw) in kept_d2.items():
+        prob = distance2._prepare_native(g, spec.seed, spec.n_chunks, spec.C,
+                                         spec.relabel, spec.ell_cap,
+                                         device=device)
+        C, n_pad, W = res.final_C, prob.n_pad, prob.ell.shape[1]
+        cs = n_pad // spec.n_chunks
+        rows_mask = torch.arange(n_pad, device=device) < prob.n
+        if kw.get("mode") == "partial":
+            mask = np.zeros(n_pad, dtype=bool)
+            mask[prob.perm[:kw["n_left"]]] = True
+            rows_mask = torch.from_numpy(mask).to(device)
+        ctx = PassContext.for_problem(prob, n_chunks=spec.n_chunks, C=C)
+        colors = torch.full((n_pad,), -1, dtype=torch.int32, device=device)
+        zeros = torch.zeros((n_pad,), dtype=torch.bool, device=device)
+        _, U0, _, _ = distance2._d2_chunked_pass(
+            ctx, prob.ell, prob.pri, rows_mask, colors, zeros, rows_mask,
+            detect=False)
+        k = spec.n_chunks // 2
+        lo, hi = k * cs, (k + 1) * cs
+        ell_k, U_k, force_k = prob.ell[lo:hi], rows_mask[lo:hi], zeros[lo:hi]
+        args = (ell_k, prob.ell, colors, prob.pri, U_k, lo, C)
+        kw_k = dict(force=force_k, valid=U_k)
+        fn = lambda: ops.twohop(*args, backend=kb, **kw_k)
+        plain = lambda: ref.twohop_ref(ell_k, prob.ell, colors, prob.pri, lo,
+                                       U_k, C, **kw_k)
+        cmp.check(K, f"{name} chunk R{cs} W{W} n{n_pad} C{C}", fn(), plain(),
+                  ("newc", "recolored", "ovf"))
+        work_k = U_k            # valid & (U | force), with valid = U here
+        test_k = work_k & ~force_k & (colors[lo:hi] >= 0)
+        nbytes, live = gather_bytes(
+            ell_k, colors, torch.arange(lo, hi, device=device), work_k,
+            test_k, own=True, ell=prob.ell)
+        nbytes += cs * (3 + 6)
+        big = live > 2 ** 26                     # the plain panels are large
+        rows.append({"kernel": K, "graph": name, "R": cs, "W": W, "n": n_pad,
+                     "C": C, "live_slots": live, "bytes": nbytes,
+                     "ms": time_ms(fn, device, 10),
+                     "plain_ms": time_ms(plain, device, 1 if big else 3,
+                                         3),
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+        log("times", json.dumps(rows[-1]))
+        if name.startswith("rmat_er"):
+            def small(colors_, idx, idx_valid, count):
+                return distance2._d2_compact_pass(
+                    ctx, prob.ell, prob.pri, colors_, idx, idx_valid, count)
+
+            def full(colors_, U, force):
+                return distance2._d2_chunked_pass(
+                    ctx, prob.ell, prob.pri, rows_mask, colors_, U, force,
+                    detect=True)
+
+            check_compact_pass(cmp, K, name, n_pad, colors.clone(), U0,
+                               small, full, spec)
+        del prob, colors, ell_k, U0
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_compact_pass(cmp: Cmp, kernel: str, name: str, n_pad: int, colors,
+                       U, small, full, spec):
+    """The engine's first compacted repair pass, kernels against plain
+    versions on the same inputs, at the shapes the engine gives them
+    (``row_ids``; on a graph with an overflow COO also ``forb0`` and
+    ``extra_defect``).  From the state after round 0 (``colors``, ``U``)
+    the full-width rounds run while |U| exceeds the frontier cap, as in
+    ``frontier._compact_repair``; then the compacted pass ``small`` runs
+    twice from the same state: on the kernels, and under the
+    ``kernel.fallback`` fault site (the plain versions).  Every output must
+    be equal; chunk k's inputs are the commits of chunks < k, so equal
+    outputs mean every chunk agreed on equal inputs."""
+    from repro_torch.core import frontier
+    from repro_torch.resilience import faults
+    wrapper = launch_counters()[kernel]
+    cap = frontier.frontier_cap(n_pad, spec.n_chunks, spec.frontier_frac)
+    count, r = int(U.sum()), 1
+    while count > cap:
+        colors, U, _, _ = full(colors, U, U & (colors < 0))
+        count, r = int(U.sum()), r + 1
+    if count == 0:
+        fail(f"{name}: no frontier left to compact in round {r}")
+    idx, live = frontier._compact(U, cap, n_pad)
+    before = wrapper.launches
+    got = small(colors.clone(), idx, live, count)
+    mid = wrapper.launches
+    with faults.inject("kernel.fallback"):
+        want = small(colors.clone(), idx, live, count)
+    if colors.device.type == "cuda" and (mid - before != spec.n_chunks
+                                         or wrapper.launches != mid):
+        fail(f"{name} compacted pass: {kernel} launched {mid - before} / "
+             f"{wrapper.launches - mid} times (kernels / plain), expected "
+             f"{spec.n_chunks} / 0")
+    label = (f"{name} compacted pass: round {r}, |U| {count}, cap {cap}, "
+             f"chunk R{cap // spec.n_chunks}")
+    cmp.check(kernel, label,
+              [got[0], got[1], got[2].reshape(1), got[3].reshape(1)],
+              [want[0], want[1], want[2].reshape(1), want[3].reshape(1)],
+              ("colors", "recolored", "n_defects", "ovf"))
+    log("times", f"{kernel} {label}: kernels == plain versions")
+
+
+def wait_checks(checks: dict) -> list:
+    """Collect the host checks started in worker processes."""
+    done = []
+    for what, fut in checks.items():
+        if not fut.get():
+            fail(f"{what}: the host oracle found the coloring not proper")
+        done.append(what)
+    return done
+
+
+def kernels_line(kept, time_rows, counts, counts_d2, cmp: Cmp) -> list:
+    """The ``kernels`` entries: per kernel, the chunk of the largest table
+    its path ran (RMAT-B for the distance-1 kernels, RMAT-ER for the two-hop
+    kernel), and the launches of the path that runs it (phase 5, resp.
+    5c)."""
+    csrc = "src/repro_torch/kernels/csrc/"
+    largest = {"firstfit": list(kept)[-1], "detect_recolor": list(kept)[-1],
+               "twohop_detect_recolor": next(k for k in kept
+                                             if k.startswith("rmat_er"))}
+    row_of = {r["kernel"]: r for r in time_rows
+              if r["graph"] == largest[r["kernel"]]}
+    meta = {"firstfit": ("coloring.cu", "src/repro/kernels/firstfit.py:48",
+                         counts),
+            "detect_recolor": ("coloring.cu",
+                               "src/repro/kernels/detect_recolor.py:54",
+                               counts),
+            "twohop_detect_recolor": ("twohop.cu",
+                                      "src/repro/kernels/twohop.py:130",
+                                      counts_d2)}
+    kernels = []
+    for name in KERNELS:
+        r = row_of[name]
+        src, replaces, path_counts = meta[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + src,
+            "replaces": replaces, "launches": path_counts[name],
+            "max_abs_err": cmp.max_err[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "launches_per_path": {"main": counts[name],
+                                  "distance2_compact": counts_d2[name]},
+            "shape": {k: r[k] for k in ("graph", "R", "W", "n", "C")},
+            "cases_checked": len(cmp.cases[name])})
+    return kernels
 
 
 # --------------------------------------------------------------------------
@@ -596,25 +1174,40 @@ def main() -> int:
     if launch:
         log("nvcc", sh([_build.find_nvcc(), "--version"]).splitlines()[-2:])
 
-    # the RMAT generators start now, in worker processes, and are collected
-    # in phase 5; leaving the block terminates the workers whatever happens
-    with multiprocessing.get_context("spawn").Pool(3) as pool:
+    # the RMAT and bipartite generators start now, in worker processes, and
+    # are collected in phases 5 and 5c; the same workers then run the host
+    # oracles of phase 5c; leaving the block terminates the workers
+    # whatever happens
+    with multiprocessing.get_context("spawn").Pool(4) as pool:
         rmats = start_rmats(pool, args.rmat_scale)
+        bip = pool.apply_async(make_bipartite,
+                               (9 if args.rehearse else BIPARTITE_LOG2,))
         # ---- phase 2: build ----
         if launch:
             _build.library()
+            # the sources compile side by side: "seconds" (wall, link
+            # included) against the sum of "compile_seconds", about what
+            # one nvcc over all sources in turn would take
             log("build", json.dumps({
                 "library": os.path.relpath(_build.library_path(), HERE),
-                "seconds": _build.build_seconds}))
+                "seconds": _build.build_seconds,
+                "compile_seconds": _build.compile_seconds}))
             # ptxas -v: registers per kernel variant, and any spills
             regs = [int(m) for m in re.findall(r"Used (\d+) registers",
                                                _build.build_log)]
-            spills = [l for l in _build.build_log.splitlines()
-                      if "spill" in l and "0 bytes spill stores, 0 bytes spill "
-                      "loads" not in l]
+            spills, fn = {}, None
+            for line in _build.build_log.splitlines():
+                m = re.search(r"Function properties for (\S+)", line)
+                if m:
+                    fn = m.group(1)
+                elif "spill" in line and "0 bytes spill stores, 0 bytes " \
+                        "spill loads" not in line:
+                    spills[fn] = line.strip()
             if regs:
                 log("build", f"{len(regs)} kernel variants, {min(regs)}-"
                     f"{max(regs)} registers, {len(spills)} with spills")
+            for fn, line in spills.items():
+                log("build", f"spills: {fn}: {line}")
 
         # ---- phase 3: kernels vs plain versions ----
         cmp = phase_kernels(device, launch)
@@ -624,7 +1217,8 @@ def main() -> int:
 
         # ---- phase 4: golden ----
         n_golden = phase_golden(device)
-        log("golden", f"{n_golden} (graph, seed) runs equal tests/torch_golden.json")
+        log("golden", f"{n_golden} runs (distance 1, 2, partial) equal "
+                      f"tests/torch_golden.json")
 
         # ---- phase 5: main path ----
         if args.rmat_scale != 24:
@@ -632,37 +1226,41 @@ def main() -> int:
         main_rows, kept, counts = phase_main(rmats, device, args.rehearse)
         log("main", json.dumps({"launches": counts}))
 
+        # ---- phase 5c: distance-2, partial, compacted ----
+        d2_rows, kept_d2, kept_compact, counts_d2, checks = phase_distance2(
+            kept, bip, device, args.rehearse, pool)
+        log("distance2", json.dumps({"launches": counts_d2}))
+
         # ---- phase 5b: plain versions on the card ----
         done = phase_plain(device, kept)
         log("plain", f"kernel path == plain path on the card for {done}")
+        meshes_d2 = {k: v[:2] for k, v in kept_d2.items() if k in D2_MESHES}
+        done = phase_plain(device, meshes_d2, skip=(), distance=2)
+        log("plain", f"distance 2: kernel path == plain path on the card for "
+                     f"{done}")
+        meshes_c = {k: v for k, v in kept_compact.items() if k in D2_MESHES}
+        done = phase_plain(device, meshes_c, skip=(),
+                           algorithm="rsoc_compact")
+        log("plain", f"rsoc_compact: kernel path == plain path on the card "
+                     f"for {done}")
 
         # ---- phase 6: kernel times ----
-        time_rows = phase_times(device, kept, cmp, launch)
+        time_rows = phase_times(device, kept, kept_compact, cmp, launch)
+        time_rows += phase_times_twohop(device, kept_d2, cmp, launch)
         if launch:
             torch.cuda.synchronize()
+        log("distance2", f"host oracles passed: {wait_checks(checks)}")
 
     if args.rehearse:
+        log("kernels", json.dumps(
+            kernels_line(kept, time_rows, counts, counts_d2, cmp)))
         log("rehearsal on the CPU finished; no kernel was built or launched")
         return 3
 
     # ---- result lines ----
-    largest = [r for r in time_rows if r["graph"] == list(kept)[-1]]
-    src = "src/repro_torch/kernels/csrc/coloring.cu"
-    replaces = {"firstfit": "src/repro/kernels/firstfit.py:48",
-                "detect_recolor": "src/repro/kernels/detect_recolor.py:54"}
-    kernels = []
-    for r in largest:
-        kernels.append({
-            "name": r["kernel"], "route": "cuda", "source": src,
-            "replaces": replaces[r["kernel"]],
-            "launches": counts[r["kernel"]],
-            "max_abs_err": cmp.max_err[r["kernel"]],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": "bytes",
-            "library_ms": None,
-            "shape": {k: r[k] for k in ("graph", "R", "W", "n", "C")},
-            "cases_checked": len(cmp.cases[r["kernel"]])})
+    kernels = kernels_line(kept, time_rows, counts, counts_d2, cmp)
     print(json.dumps({"main_path": main_rows}), flush=True)
+    print(json.dumps({"distance2_path": d2_rows}), flush=True)
     print(json.dumps({"kernel_times": time_rows}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -679,6 +1277,9 @@ def main() -> int:
 # H100 host a 2^20 RMAT took 15-20 s to generate and 5-7 s per prepare; both
 # grow a little faster than linearly.
 RMAT_SCALE = 22
+# the Jacobian pattern of phase 5c: 2^20 columns x 2^20 rows, 8 nonzeros per
+# column (8.4M), coloured one-sided (mode="partial")
+BIPARTITE_LOG2 = 20
 RMAT_SCALE_WHY = ("below the paper's 2^24: there the host-side numpy work "
                   "(generation, and one prepare per api.color call) alone "
                   "exceeds this script's time limit, and RMAT-B's ELL table "

@@ -22,10 +22,17 @@ itself.  A caller that wants the CPU (the tests do) says ``device="cpu"``.
 is not a spec field: ``ColoringSpec`` and ``spec_key()`` are identical to the
 reference package's.
 
+    res = api.color(g, distance=2)                           # distance-2
+    res = api.color(g, distance=2, mode="partial", n_left=m) # Jacobian
+                                                             # compression
+    res = api.color(g, algorithm="rsoc_compact")             # compacted
+
 Engines live in a registry keyed by ``(algorithm, distance, mode, backend)``
 (``repro_torch.registry``); each engine module registers its own at import
-time.  This module imports the engine modules that are ported — today
-``core/coloring.py`` with the ``(rsoc, 1, static, local)`` engine — so
+time.  This module imports the engine modules that are ported —
+``core/coloring.py`` with ``(rsoc, 1, static, local)``, ``core/frontier.py``
+with ``(rsoc_compact, 1, static, local)``, ``core/distance2.py`` with ``(rsoc,
+2, static, local)`` and ``(rsoc, 2, partial, local)`` — so
 ``supported_specs()`` lists exactly what runs, and every other combo is
 rejected by ``ColoringSpec.validate`` with the nearest supported spec named.
 """
@@ -45,6 +52,8 @@ from repro_torch.core.coloring import ColoringResult
 # importing the engine modules populates the registry (each module
 # registers its own combos); only ported engine modules are listed
 from repro_torch.core import coloring as _coloring        # noqa: F401
+from repro_torch.core import distance2 as _distance2      # noqa: F401
+from repro_torch.core import frontier as _frontier        # noqa: F401
 
 MODES = ("static", "incremental", "partial")
 BACKENDS = ("local", "distributed")

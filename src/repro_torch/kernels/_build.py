@@ -3,9 +3,11 @@
 The sources have a plain ``extern "C"`` interface and include no PyTorch
 header, so ``nvcc`` compiles them in seconds.  ``library()`` builds at first
 use, from the sources of this package and nothing else, into ``build/`` next
-to this file (git-ignored; override with ``REPRO_TORCH_BUILD_DIR``).  The
-library's file name carries a hash of the sources and of the compiler flags,
-so a library built from other sources is never loaded.
+to this file (git-ignored; override with ``REPRO_TORCH_BUILD_DIR``): one
+``nvcc`` per ``.cu`` source, all started together, then one link into a
+shared library.  The library's file name carries a hash of the sources and
+of the compiler flags, so a library built from other sources is never
+loaded.
 
 Nothing here runs at import time: a machine without ``nvcc`` imports every
 module of the package and only fails — loudly, never by falling back — when a
@@ -20,13 +22,14 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every exported function: c_void_p for each pointer and the
@@ -34,15 +37,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # ell colors forb0 mex ovf | R W n C lanes window | stream
     "coloring_firstfit": [_P] * 5 + [_I] * 6 + [_P],
-    # ell colors pri U forb0 extra_defect force valid newc recolored ovf |
-    # R W n C row_start lanes window | stream
-    "coloring_detect_recolor": [_P] * 11 + [_I] * 7 + [_P],
+    # ell colors pri U forb0 extra_defect force valid row_ids newc recolored
+    # ovf | R W n C row_start lanes window | stream
+    "coloring_detect_recolor": [_P] * 12 + [_I] * 7 + [_P],
+    # ell_rows ell_all colors pri U force valid row_ids newc recolored ovf |
+    # R W n n_all C row_start detect lanes window | stream
+    "coloring_twohop_detect_recolor": [_P] * 11 + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # None: not built by this process
 build_log: str = ""                     # nvcc's output (ptxas -v resources)
+compile_seconds: dict = {}              # source file -> its nvcc -c seconds
 
 
 def build_dir() -> str:
@@ -84,6 +91,24 @@ def library_path() -> str:
     return os.path.join(build_dir(), f"libcoloring-{source_hash()}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> tuple[str, list[float]]:
+    """Run the commands at once; raise on the first that fails, after all
+    have ended.  Returns their output, in order, and each one's seconds."""
+    def one(c):
+        t = time.perf_counter()
+        p = subprocess.run(c, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        return p, time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=len(cmds)) as ex:
+        done = list(ex.map(one, cmds))
+    for c, (p, _) in zip(cmds, done):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}): "
+                               f"{' '.join(c)}\n{p.stdout}")
+    return "".join(p.stdout for p, _ in done), [s for _, s in done]
+
+
 def build() -> str:
     """Compile ``csrc/*.cu`` into the hashed shared library (if it is not
     there yet) and return its path."""
@@ -95,15 +120,21 @@ def build() -> str:
     os.makedirs(build_dir(), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *_csrc(".cu")],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}\n"
-            f"{proc.stderr}")
+    srcs = _csrc(".cu")
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    try:
+        log, secs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                              for s, o in zip(srcs, objs)])
+        compile_seconds.update(
+            (os.path.basename(s), t) for s, t in zip(srcs, secs))
+        log += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])[0]
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, out)     # atomic: a concurrent process loads a whole file
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = log
     return out
 
 

@@ -35,45 +35,32 @@
 //    sees the colours as they were before the launch, whatever the order in
 //    which blocks run.  The caller commits newc afterwards.
 //  * Ragged edges are masked here: any R >= 1, any W >= 1.
+//  * With row_ids (DETECT only; the compacted-frontier pass), row r is
+//    vertex row_ids[r] (clamped to [0, n-1]): it reads that vertex's colour,
+//    priority and row of the full ELL table; forb0, extra_defect and the
+//    per-row flags stay indexed by r.
 //
 // Bit conventions (equal to core/bitset.py): bit (c & 31) of word (c >> 5) is
 // colour c; bits for colours >= C are pre-forbidden; colours outside [0, C)
 // and FILL (< 0) slots contribute nothing; an all-ones row gives mex = 0 with
 // the overflow flag set.  __ffs(~w) - 1 is the index of the lowest zero bit.
 //
+// The shared helpers (tail words, lane groups, the register-word OR and the
+// group mex) are in pass_common.cuh; twohop.cu uses them too.
+//
 // Plain C interface, no PyTorch headers: each function launches on the given
 // stream, does not synchronise, allocates nothing and returns
 // cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "pass_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;   // threads per block (a multiple of every G)
-
-// Word k of the all-free table: bits of colours >= C are set.
-__device__ __forceinline__ unsigned tail_word(int k, int C) {
-  const int live = C - k * 32;
-  if (live >= 32) return 0u;
-  if (live <= 0) return 0xFFFFFFFFu;
-  return ~((1u << live) - 1u);
-}
-
-// Lanes of the calling thread's group, as a shuffle mask.
-template <int G>
-__device__ __forceinline__ unsigned group_mask() {
-  if constexpr (G == 32) {
-    return 0xFFFFFFFFu;
-  } else {
-    const unsigned lane = threadIdx.x & 31u;
-    return ((1u << G) - 1u) << (lane & ~static_cast<unsigned>(G - 1));
-  }
-}
+using coloring::kThreads;
 
 template <int G, int NW, bool DETECT>
 __global__ void __launch_bounds__(kThreads)
-pass_kernel(const int* __restrict__ ell,             // (R, W)
+pass_kernel(const int* __restrict__ ell,             // (R, W) or (>= n, W)
             const int* __restrict__ colors,          // (n,)
             const int* __restrict__ pri,             // (n,)      DETECT
             const uint8_t* __restrict__ U,           // (R,)      DETECT
@@ -81,6 +68,7 @@ pass_kernel(const int* __restrict__ ell,             // (R, W)
             const uint8_t* __restrict__ extra_defect,  // (R,)    or null
             const uint8_t* __restrict__ force,       // (R,)      or null
             const uint8_t* __restrict__ valid,       // (R,)      or null
+            const int* __restrict__ row_ids,         // (R,)      or null
             int* __restrict__ out_c,                 // (R,) mex / new colour
             uint8_t* __restrict__ out_rec,           // (R,)      DETECT
             uint8_t* __restrict__ out_ovf,           // (R,)
@@ -92,12 +80,20 @@ pass_kernel(const int* __restrict__ ell,             // (R, W)
   // a group never straddles the edge: G divides kThreads, so its lanes
   // share `row` and leave together
   if (row >= R) return;
-  const unsigned mask = group_mask<G>();
+  const unsigned mask = coloring::group_mask<G>();
+
+  // the row's vertex and its ELL row: a tile row, or a row of the full table
+  long long vid = row_start + row;
+  const int* __restrict__ ell_row = ell + row * W;
+  if (row_ids != nullptr) {
+    vid = min(max(row_ids[row], 0), n - 1);
+    ell_row = ell + vid * W;
+  }
 
   int c_r = -1, p_r = -1;
   if constexpr (DETECT) {
-    c_r = colors[row_start + row];
-    p_r = pri[row_start + row];
+    c_r = colors[vid];
+    p_r = pri[vid];
     // work = valid & ((U & defect) | force) can only be true on these rows;
     // every other row keeps its colour without its ELL row being read
     const bool may_work = (valid == nullptr || valid[row] != 0) &&
@@ -112,7 +108,6 @@ pass_kernel(const int* __restrict__ ell,             // (R, W)
     }
   }
 
-  const int* __restrict__ ell_row = ell + row * W;
   bool defect = false;
   int mex = -1;
   // window loop: one trip when NW*32 >= C; its condition is uniform within
@@ -121,7 +116,7 @@ pass_kernel(const int* __restrict__ ell,             // (R, W)
     unsigned w[NW];
 #pragma unroll
     for (int k = 0; k < NW; ++k) {
-      w[k] = tail_word(wb + k, C);
+      w[k] = coloring::tail_word(wb + k, C);
       if (forb0 != nullptr && lane == 0 && wb + k < nW)
         w[k] |= static_cast<unsigned>(forb0[row * nW + wb + k]);
     }
@@ -133,23 +128,9 @@ pass_kernel(const int* __restrict__ ell,             // (R, W)
       if constexpr (DETECT) {
         if (wb == 0 && c == c_r && c_r >= 0 && pri[idx] > p_r) defect = true;
       }
-      if (c >= 0 && c < C) {
-        const int wi = (c >> 5) - wb;
-        const unsigned bit = 1u << (c & 31);
-#pragma unroll
-        for (int k = 0; k < NW; ++k)
-          if (wi == k) w[k] |= bit;
-      }
+      coloring::or_colour<NW>(w, c, C, wb);
     }
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) {
-#pragma unroll
-      for (int k = 0; k < NW; ++k) w[k] |= __shfl_xor_sync(mask, w[k], off);
-    }
-    // descending, so the lowest word with a zero bit wins
-#pragma unroll
-    for (int k = NW - 1; k >= 0; --k)
-      if (w[k] != 0xFFFFFFFFu) mex = (wb + k) * 32 + __ffs(~w[k]) - 1;
+    mex = coloring::window_mex<G, NW>(w, mask, wb);
   }
   const bool ovf = mex < 0;
   if (ovf) mex = 0;
@@ -173,44 +154,25 @@ pass_kernel(const int* __restrict__ ell,             // (R, W)
   }
 }
 
-template <int G, int NW, bool DETECT>
-cudaError_t launch(const int* ell, const int* colors, const int* pri,
-                   const uint8_t* U, const int* forb0,
+template <bool DETECT>
+cudaError_t launch(int lanes, int window, const int* ell, const int* colors,
+                   const int* pri, const uint8_t* U, const int* forb0,
                    const uint8_t* extra_defect, const uint8_t* force,
-                   const uint8_t* valid, int* out_c, uint8_t* out_rec,
-                   uint8_t* out_ovf, int R, int W, int n, int C,
-                   int row_start, cudaStream_t stream) {
+                   const uint8_t* valid, const int* row_ids, int* out_c,
+                   uint8_t* out_rec, uint8_t* out_ovf, int R, int W, int n,
+                   int C, int row_start, cudaStream_t stream) {
   const int nW = (C + 31) / 32;
-  const long long rows_per_block = kThreads / G;
-  const long long blocks = (R + rows_per_block - 1) / rows_per_block;
-  pass_kernel<G, NW, DETECT><<<static_cast<unsigned>(blocks), kThreads, 0,
-                               stream>>>(
-      ell, colors, pri, U, forb0, extra_defect, force, valid, out_c, out_rec,
-      out_ovf, R, W, n, C, nW, row_start);
-  return cudaGetLastError();
-}
-
-template <int G, bool DETECT, typename... Args>
-cudaError_t pick_window(int window, Args... args) {
-  switch (window) {
-    case 2:  return launch<G, 2, DETECT>(args...);
-    case 8:  return launch<G, 8, DETECT>(args...);
-    case 16: return launch<G, 16, DETECT>(args...);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <bool DETECT, typename... Args>
-cudaError_t pick_lanes(int lanes, int window, Args... args) {
-  switch (lanes) {
-    case 1:  return pick_window<1, DETECT>(window, args...);
-    case 2:  return pick_window<2, DETECT>(window, args...);
-    case 4:  return pick_window<4, DETECT>(window, args...);
-    case 8:  return pick_window<8, DETECT>(window, args...);
-    case 16: return pick_window<16, DETECT>(window, args...);
-    case 32: return pick_window<32, DETECT>(window, args...);
-    default: return cudaErrorInvalidValue;
-  }
+  return coloring::pick_shape(lanes, window, [&](auto g, auto nw) {
+    constexpr int G = decltype(g)::value;
+    constexpr int NW = decltype(nw)::value;
+    const long long rows_per_block = kThreads / G;
+    const long long blocks = (R + rows_per_block - 1) / rows_per_block;
+    pass_kernel<G, NW, DETECT><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 stream>>>(
+        ell, colors, pri, U, forb0, extra_defect, force, valid, row_ids,
+        out_c, out_rec, out_ovf, R, W, n, C, nW, row_start);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -222,32 +184,34 @@ extern "C" int coloring_firstfit(const void* ell, const void* colors,
                                  int R, int W, int n, int C, int lanes,
                                  int window, void* stream) {
   if (R < 1 || W < 1 || n < 1 || C < 1) return cudaErrorInvalidValue;
-  return static_cast<int>(pick_lanes<false>(
+  return static_cast<int>(launch<false>(
       lanes, window, static_cast<const int*>(ell),
-      static_cast<const int*>(colors), static_cast<const int*>(nullptr),
-      static_cast<const uint8_t*>(nullptr), static_cast<const int*>(forb0),
-      static_cast<const uint8_t*>(nullptr),
-      static_cast<const uint8_t*>(nullptr),
-      static_cast<const uint8_t*>(nullptr), static_cast<int*>(mex),
-      static_cast<uint8_t*>(nullptr), static_cast<uint8_t*>(ovf), R, W, n, C,
+      static_cast<const int*>(colors), nullptr, nullptr,
+      static_cast<const int*>(forb0), nullptr, nullptr, nullptr, nullptr,
+      static_cast<int*>(mex), nullptr, static_cast<uint8_t*>(ovf), R, W, n, C,
       0, static_cast<cudaStream_t>(stream)));
 }
 
+// row_ids null: rows [row_start, row_start + R) of the colour vector, ell
+// their (R, W) tile.  row_ids given: ell is the full table (>= n rows) and
+// row_start is unused.
 extern "C" int coloring_detect_recolor(
     const void* ell, const void* colors, const void* pri, const void* U,
     const void* forb0, const void* extra_defect, const void* force,
-    const void* valid, void* newc, void* recolored, void* ovf, int R, int W,
-    int n, int C, int row_start, int lanes, int window, void* stream) {
-  if (R < 1 || W < 1 || n < 1 || C < 1 || row_start < 0 ||
-      static_cast<long long>(row_start) + R > n)
+    const void* valid, const void* row_ids, void* newc, void* recolored,
+    void* ovf, int R, int W, int n, int C, int row_start, int lanes,
+    int window, void* stream) {
+  if (R < 1 || W < 1 || n < 1 || C < 1 ||
+      (row_ids == nullptr &&
+       (row_start < 0 || static_cast<long long>(row_start) + R > n)))
     return cudaErrorInvalidValue;
-  return static_cast<int>(pick_lanes<true>(
+  return static_cast<int>(launch<true>(
       lanes, window, static_cast<const int*>(ell),
       static_cast<const int*>(colors), static_cast<const int*>(pri),
       static_cast<const uint8_t*>(U), static_cast<const int*>(forb0),
       static_cast<const uint8_t*>(extra_defect),
       static_cast<const uint8_t*>(force), static_cast<const uint8_t*>(valid),
-      static_cast<int*>(newc), static_cast<uint8_t*>(recolored),
-      static_cast<uint8_t*>(ovf), R, W, n, C, row_start,
-      static_cast<cudaStream_t>(stream)));
+      static_cast<const int*>(row_ids), static_cast<int*>(newc),
+      static_cast<uint8_t*>(recolored), static_cast<uint8_t*>(ovf), R, W, n,
+      C, row_start, static_cast<cudaStream_t>(stream)));
 }

@@ -7,15 +7,17 @@ gather of the neighbours' colours and priorities feeds both the defect test
 (same colour as a higher-priority neighbour) and the packed forbidden
 bitset; rows that must work take their mex, all others keep their colour.
 The kernel is ``coloring_detect_recolor`` in ``csrc/coloring.cu``; the plain
-PyTorch version is ``detect_recolor_ref`` (``kernels/ref.py``, re-exported
-here).
+PyTorch version is ``detect_recolor_ref`` (``kernels/ref.py``).
 
-The optional inputs carry what the engine's chunk pass does beyond the
+The optional inputs carry what the engines' chunk passes do beyond the
 reference kernel: ``forb0`` (R, n_words(C)) int32 is OR-ed into the initial
 forbidden words (the overflow-COO snapshot slice), ``extra_defect`` (R,) bool
-into the defect flags (overflow-edge conflicts), and ``work = valid & ((U &
-defect) | force)``.  With all four absent the outputs are bit-identical to
-the reference's.
+into the defect flags (overflow-edge conflicts), ``work = valid & ((U &
+defect) | force)``, and ``row_ids`` (R,) int32 makes row r the vertex
+``row_ids[r]`` (clamped to [0, n-1]) of the full table ``ell`` — colour,
+priority and ELL row — for ``core/frontier._compact_pass``; ``forb0``,
+``extra_defect`` and the flags stay indexed by r.  With all of them absent
+the outputs are bit-identical to the reference's.
 
 Bound on the card: bytes.  Rows outside ``valid & (U | force)`` cost their
 O(1) vector entries only; each other row costs its ``W*4`` bytes of ELL plus
@@ -36,24 +38,41 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import bitset
 from repro_torch.kernels import _build
 from repro_torch.kernels.firstfit import (check_common, check_launch,
-                                          check_tensor, ptr)
-from repro_torch.kernels.ref import detect_recolor_ref  # noqa: F401
+                                          check_row_ids, check_tensor, ptr)
+# the plain version, as a module attribute: importing kernels.ref
+# first (it imports core, which imports these wrappers) must not cycle
+from repro_torch.kernels import ref
 
 
 def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
                    forb0=None, extra_defect=None, force=None, valid=None, *,
-                   lanes: Optional[int] = None, window: Optional[int] = None):
-    """Fused RSOC pass for rows [row_start, row_start + R).
+                   row_ids=None, lanes: Optional[int] = None,
+                   window: Optional[int] = None):
+    """Fused RSOC pass for rows [row_start, row_start + R), or for the
+    vertices ``row_ids``.
 
-    ell (R, W) int32 tile of those rows; colors, pri (n,) int32; U_rows (R,)
-    bool; optional forb0 (R, n_words(C)) int32 and extra_defect / force /
-    valid (R,) bool.  Returns (new row colors (R,) int32, recolored (R,)
-    bool, overflow (R,) bool).
+    ell (R, W) int32 tile of those rows — with ``row_ids`` (R,) int32, the
+    full (>= n, W) table instead, and ``row_start`` unused; colors, pri (n,)
+    int32; U_rows (R,) bool; optional forb0 (R, n_words(C)) int32 and
+    extra_defect / force / valid (R,) bool.  Returns (new row colors (R,)
+    int32, recolored (R,) bool, overflow (R,) bool).
     """
-    R, W, n, lanes, window = check_common(ell, colors, C, forb0, lanes,
-                                          window)
+    if row_ids is None:
+        R, W, n, lanes, window = check_common(ell, colors, C, forb0, lanes,
+                                              window)
+    else:
+        n_ell, W, n, lanes, window = check_common(ell, colors, C, None,
+                                                  lanes, window)
+        R = check_row_ids(row_ids, ell.device)
+        if n_ell < n:
+            raise ValueError(f"with row_ids, ell must be the full table of "
+                             f">= n={n} rows (got {n_ell})")
+        if forb0 is not None:
+            check_tensor("forb0", forb0, torch.int32,
+                         (R, bitset.n_words(C)), ell.device)
     device = ell.device
     check_tensor("pri", pri, torch.int32, (n,), device)
     check_tensor("U_rows", U_rows, torch.bool, (R,), device)
@@ -62,13 +81,14 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
         if t is not None:
             check_tensor(name, t, torch.bool, (R,), device)
     row_start = int(row_start)
-    if row_start < 0 or row_start + R > n:
+    if row_ids is None and (row_start < 0 or row_start + R > n):
         raise ValueError(f"rows [{row_start}, {row_start + R}) lie outside "
                          f"the (n={n},) color vector")
     if device.type != "cuda":
-        return detect_recolor_ref(ell, colors, pri, row_start, U_rows, C,
-                                  forb0=forb0, extra_defect=extra_defect,
-                                  force=force, valid=valid)
+        return ref.detect_recolor_ref(
+            ell, colors, pri, row_start, U_rows, C, forb0=forb0,
+            extra_defect=extra_defect, force=force, valid=valid,
+            row_ids=row_ids)
     lib = _build.library()
     newc = torch.empty((R,), dtype=torch.int32, device=device)
     rec = torch.empty((R,), dtype=torch.bool, device=device)
@@ -77,8 +97,9 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.coloring_detect_recolor(
             ptr(ell), ptr(colors), ptr(pri), ptr(U_rows), ptr(forb0),
-            ptr(extra_defect), ptr(force), ptr(valid), ptr(newc), ptr(rec),
-            ptr(ovf), R, W, n, int(C), row_start, lanes, window, stream)
+            ptr(extra_defect), ptr(force), ptr(valid), ptr(row_ids),
+            ptr(newc), ptr(rec), ptr(ovf), R, W, n, int(C), row_start, lanes,
+            window, stream)
     check_launch("detect_recolor", err)
     detect_recolor.launches += 1
     return newc, rec, ovf

@@ -6,7 +6,7 @@ into a packed forbidden bitset (tail bits >= C pre-forbidden) and return the
 smallest free colour ``mex`` and the all-forbidden flag ``ovf`` (``mex=0`` on
 an all-ones row).  The kernel is ``coloring_firstfit`` in
 ``csrc/coloring.cu``; the plain PyTorch version of the same function is
-``firstfit_ref`` (``kernels/ref.py``, re-exported here).
+``firstfit_ref`` (``kernels/ref.py``).
 
 Bound on the card: bytes.  It must read the ``R*W*4`` bytes of the ELL tile
 and one 4-byte colour per live slot (at most the whole ``n*4``-byte vector
@@ -29,7 +29,9 @@ import torch
 
 from repro_torch.core import bitset
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import firstfit_ref  # noqa: F401  (plain version)
+# the plain version, as a module attribute: importing kernels.ref
+# first (it imports core, which imports these wrappers) must not cycle
+from repro_torch.kernels import ref
 
 LANES = (1, 2, 4, 8, 16, 32)     # lanes per row compiled into the library
 WINDOWS = (2, 8, 16)             # register-resident forbidden words
@@ -91,6 +93,16 @@ def check_common(ell, colors, C, forb0, lanes, window):
     return R, W, n, lanes, window
 
 
+def check_row_ids(row_ids, device) -> int:
+    """Checks a (R,) int32 row-id vector; returns R."""
+    if not isinstance(row_ids, torch.Tensor) or row_ids.dim() != 1 \
+            or row_ids.shape[0] < 1:
+        raise ValueError("row_ids must be a non-empty 1-D tensor (R,)")
+    R = row_ids.shape[0]
+    check_tensor("row_ids", row_ids, torch.int32, (R,), device)
+    return R
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -114,7 +126,7 @@ def firstfit(ell, colors, C: int, forb0=None, *, lanes: Optional[int] = None,
     R, W, n, lanes, window = check_common(ell, colors, C, forb0, lanes,
                                           window)
     if ell.device.type != "cuda":
-        return firstfit_ref(ell, colors, C, forb0=forb0)
+        return ref.firstfit_ref(ell, colors, C, forb0=forb0)
     lib = _build.library()
     mex = torch.empty((R,), dtype=torch.int32, device=ell.device)
     ovf = torch.empty((R,), dtype=torch.bool, device=ell.device)

@@ -25,6 +25,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.detect_recolor import detect_recolor as _dr_cuda
 from repro_torch.kernels.firstfit import firstfit as _firstfit_cuda
+from repro_torch.kernels.twohop import twohop_detect_recolor as _twohop_cuda
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.resilience import faults
 
@@ -73,12 +74,34 @@ def firstfit(ell, colors, C: int = 64, backend: str = "auto",
 
 def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int = 64,
                    backend: str = "auto", impl: str = "bitset", forb0=None,
-                   extra_defect=None, force=None, valid=None, **kw):
+                   extra_defect=None, force=None, valid=None, row_ids=None,
+                   **kw):
     b = _forced_fallback("detect_recolor", _resolve(backend, ell))
     _dispatched("detect_recolor", b)
     if b == "torch":
         return ref.detect_recolor_ref(
             ell, colors, pri, row_start, U_rows, C, impl=impl, forb0=forb0,
-            extra_defect=extra_defect, force=force, valid=valid)
+            extra_defect=extra_defect, force=force, valid=valid,
+            row_ids=row_ids)
     return _dr_cuda(ell, colors, pri, U_rows, row_start, C, forb0,
-                    extra_defect, force, valid, **kw)
+                    extra_defect, force, valid, row_ids=row_ids, **kw)
+
+
+def twohop(ell_rows, ell_all, colors, pri, U_rows, row_start: int,
+           C: int = 64, backend: str = "auto", impl: str = "bitset",
+           page_rows=None, force=None, valid=None, row_ids=None,
+           detect: bool = True, **kw):
+    """Fused two-hop (distance-2) detect-and-recolor for rows
+    [row_start, row_start + R) or the vertices ``row_ids``.  The kernel
+    reads the hop-2 table from device memory: there is no residency
+    predicate and no shape fallback, and ``page_rows`` does not change the
+    result."""
+    b = _forced_fallback("twohop", _resolve(backend, ell_all))
+    _dispatched("twohop", b)
+    if b == "torch":
+        return ref.twohop_ref(ell_rows, ell_all, colors, pri, row_start,
+                              U_rows, C, impl=impl, force=force, valid=valid,
+                              row_ids=row_ids, detect=detect)
+    return _twohop_cuda(ell_rows, ell_all, colors, pri, U_rows, row_start, C,
+                        page_rows, force=force, valid=valid, row_ids=row_ids,
+                        detect=detect, **kw)

@@ -10,13 +10,18 @@ branch-free mex of ``core/bitset.py``, "dense" keeps the (R, W, C) one-hot +
 first-zero formulation as the independent oracle.  All corners agree
 bit-for-bit.
 
-Beyond the reference package's refs, both take the optional inputs that the
-engine's chunk pass needs (``core/coloring._chunked_pass``): ``forb0``
+Beyond the reference package's refs, they take the optional inputs that
+the engines' chunk passes need (``core/coloring._chunked_pass``,
+``core/frontier._compact_pass``, ``core/distance2._d2_*_pass``): ``forb0``
 (R, n_words(C)) int32 packed words OR-ed into the forbidden set before the
-mex (the overflow-COO snapshot slice), and for ``detect_recolor_ref``
-``extra_defect`` (R,) bool OR-ed into the defect flags, and ``force`` /
-``valid`` (R,) bool so that ``work = valid & ((U & defect) | force)``.  With
-all of them absent the outputs are the reference's.
+mex (the overflow-COO snapshot slice), ``extra_defect`` (R,) bool OR-ed into
+the defect flags, ``force`` / ``valid`` (R,) bool so that ``work = valid &
+((U & defect) | force)``, and ``row_ids`` (R,) int32: row r is vertex
+``row_ids[r]`` (clamped to ``[0, n-1]``, as the gathers clamp) of the full
+ELL table instead of ``row_start + r`` of a tile — the compacted-frontier
+passes.  ``twohop_ref`` also takes ``detect=False`` (round 0: ``work = valid
+& (U | force)``, no priority read).  With all of them absent the outputs are
+the reference's.
 """
 from __future__ import annotations
 
@@ -56,6 +61,22 @@ def _forbidden_mex(nbrc: torch.Tensor, C: int, impl: str,
     return bitset.mex_words(words, C)
 
 
+def _scatter_mex(nbrc: torch.Tensor, C: int, impl: str):
+    """``_forbidden_mex`` for wide rows (the W + W**2 slots of a two-hop
+    row): scatter the colors into a dense (R, C) table — O(R*W) where the
+    inline pack and the one-hot compare cost O(R*W*words) and O(R*W*C) —
+    then "bitset" packs it (``bitset.pack_dense``, the scatter-then-pack
+    route) for the branch-free mex, "dense" takes its first zero."""
+    R = nbrc.shape[0]
+    ok = (nbrc >= 0) & (nbrc < C)
+    forb = torch.zeros((R, C), dtype=torch.uint8, device=nbrc.device)
+    r = torch.arange(R, device=nbrc.device)[:, None].expand_as(nbrc)
+    forb[r[ok], nbrc[ok].long()] = 1
+    if impl == "dense":
+        return _first_zero(forb > 0)
+    return bitset.mex_words(bitset.pack_dense(forb, C), C)
+
+
 def _gather(ell: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     """``vec[ell]`` with FILL (< 0) slots reading -1; indices are clamped
     as the reference's gathers clamp them (torch would raise instead)."""
@@ -83,27 +104,123 @@ def firstfit_ref(ell, colors, C: int, impl: str = "bitset", forb0=None):
 # fused detect-and-recolor (RSOC, paper Alg. 3 inner loop, one chunk)
 # --------------------------------------------------------------------------
 
+def _row_ids(row_ids, row_start: int, R: int, n: int, device):
+    """Vertex id of each row: ``row_ids`` clamped to [0, n-1], else the tile
+    ``row_start + arange(R)``."""
+    if row_ids is not None:
+        return row_ids.clamp(0, n - 1).long()
+    return row_start + torch.arange(R, device=device)
+
+
+def _work(U_rows, defect, force, valid):
+    """``valid & ((U & defect) | force)``; ``defect=None`` is round 0."""
+    work = U_rows if defect is None else U_rows & defect
+    if force is not None:
+        work = work | force
+    if valid is not None:
+        work = work & valid
+    return work
+
+
 def detect_recolor_ref(ell, colors, pri, row_start: int, U_rows, C: int,
                        impl: str = "bitset", forb0=None, extra_defect=None,
-                       force=None, valid=None):
-    """For rows [row_start, row_start+R): if in U and defective (same color as
-    a higher-priority neighbor), re-color with first-fit; else keep.
+                       force=None, valid=None, row_ids=None):
+    """For rows [row_start, row_start+R) — or, with ``row_ids``, vertices
+    ``row_ids`` of the full table ``ell`` — if in U and defective (same color
+    as a higher-priority neighbor), re-color with first-fit; else keep.
 
     returns (new row colors (R,), recolored (R,) bool, overflow (R,) bool)
     """
-    R = ell.shape[0]
-    c_r = colors[row_start:row_start + R]
-    p_r = pri[row_start:row_start + R]
+    R = ell.shape[0] if row_ids is None else row_ids.shape[0]
+    vid = _row_ids(row_ids, row_start, R, colors.shape[0], ell.device)
+    if row_ids is not None:
+        ell = ell[vid]
+    c_r = colors[vid]
+    p_r = pri[vid]
     nbrc = _gather(ell, colors)
     nbrp = _gather(ell, pri)
     defect = ((nbrc == c_r[:, None]) & (c_r[:, None] >= 0)
               & (nbrp > p_r[:, None])).any(dim=1)
     if extra_defect is not None:
         defect = defect | extra_defect
-    work = U_rows & defect
-    if force is not None:
-        work = work | force
-    if valid is not None:
-        work = work & valid
     mex, ovf = _forbidden_mex(nbrc, C, impl, forb0)
-    return bitset.apply_recolor(work, mex, ovf, c_r)
+    return bitset.apply_recolor(_work(U_rows, defect, force, valid), mex, ovf,
+                                c_r)
+
+
+# --------------------------------------------------------------------------
+# fused two-hop detect-and-recolor (native distance-2, one chunk)
+# --------------------------------------------------------------------------
+
+# slots (rows x (W + W**2)) of the gathered panels the two-hop plain version
+# builds at once; larger chunks go in row blocks (same result: rows are
+# independent), so a chunk of a real-size graph fits on the card
+TWOHOP_BLOCK_SLOTS = 2 ** 24
+
+
+def twohop_panels(e1, ell_all, colors, pri, vid, n: int, detect: bool = True):
+    """Colors (and, with ``detect``, priorities) of every vertex within two
+    hops of each row: (allc, allp), both (R, W1 + W1*W) for (R, W1) hop-1
+    ids ``e1`` and an (n_all, W) table — hop-1 neighbour colors, then hop-2
+    colors gathered through each neighbour's own row of ``ell_all``.  Dead
+    slots and the row's own id ``vid`` (its own two-hop neighbour through
+    any neighbour; compared as given) carry -1.  Every index is clamped to
+    [0, n-1].  ``allp`` is None without ``detect``."""
+    R, W1 = e1.shape
+    W = ell_all.shape[1]
+    live1 = e1 >= 0
+    s1 = e1.clamp(0, n - 1).long()
+    e2 = ell_all[s1.reshape(-1)].reshape(R, W1 * W)          # hop-2 ids
+    live2 = (live1.repeat_interleave(W, dim=1) & (e2 >= 0)
+             & (e2 != vid[:, None]))                          # self-exclusion
+    s2 = e2.clamp(0, n - 1).long()
+    neg = torch.full((), -1, dtype=colors.dtype, device=colors.device)
+    allc = torch.cat([torch.where(live1, colors[s1], neg),
+                      torch.where(live2, colors[s2], neg)], dim=1)
+    if not detect:
+        return allc, None
+    allp = torch.cat([torch.where(live1, pri[s1], neg),
+                      torch.where(live2, pri[s2], neg)], dim=1)
+    return allc, allp
+
+
+def twohop_ref(ell_rows, ell_all, colors, pri, row_start: int, U_rows, C: int,
+               impl: str = "bitset", force=None, valid=None, row_ids=None,
+               detect: bool = True):
+    """Distance-2 analogue of ``detect_recolor_ref``: the forbidden set and
+    the defect test read the colors of every vertex reachable in one or two
+    hops — hop 2 re-gathers each neighbor's ELL row from ``ell_all``, so
+    G²'s adjacency is consumed on the fly, never materialized.  A vertex is
+    its own two-hop neighbor through any neighbor and is excluded.
+
+    ell_rows: (R, W) neighbor tile for rows [row_start, row_start+R), or
+              None with ``row_ids`` (rows are then read from ``ell_all``)
+    ell_all:  (n_all, W) full neighbor table (hop-2 source), n_all >= n
+    colors:   (n,) global colors;  pri: (n,) priorities;  U_rows: (R,) bool
+    returns (new row colors (R,), recolored (R,) bool, overflow (R,) bool)
+    """
+    n = colors.shape[0]
+    R = ell_rows.shape[0] if row_ids is None else row_ids.shape[0]
+    W = ell_all.shape[1]
+    vid = _row_ids(row_ids, row_start, R, n, ell_all.device)
+    step = max(1, TWOHOP_BLOCK_SLOTS // (W + W * W))
+    mex, ovf, defect = [], [], []
+    for lo in range(0, R, step):
+        v = vid[lo:lo + step]
+        e1 = ell_all[v] if row_ids is not None else ell_rows[lo:lo + step]
+        # columns past the block's last live one add nothing: drop them
+        # (ELL rows are left-packed, so on real tables this is the block's
+        # largest degree instead of W)
+        w1 = int((e1 >= 0).any(dim=0).cumsum(0).argmax()) + 1
+        allc, allp = twohop_panels(e1[:, :w1], ell_all, colors, pri, v, n,
+                                   detect)
+        m, o = _scatter_mex(allc, C, impl)
+        mex.append(m)
+        ovf.append(o)
+        if detect:
+            c_r, p_r = colors[v][:, None], pri[v][:, None]
+            defect.append(((allc == c_r) & (c_r >= 0)
+                           & (allp > p_r)).any(dim=1))
+    cat = lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs)
+    work = _work(U_rows, cat(defect) if detect else None, force, valid)
+    return bitset.apply_recolor(work, cat(mex), cat(ovf), colors[vid])

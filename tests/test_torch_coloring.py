@@ -19,6 +19,7 @@ from repro.graphs.generators import paper_suite as j_paper_suite
 from repro.resilience.errors import CapRetryExhausted as JCapRetryExhausted
 from repro_torch import api as tapi
 from repro_torch import obs as tobs
+from repro_torch import registry as tregistry
 from repro_torch.core import coloring as tcol
 from repro_torch.core.context import PassContext as TPassContext
 from repro_torch.graphs.generators import paper_suite as t_paper_suite
@@ -217,14 +218,17 @@ def test_externally_seeded_repair_loop(name, ell_cap):
     assert int(tout[1]) >= 2 and int(tout[3]) > 0
 
 
-@pytest.mark.parametrize("kw", [dict(algorithm="cat"), dict(distance=2),
+@pytest.mark.parametrize("kw", [dict(algorithm="cat"), dict(algorithm="gm"),
                                 dict(mode="incremental"),
                                 dict(backend="distributed"),
-                                dict(algorithm="rsoc_compact")],
+                                dict(algorithm="jp")],
                          ids=lambda kw: "-".join(map(str, kw.values())))
 def test_unsupported_specs_name_the_ported_engine(kw):
     with pytest.raises(ValueError) as e:
         tapi.ColoringSpec(**kw).validate()
+    key = (kw.get("algorithm", "rsoc"), 1, kw.get("mode", "static"),
+           kw.get("backend", "local"))
+    assert tregistry.nearest_key(key) == ("rsoc", 1, "static", "local")
     assert ("nearest supported spec: algorithm='rsoc', distance=1, "
             "mode='static', backend='local'") in str(e.value)
     with pytest.raises(ValueError):
@@ -238,14 +242,19 @@ def test_spec_and_surface_parity():
     assert tapi.ColoringSpec(seed=3, C=64).spec_key() == \
         japi.ColoringSpec(seed=3, C=64).spec_key()
     assert "device" not in tapi.SPEC_FIELDS
-    assert tapi.supported_specs() == [
-        {"algorithm": "rsoc", "distance": 1, "mode": "static",
-         "backend": "local", "replaces": "color_rsoc"}]
-    assert tapi.algorithms() == ["rsoc"]
-    row = [r for r in japi.supported_specs() if r["algorithm"] == "rsoc"
-           and (r["distance"], r["mode"], r["backend"]) == (1, "static",
-                                                            "local")]
-    assert row == tapi.supported_specs()
+    ported = [("rsoc", 1, "static", "local"), ("rsoc", 2, "partial", "local"),
+              ("rsoc", 2, "static", "local"),
+              ("rsoc_compact", 1, "static", "local")]
+    key = lambda r: (r["algorithm"], r["distance"], r["mode"], r["backend"])
+    assert [key(r) for r in tapi.supported_specs()] == ported
+    assert tapi.algorithms() == ["rsoc", "rsoc_compact"]
+    assert tapi.algorithms(distance=2) == ["rsoc"]
+    assert tapi.algorithms(distance=2, mode="partial") == ["rsoc"]
+    rows = [r for r in japi.supported_specs() if key(r) in ported]
+    assert rows == tapi.supported_specs()
+    assert {r["replaces"] for r in rows} == {
+        "color_rsoc", "color_rsoc_compact", "color_distance2",
+        "color_bipartite_partial"}
     for bad in (dict(n_chunks=0), dict(C=0), dict(max_rounds=0),
                 dict(forbidden_impl="sparse"), dict(mode="nope"),
                 dict(n_left=3)):

@@ -14,9 +14,9 @@ import pytest
 import torch
 
 from repro import api as japi
-from repro.graphs.generators import paper_suite as j_paper_suite
+from repro.graphs import generators as j_generators
 from repro_torch import api as tapi
-from repro_torch.graphs.generators import paper_suite as t_paper_suite
+from repro_torch.graphs import generators as t_generators
 
 # one intra-op thread: the tensors here are tiny, and a pool of OpenMP
 # threads per test worker only takes cores from the other workers
@@ -31,24 +31,30 @@ _spec.loader.exec_module(make_torch_golden)
 with open(make_torch_golden.PATH) as _f:
     GOLDEN = json.load(_f)["results"]
 
-J_SUITE = j_paper_suite("tiny")
-T_SUITE = t_paper_suite("tiny")
-KEYS = [(name, seed) for name in sorted(J_SUITE)
-        for seed in make_torch_golden.SEEDS]
+J_RUNS = {key: (g, kw) for key, g, kw in make_torch_golden.runs(j_generators)}
+T_RUNS = {key: (g, kw) for key, g, kw in make_torch_golden.runs(t_generators)}
+KEYS = sorted(J_RUNS)
 
 
 def test_golden_file_covers_the_suite():
-    assert sorted(GOLDEN) == sorted(f"{n}/seed={s}" for n, s in KEYS)
+    assert sorted(GOLDEN) == KEYS == sorted(T_RUNS)
+    assert sum(k.startswith("d2/") for k in KEYS) == 18
+    assert sum(k.startswith("partial/") for k in KEYS) == 6
     for entry in GOLDEN.values():
         assert sorted(entry) == sorted(make_torch_golden.FIELDS
                                        + ("colors_sha256",))
         assert len(entry["colors_sha256"]) == 64
 
 
-@pytest.mark.parametrize("name,seed", KEYS)
-def test_golden_equals_reference_and_port(name, seed):
-    want = GOLDEN[f"{name}/seed={seed}"]
+# ids as "<graph>-<seed>" for the distance-1 entries (their ids since the
+# file began), "d2-<graph>-<seed>" and "partial-<graph>-<seed>" for the rest
+@pytest.mark.parametrize(
+    "key", KEYS, ids=lambda k: k.replace("/seed=", "-").replace("/", "-"))
+def test_golden_equals_reference_and_port(key):
+    want = GOLDEN[key]
+    g, kw = J_RUNS[key]
+    assert make_torch_golden.entry(japi.color(g, **kw)) == want, \
+        "reference package"
+    g, kw = T_RUNS[key]
     assert make_torch_golden.entry(
-        japi.color(J_SUITE[name], seed=seed)) == want, "reference package"
-    assert make_torch_golden.entry(
-        tapi.color(T_SUITE[name], device="cpu", seed=seed)) == want, "port"
+        tapi.color(g, device="cpu", **kw)) == want, "port"

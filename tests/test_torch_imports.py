@@ -63,10 +63,12 @@ def test_every_module_is_found():
     mods = _modules()
     for m in ("repro_torch.api", "repro_torch.registry",
               "repro_torch.core.bitset", "repro_torch.core.coloring",
-              "repro_torch.core.context", "repro_torch.graphs.csr",
+              "repro_torch.core.context", "repro_torch.core.distance2",
+              "repro_torch.core.frontier", "repro_torch.graphs.csr",
               "repro_torch.graphs.generators", "repro_torch.kernels._build",
               "repro_torch.kernels.firstfit",
-              "repro_torch.kernels.detect_recolor", "repro_torch.kernels.ops",
+              "repro_torch.kernels.detect_recolor",
+              "repro_torch.kernels.twohop", "repro_torch.kernels.ops",
               "repro_torch.kernels.ref", "repro_torch.obs.export",
               "repro_torch.obs.metrics", "repro_torch.obs.trace",
               "repro_torch.resilience.errors", "repro_torch.resilience.faults"):
