@@ -8,8 +8,10 @@ ends the run with a non-zero exit code:
   1. device   require CUDA; print the card's name and power limit and the
               torch / CUDA / nvcc / triton versions
   2. build    build the kernels from src/repro_torch/kernels/csrc
-  3. kernels  each kernel against its plain PyTorch version on the card,
-              bit-equal (tolerance 0: integer arithmetic), over shape sweeps
+  3. kernels  each kernel against its plain PyTorch version on the card
+              over shape sweeps: the coloring kernels bit-equal (integer
+              arithmetic), attention and aggregation within stated
+              tolerances (FA_TOL, SPMM_TOL)
   4. golden   paper_suite("tiny") x seeds 0-2 at distance 1 and 2, and two
               bipartite graphs (mode="partial"), through repro_torch.api.color
               on the card against tests/torch_golden.json (made by the JAX
@@ -24,8 +26,18 @@ ends the run with a non-zero exit code:
   5b. plain   the problems of 5 and the distance-2 and rsoc_compact meshes
               of 5c through the plain versions on the card (kernel.fallback
               fault site), results equal field by field
-  6. times    per-kernel time / plain-version time / bound at the shapes
-              phases 5 and 5c used; one compacted repair pass per
+  5d. serve   ServeEngine on qwen3-1.7b at full width (random weights, seed
+              0): 8 requests, prompts of 128-2048 tokens, 32 new tokens
+              each; counters zeroed before, read after (one attention launch
+              per layer per prefill); the prompts' prefill logits against
+              the plain attention on the card (kernel.fallback)
+  5e. agg     ops.ell_aggregate on RMAT-ER's ELL table with d=100 features,
+              float32 and bfloat16, sum / mean / max, against the plain
+              version; counters zeroed before, read after
+  6. times    per-kernel time / plain-version time / bound (and, for the
+              attention and aggregation kernels, the time of the one
+              PyTorch call that computes the same function) at the shapes
+              phases 5, 5c, 5d and 5e used; one compacted repair pass per
               compacted path (detect_recolor with row_ids, forb0 and
               extra_defect on RMAT-B; twohop with row_ids on RMAT-ER),
               kernels against plain versions on the same inputs
@@ -98,15 +110,33 @@ def rand_words(rng, R, C, device, density=0.2):
     return bitset.pack_dense(dev(dense, device), C).contiguous()
 
 
-KERNELS = ("firstfit", "detect_recolor", "twohop_detect_recolor")
+COLORING_KERNELS = ("firstfit", "detect_recolor", "twohop_detect_recolor")
+KERNELS = COLORING_KERNELS + ("flash_attention", "ell_spmm")
 
 
 class Cmp:
-    """Kernel-vs-plain comparisons, collected per kernel."""
+    """Kernel-vs-plain comparisons, collected per kernel: ``check`` for the
+    integer kernels (bit-equal), ``close`` for the float ones (a stated
+    tolerance, compared in float32)."""
 
     def __init__(self):
         self.max_err = {k: 0 for k in KERNELS}
         self.cases = {k: [] for k in KERNELS}
+
+    def close(self, kernel, label, got, want, rtol, atol):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"{kernel} {label}: output is {got.dtype}{tuple(got.shape)}"
+                 f", plain version gives {want.dtype}{tuple(want.shape)}")
+        g, w = got.float(), want.float()
+        diff = (g - w).abs()
+        err = float(diff.max())
+        self.max_err[kernel] = max(self.max_err[kernel], err)
+        bad = int((~(diff <= atol + rtol * w.abs())).sum())
+        if bad or not bool(torch.isfinite(g).all()):
+            fail(f"{kernel} {label}: {bad} outputs differ from the plain "
+                 f"version past rtol {rtol} / atol {atol} (max abs err "
+                 f"{err}), or are not finite")
+        self.cases[kernel].append(label)
 
     def check(self, kernel, label, got, want, names):
         for g, w, nm in zip(got, want, names):
@@ -219,6 +249,8 @@ def phase_kernels(device, launch: bool) -> Cmp:
         torch.cuda.synchronize()
     phase_kernels_rows(device, launch, cmp)
     phase_kernels_twohop(device, launch, cmp)
+    phase_kernels_attention(device, launch, cmp)
+    phase_kernels_spmm(device, launch, cmp)
     return cmp
 
 
@@ -355,6 +387,93 @@ def phase_kernels_twohop(device, launch: bool, cmp: Cmp):
                               None, ell_all, colors, pri, U, 0, C,
                               row_ids=ids, force=force, lanes=lanes,
                               window=window), want, names)
+        torch.cuda.synchronize()
+
+
+# Tolerances of the float kernels against their plain versions on the card.
+# float32: tests/test_kernels.py's (the same float32 arithmetic summed in
+# another order).  bfloat16 attention: the kernel rounds p to bfloat16 before
+# P.V, as the TPU kernel does, where the plain version keeps float32, and
+# both round the output once — one bfloat16 step (2^-8 relative, 0.0156 at
+# |out| in [2, 4)) plus p's rounding (at most 2^-9 of max |v|).  bfloat16
+# aggregation: tests/test_kernels.py's.
+FA_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 2e-2)}
+SPMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-1)}
+
+
+def randn(rng, shape, dtype, device):
+    return dev(rng.standard_normal(shape).astype(np.float32), device).to(dtype)
+
+
+def phase_kernels_attention(device, launch: bool, cmp: Cmp):
+    """``flash_attention`` against ``flash_attention_ref`` on the card: the
+    reference's test shapes, qwen3-1.7b's heads at ragged lengths, Lk > Lq,
+    the head dims of the smoke configs; causal and not, float32 and
+    bfloat16."""
+    from repro_torch.kernels import ops, ref
+    kb = "cuda" if launch else "torch"
+    # (B, Hq, Hkv, Lq, Lk, D)
+    shapes = [(1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 256, 64),
+              (1, 2, 1, 256, 256, 128)]
+    shapes += [(1, 16, 8, L, L, 128) for L in (1, 17, 300, 1000)]
+    shapes += [(1, 16, 8, 300, 1000, 128), (2, 4, 2, 33, 70, 16),
+               (3, 4, 4, 65, 65, 32)]
+    for B, Hq, Hkv, Lq, Lk, D in shapes:
+        rng = np.random.default_rng(Lq * 31 + Lk + D)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(rng, (B, Hq, Lq, D), dtype, device)
+            k = randn(rng, (B, Hkv, Lk, D), dtype, device)
+            v = randn(rng, (B, Hkv, Lk, D), dtype, device)
+            for causal in (True, False):
+                cmp.close("flash_attention",
+                          f"B{B} Hq{Hq} Hkv{Hkv} Lq{Lq} Lk{Lk} D{D} "
+                          f"{str(dtype)[6:]} causal={causal}",
+                          ops.attention(q, k, v, causal=causal, backend=kb),
+                          ref.flash_attention_ref(q, k, v, causal=causal),
+                          *FA_TOL[dtype])
+    if launch:
+        torch.cuda.synchronize()
+
+
+def phase_kernels_spmm(device, launch: bool, cmp: Cmp):
+    """``ell_spmm`` against ``ell_spmm_ref`` on the card: the reference's
+    test shapes, all-FILL rows, ids >= n (clamped), ragged R and d, every
+    compiled lane count; float32 and bfloat16, all three ops."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ell_spmm import LANES, ell_spmm
+    kb = "cuda" if launch else "torch"
+    # (R, W, n, d): the reference's shapes, then ragged ones
+    shapes = [(128, 8, 256, 128), (256, 16, 1024, 256), (128, 4, 512, 128),
+              (1000, 7, 300, 100), (77, 40, 50, 3), (5, 1, 5, 1),
+              (333, 44, 4096, 100), (64, 3, 100, 1030)]
+    for R, W, n, d in shapes:
+        rng = np.random.default_rng(R * W + d)
+        ell = rand_ell(rng, R, W, n + 5)     # ids up to n + 4: clamped
+        ell[::7] = -1                        # all-FILL rows
+        ell = dev(ell, device)
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = randn(rng, (n, d), dtype, device)
+            for op in ("sum", "mean", "max"):
+                got = ops.ell_aggregate(ell, feats, op, backend=kb)
+                cmp.close("ell_spmm", f"R{R} W{W} n{n} d{d} "
+                          f"{str(dtype)[6:]} {op}", got,
+                          ref.ell_spmm_ref(ell, feats, op), *SPMM_TOL[dtype])
+                if bool((got[::7] != 0).any()):
+                    fail(f"ell_spmm R{R} W{W} n{n} d{d} {op}: an all-FILL "
+                         f"row is not 0")
+    # every compiled lane count computes the same function
+    if launch:
+        rng = np.random.default_rng(8)
+        ell = dev(rand_ell(rng, 300, 20, 2000), device)
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = randn(rng, (2000, 200), dtype, device)
+            for op in ("sum", "max"):
+                want = ref.ell_spmm_ref(ell, feats, op)
+                for lanes in LANES:
+                    cmp.close("ell_spmm", f"R300 W20 n2000 d200 "
+                              f"{str(dtype)[6:]} {op} lanes{lanes}",
+                              ell_spmm(ell, feats, op, lanes=lanes), want,
+                              *SPMM_TOL[dtype])
         torch.cuda.synchronize()
 
 
@@ -545,8 +664,9 @@ def phase_main(rmats, device, rehearse: bool):
         for k in ("firstfit", "detect_recolor"):
             if counts[k] < 1:
                 fail(f"the main path never launched the {k} kernel")
-        if counts["twohop_detect_recolor"]:
-            fail("the main path launched the two-hop kernel")
+        for k in ("twohop_detect_recolor", "flash_attention", "ell_spmm"):
+            if counts[k]:
+                fail(f"the main path launched the {k} kernel")
     return rows, kept, counts
 
 
@@ -563,10 +683,13 @@ def exact_launch_counts(what: str, res):
 def launch_counters() -> dict:
     """Kernel name -> its wrapper, whose ``.launches`` counts launches."""
     from repro_torch.kernels.detect_recolor import detect_recolor
+    from repro_torch.kernels.ell_spmm import ell_spmm
     from repro_torch.kernels.firstfit import firstfit
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.twohop import twohop_detect_recolor
     return {"firstfit": firstfit, "detect_recolor": detect_recolor,
-            "twohop_detect_recolor": twohop_detect_recolor}
+            "twohop_detect_recolor": twohop_detect_recolor,
+            "flash_attention": flash_attention, "ell_spmm": ell_spmm}
 
 
 def launch_counts() -> dict:
@@ -713,6 +836,7 @@ def phase_distance2(kept, bip, device, rehearse: bool, pool):
                      "twohop_detect_recolor": 0} if traced_only else
                     {"firstfit": 0, "detect_recolor": 0,
                      "twohop_detect_recolor": n_chunks * (1 + res.n_rounds)})
+            want.update(flash_attention=0, ell_spmm=0)
             if d != want:
                 fail(f"{name} {what}: launches {d}, expected {want}")
         fb = obs.metrics.counters_matching("kernels.fallback")
@@ -763,11 +887,262 @@ def phase_distance2(kept, bip, device, rehearse: bool, pool):
     # ... and read just after
     counts = launch_counts()
     if device.type == "cuda":
-        for k, v in counts.items():
-            if v < 1:
+        for k in COLORING_KERNELS:
+            if counts[k] < 1:
                 fail(f"the distance-2 / compacted path never launched the "
                      f"{k} kernel")
     return rows, kept_d2, kept_compact, counts, checks
+
+
+# --------------------------------------------------------------------------
+# phase 5d: serving qwen3-1.7b at full width
+# --------------------------------------------------------------------------
+
+SERVE_BATCH, SERVE_MAX_LEN = 4, 4096
+SERVE_REQUESTS, SERVE_NEW_TOKENS = 8, 32
+SERVE_PROMPT_LENS = (128, 2048)       # drawn uniformly, both ends included
+# Last-position logits of the kernel route against the plain route (the
+# plain attention under kernel.fallback), compared in float32.  The model is
+# bfloat16 end to end: each of the 28 layers' attention outputs may differ
+# by a bfloat16 step between the routes (see FA_TOL), which the residual
+# stream carries to the logits (std about 0.9 with these random weights);
+# a wrong attention kernel moves them by O(1).
+LOGITS_ATOL = 0.25
+
+
+def device_time(fn, device) -> dict:
+    """Where one call's time goes: its wall time (host clock, synchronized,
+    unprofiled), then the same call again under ``torch.profiler``: the
+    summed time of its device kernels (one stream: no overlap) and the
+    largest kernels.  ``device_busy_ms`` is None where the profiler records
+    no device time (the share is then not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync(device)
+    t0 = time.perf_counter()
+    fn()
+    sync(device)
+    wall = (time.perf_counter() - t0) * 1e3
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        fn()
+        sync(device)
+    kern = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kern.append((e.key[:90], us / 1e3, e.count))
+    busy = sum(ms for _, ms, _ in kern)
+    return {"wall_ms": wall, "device_busy_ms": busy if busy > 0 else None,
+            "device_idle_share": 1 - busy / wall if busy > 0 else None,
+            "kernel_launches": sum(c for _, _, c in kern),
+            "top_kernels": [{"name": k, "ms": ms, "count": c} for k, ms, c
+                            in sorted(kern, key=lambda r: -r[1])[:6]]}
+
+
+def phase_serve(device, rehearse: bool):
+    """``ServeEngine`` on qwen3-1.7b (``make_full()``; the smoke config in
+    the rehearsal), random weights from ``torch.Generator`` seed 0: 8
+    requests with prompts of 128-2048 tokens (``default_rng(0)``), 32 new
+    tokens each, 4 slots of 4096.  Counts zeroed before, read after: the
+    attention kernel launches exactly once per layer per prefill.  Then the
+    same prompts' prefill through the plain attention on the card
+    (``kernel.fallback``): logits within ``LOGITS_ATOL``, the same greedy
+    first token wherever the plain route's top-2 margin exceeds it."""
+    from repro_torch import configs, obs
+    from repro_torch.models import transformer as TF
+    from repro_torch.resilience import faults
+    from repro_torch.serving import Request, ServeEngine
+    arch = configs.get("qwen3-1.7b")
+    cfg = arch.make_smoke() if rehearse else arch.make_full()
+    t = time.perf_counter()
+    params = TF.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg, device)
+    sync(device)
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(0)
+    lo, hi = (8, 64) if rehearse else SERVE_PROMPT_LENS
+    lens = rng.integers(lo, hi + 1, SERVE_REQUESTS)
+    prompts = [rng.integers(1, cfg.vocab, L).astype(np.int32) for L in lens]
+    eng = ServeEngine(params, cfg, batch=SERVE_BATCH, max_len=SERVE_MAX_LEN,
+                      device=device)
+    # warm-up (library handles, allocator): one short request, not counted
+    eng.run([Request(prompt=prompts[0][:64], max_new_tokens=2)])
+    # time each prefill and each decode step (host clock, synchronized)
+    ttft, steps = {}, []
+    submit, step_all = eng.submit, eng.step_all
+
+    def timed_submit(req):
+        sync(device)
+        t0 = time.perf_counter()
+        ok = submit(req)
+        sync(device)
+        if ok:
+            ttft[id(req)] = (time.perf_counter() - t0) * 1e3
+        return ok
+
+    def timed_step():
+        live = [id(r) for r in eng.active if r is not None]
+        sync(device)
+        t0 = time.perf_counter()
+        n = step_all()
+        sync(device)
+        steps.append(((time.perf_counter() - t0) * 1e3, live))
+        return n
+
+    eng.submit, eng.step_all = timed_submit, timed_step
+    reqs = [Request(prompt=p, max_new_tokens=SERVE_NEW_TOKENS)
+            for p in prompts]
+    obs.metrics.reset()
+    # counts to 0 just before the serving path is driven ...
+    for w in launch_counters().values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    sync(device)
+    wall_s = time.perf_counter() - t0
+    # ... and read just after
+    counts = launch_counts()
+    fb = obs.metrics.counters_matching("kernels.fallback")
+    if fb:
+        fail(f"serve: kernels.fallback counters are not empty: {fb}")
+    if device.type == "cuda":
+        want = {k: 0 for k in KERNELS}
+        want["flash_attention"] = cfg.n_layers * len(reqs)
+        if counts != want:
+            fail(f"serve: launches {counts}, expected {want} (one attention "
+                 f"launch per layer per prefill)")
+    for r in reqs:
+        if not r.done or len(r.out_tokens) != SERVE_NEW_TOKENS or not all(
+                0 <= t < cfg.vocab for t in r.out_tokens):
+            fail(f"serve: a request ended with {len(r.out_tokens)} tokens "
+                 f"(done={r.done}), or with a token outside the vocabulary")
+    # the kernel route against the plain route, prompt by prompt
+    worst, checked, margins = 0.0, 0, []
+    with torch.inference_mode():
+        for p, r in zip(prompts, reqs):
+            tokens = torch.from_numpy(p).to(device)[None]
+            before = launch_counts()
+            with faults.inject("kernel.fallback"):
+                plain = TF.prefill(params, cfg, tokens)[0].float()
+            if launch_counts() != before:
+                fail("serve: the plain route launched a kernel")
+            kern = TF.prefill(params, cfg, tokens)[0].float()
+            if kern.shape != (1, cfg.vocab) or not bool(
+                    torch.isfinite(kern).all()):
+                fail(f"serve: prefill logits {tuple(kern.shape)} are not "
+                     f"(1, {cfg.vocab}) finite values")
+            err = float((kern - plain).abs().max())
+            worst = max(worst, err)
+            top2 = torch.topk(plain[0], 2).values
+            margin = float(top2[0] - top2[1])
+            margins.append(margin)
+            if margin > LOGITS_ATOL:
+                checked += 1
+                if r.out_tokens[0] != int(torch.argmax(plain[0])):
+                    fail(f"serve: greedy first token {r.out_tokens[0]} of "
+                         f"the kernel route, {int(torch.argmax(plain[0]))} "
+                         f"of the plain route (top-2 margin {margin})")
+    if worst > LOGITS_ATOL:
+        fail(f"serve: last-position logits differ by {worst} between the "
+             f"kernel and the plain route (tolerance {LOGITS_ATOL})")
+    per_req = []
+    for L, r in zip(lens, reqs):
+        mine = [ms for ms, live in steps if id(r) in live]
+        per_req.append({"prompt_len": int(L), "ttft_ms": ttft[id(r)],
+                        "decode_ms_per_step": statistics.mean(mine),
+                        "decode_steps": len(mine)})
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    # where the time goes: a decode step with every slot live, and the
+    # longest prompt's prefill, each timed, then traced
+    for p in prompts[:SERVE_BATCH]:
+        submit(Request(prompt=p, max_new_tokens=SERVE_NEW_TOKENS))
+    step_all()
+    longest = torch.from_numpy(prompts[int(np.argmax(lens))]).to(device)[None]
+    with torch.inference_mode():
+        breakdown = {"decode_step_4_live": device_time(step_all, device),
+                     f"prefill_{int(lens.max())}": device_time(
+                         lambda: TF.prefill(params, cfg, longest), device)}
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "params": n_params,
+           "init_s": init_s, "batch": SERVE_BATCH, "max_len": SERVE_MAX_LEN,
+           "requests": per_req, "tokens": n_tok, "wall_s": wall_s,
+           "tokens_per_s": n_tok / wall_s, "decode_steps": len(steps),
+           "decode_ms_per_step_mean": statistics.mean(ms for ms, _ in steps),
+           "logits_max_abs_err_vs_plain": worst,
+           "logits_tol": LOGITS_ATOL, "first_tokens_checked": checked,
+           "top2_margins": margins, "breakdown": breakdown}
+    log("serve", json.dumps(row))
+    del eng, params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return row, counts
+
+
+# --------------------------------------------------------------------------
+# phase 5e: ops.ell_aggregate on the uniform RMAT's ELL table
+# --------------------------------------------------------------------------
+
+AGG_D = 100     # d_feat of ogb_products (configs.common.GNN_SHAPES)
+AGG_BLOCK_ROWS = 2 ** 16     # rows per block of the plain version
+
+
+def spmm_plain_blocks(ell, feats, op):
+    """``ell_spmm_ref`` over the whole table in row blocks (its gather is
+    (rows, W, d) floats)."""
+    from repro_torch.kernels import ref
+    return torch.cat([ref.ell_spmm_ref(ell[lo:lo + AGG_BLOCK_ROWS], feats, op)
+                      for lo in range(0, ell.shape[0], AGG_BLOCK_ROWS)])
+
+
+def phase_aggregate(device, g, name: str, cmp: Cmp):
+    """``ops.ell_aggregate`` on the ELL table of the uniform RMAT (every
+    vertex, its real neighbours, FILL-padded to the max degree) with
+    ``AGG_D`` random features, float32 and bfloat16, all three ops; each
+    result against the plain version on the card.  Counts zeroed before,
+    read after: one launch per call."""
+    from repro_torch import obs
+    from repro_torch.graphs.csr import to_ell
+    from repro_torch.kernels import ops
+    ell = torch.from_numpy(to_ell(g)).to(device)
+    R, W = ell.shape
+    gen = torch.Generator(device=device).manual_seed(0)
+    feats32 = torch.randn((g.n_vertices, AGG_D), generator=gen,
+                          device=device)
+    inputs = {torch.float32: feats32, torch.bfloat16: feats32.bfloat16()}
+    obs.metrics.reset()
+    # counts to 0 just before the aggregation path is driven ...
+    for w in launch_counters().values():
+        w.launches = 0
+    outs = {}
+    for dtype, feats in inputs.items():
+        for op in ("sum", "mean", "max"):
+            outs[(dtype, op)] = ops.ell_aggregate(ell, feats, op)
+    sync(device)
+    # ... and read just after
+    counts = launch_counts()
+    if obs.metrics.counters_matching("kernels.fallback"):
+        fail("aggregate: kernels.fallback counters are not empty")
+    if device.type == "cuda":
+        want = {k: 0 for k in KERNELS}
+        want["ell_spmm"] = len(outs)
+        if counts != want:
+            fail(f"aggregate: launches {counts}, expected {want}")
+    for (dtype, op), got in outs.items():
+        cmp.close("ell_spmm", f"{name} R{R} W{W} d{AGG_D} {str(dtype)[6:]} "
+                  f"{op}", got, spmm_plain_blocks(ell, inputs[dtype], op),
+                  *SPMM_TOL[dtype])
+    del outs
+    row = {"graph": name, "R": R, "W": W, "live_slots": int((ell >= 0).sum()),
+           "d": AGG_D, "calls": 6, "launches": counts["ell_spmm"]}
+    log("aggregate", json.dumps(row))
+    return row, counts, ell, feats32
 
 
 # --------------------------------------------------------------------------
@@ -1041,6 +1416,97 @@ def phase_times_twohop(device, kept_d2, cmp: Cmp, launch: bool):
     return rows
 
 
+BF16_TFLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
+FA_TIME_LENS = (2048, 8192)  # serving prefill's longest prompt, and 4x it
+
+
+def attention_pairs(Lq: int, Lk: int, causal: bool) -> int:
+    """(query, key) pairs a head computes: with causal, query r sees keys
+    <= r + (Lk - Lq)."""
+    if not causal:
+        return Lq * Lk
+    r = np.arange(Lq, dtype=np.int64)
+    return int(np.minimum(Lk, r + (Lk - Lq) + 1).sum())
+
+
+def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
+                       rehearse: bool):
+    """Times of the two float kernels at their paths' shapes.
+
+    ``flash_attention`` at the serving prefill's head shape (B=1, Hq=16,
+    Hkv=8, D=128, bfloat16, causal) at L = 2048 and 8192.  Bound: the larger
+    of 4 * Hq * D FLOPs per visible (query, key) pair at the bf16
+    tensor-core rate and q, k, v, out read / written once at the memory rate
+    — operations bound it.  Library: ``scaled_dot_product_attention(...,
+    is_causal=True, enable_gqa=True)`` on the same tensors (timed here only).
+
+    ``ell_spmm`` on the uniform RMAT's table, d=100 float32, ``sum``.  Bound:
+    the table's bytes, each distinct feature row a live slot names once and
+    the output, at the memory rate.  Library: ``torch.sparse.mm`` of a CSR
+    matrix built (untimed) from the same table with the features — the same
+    sum; for ``mean`` / ``max`` no single PyTorch call computes the
+    function."""
+    from repro_torch.kernels import ops, ref
+    kb = "cuda" if launch else "torch"
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(1)
+    B, Hq, Hkv, D = (1, 4, 2, 16) if rehearse else (1, 16, 8, 128)
+    dt = torch.bfloat16
+    for L in ((64, 128) if rehearse else FA_TIME_LENS):
+        q, k, v = (torch.randn((B, H, L, D), generator=gen, device=device,
+                               dtype=torch.float32).to(dt)
+                   for H in (Hq, Hkv, Hkv))
+        fn = lambda: ops.attention(q, k, v, causal=True, backend=kb)
+        plain = lambda: ref.flash_attention_ref(q, k, v, causal=True)
+        cmp.close("flash_attention", f"times B{B} Hq{Hq} Hkv{Hkv} L{L} D{D} "
+                  f"bfloat16 causal", fn(), plain(), *FA_TOL[dt])
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+        pairs = attention_pairs(L, L, True)
+        flops = 4 * B * Hq * D * pairs
+        nbytes = (2 * B * Hq * L * D + 2 * B * Hkv * L * D) * 2
+        rows.append({"kernel": "flash_attention", "B": B, "Hq": Hq,
+                     "Hkv": Hkv, "L": L, "D": D, "dtype": "bfloat16",
+                     "causal": True, "flops": flops, "bytes": nbytes,
+                     "ms": time_ms(fn, device, 5),
+                     "plain_ms": time_ms(plain, device, 1, 3),
+                     "library_ms": time_ms(lib, device, 5),
+                     "bound_ms": max(flops / BF16_TFLOPS,
+                                     nbytes / HBM_BYTES_PER_S) * 1e3,
+                     "bound_by": ("operations" if flops / BF16_TFLOPS
+                                  >= nbytes / HBM_BYTES_PER_S else "bytes")})
+        log("times", json.dumps(rows[-1]))
+        del q, k, v
+    # ell_spmm, sum, float32, on the table of phase 5e
+    R, W = ell.shape
+    n, d = feats32.shape
+    live = ell >= 0
+    ids = ell[live].clamp(max=n - 1).long()      # row-major: ascending j
+    need = torch.zeros(n, dtype=torch.bool, device=device)
+    need[ids] = True
+    distinct = int(need.sum())
+    nbytes = R * W * 4 + distinct * d * 4 + R * d * 4
+    fn = lambda: ops.ell_aggregate(ell, feats32, "sum", backend=kb)
+    plain = lambda: spmm_plain_blocks(ell, feats32, "sum")
+    crow = torch.zeros(R + 1, dtype=torch.int64, device=device)
+    crow[1:] = torch.cumsum(live.sum(dim=1), 0)
+    csr = torch.sparse_csr_tensor(crow, ids, torch.ones(
+        ids.shape[0], dtype=torch.float32, device=device), size=(R, n))
+    lib = lambda: torch.sparse.mm(csr, feats32)
+    lib_err = float((lib() - plain()).abs().max())
+    rows.append({"kernel": "ell_spmm", "R": R, "W": W, "n": n, "d": d,
+                 "dtype": "float32", "op": "sum",
+                 "live_slots": int(ids.shape[0]), "distinct_rows": distinct,
+                 "bytes": nbytes, "ms": time_ms(fn, device, 5),
+                 "plain_ms": time_ms(plain, device, 1, 3),
+                 "library_ms": time_ms(lib, device, 5),
+                 "library_max_abs_err_vs_plain": lib_err,
+                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "bound_by": "bytes"})
+    log("times", json.dumps(rows[-1]))
+    return rows
+
+
 def check_compact_pass(cmp: Cmp, kernel: str, name: str, n_pad: int, colors,
                        U, small, full, spec):
     """The engine's first compacted repair pass, kernels against plain
@@ -1093,11 +1559,17 @@ def wait_checks(checks: dict) -> list:
     return done
 
 
-def kernels_line(kept, time_rows, counts, counts_d2, cmp: Cmp) -> list:
-    """The ``kernels`` entries: per kernel, the chunk of the largest table
-    its path ran (RMAT-B for the distance-1 kernels, RMAT-ER for the two-hop
-    kernel), and the launches of the path that runs it (phase 5, resp.
-    5c)."""
+def kernels_line(kept, time_rows, model_rows, paths: dict,
+                 cmp: Cmp) -> list:
+    """The ``kernels`` entries: per coloring kernel, the chunk of the
+    largest table its path ran (RMAT-B for the distance-1 kernels, RMAT-ER
+    for the two-hop kernel); the attention kernel at the serving prefill's
+    longest prompt (L=2048); the aggregation kernel on the RMAT-ER table
+    (float32, sum).  ``launches`` is the count of the path that runs the
+    kernel: phase 5 for B1 / B2, 5c for B3, 5d (serve) for the attention
+    kernel, 5e (aggregate) for the aggregation kernel; ``paths`` holds every
+    path's counts."""
+    counts, counts_d2 = paths["main"], paths["distance2_compact"]
     csrc = "src/repro_torch/kernels/csrc/"
     largest = {"firstfit": list(kept)[-1], "detect_recolor": list(kept)[-1],
                "twohop_detect_recolor": next(k for k in kept
@@ -1113,7 +1585,7 @@ def kernels_line(kept, time_rows, counts, counts_d2, cmp: Cmp) -> list:
                                       "src/repro/kernels/twohop.py:130",
                                       counts_d2)}
     kernels = []
-    for name in KERNELS:
+    for name in COLORING_KERNELS:
         r = row_of[name]
         src, replaces, path_counts = meta[name]
         kernels.append({
@@ -1123,9 +1595,27 @@ def kernels_line(kept, time_rows, counts, counts_d2, cmp: Cmp) -> list:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
-            "launches_per_path": {"main": counts[name],
-                                  "distance2_compact": counts_d2[name]},
+            "library_ms_why": "no single PyTorch call computes it",
+            "launches_per_path": {p: c[name] for p, c in paths.items()},
             "shape": {k: r[k] for k in ("graph", "R", "W", "n", "C")},
+            "cases_checked": len(cmp.cases[name])})
+    fa = next(r for r in model_rows if r["kernel"] == "flash_attention")
+    sp = next(r for r in model_rows if r["kernel"] == "ell_spmm")
+    for name, r, src, replaces, path, shape in (
+            ("flash_attention", fa, "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:58", "serve",
+             ("B", "Hq", "Hkv", "L", "D", "dtype", "causal")),
+            ("ell_spmm", sp, "ell_spmm.cu", "src/repro/kernels/ell_spmm.py:52",
+             "aggregate", ("R", "W", "n", "d", "dtype", "op"))):
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + src,
+            "replaces": replaces, "launches": paths[path][name],
+            "max_abs_err": cmp.max_err[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "launches_per_path": {p: c[name] for p, c in paths.items()},
+            "shape": {k: r[k] for k in shape},
             "cases_checked": len(cmp.cases[name])})
     return kernels
 
@@ -1212,7 +1702,8 @@ def main() -> int:
         # ---- phase 3: kernels vs plain versions ----
         cmp = phase_kernels(device, launch)
         log("kernels", json.dumps({k: len(v) for k, v in cmp.cases.items()}),
-            "cases bit-equal to the plain versions")
+            "cases equal to the plain versions (coloring kernels bit for "
+            "bit, attention and aggregation within FA_TOL / SPMM_TOL)")
         log("kernels", json.dumps({"shapes_checked": cmp.cases}))
 
         # ---- phase 4: golden ----
@@ -1244,24 +1735,40 @@ def main() -> int:
         log("plain", f"rsoc_compact: kernel path == plain path on the card "
                      f"for {done}")
 
+        # ---- phase 5d: serving qwen3-1.7b ----
+        serve_row, counts_serve = phase_serve(device, args.rehearse)
+        log("serve", json.dumps({"launches": counts_serve}))
+
+        # ---- phase 5e: ops.ell_aggregate on the RMAT-ER table ----
+        rmat_er = next(k for k in kept if k.startswith("rmat_er"))
+        agg_row, counts_agg, ell, feats = phase_aggregate(
+            device, kept[rmat_er][0], rmat_er, cmp)
+        log("aggregate", json.dumps({"launches": counts_agg}))
+
         # ---- phase 6: kernel times ----
+        model_rows = phase_times_models(device, ell, feats, cmp, launch,
+                                        args.rehearse)
+        del ell, feats
         time_rows = phase_times(device, kept, kept_compact, cmp, launch)
         time_rows += phase_times_twohop(device, kept_d2, cmp, launch)
         if launch:
             torch.cuda.synchronize()
         log("distance2", f"host oracles passed: {wait_checks(checks)}")
 
+    paths = {"main": counts, "distance2_compact": counts_d2,
+             "serve": counts_serve, "aggregate": counts_agg}
+    kernels = kernels_line(kept, time_rows, model_rows, paths, cmp)
     if args.rehearse:
-        log("kernels", json.dumps(
-            kernels_line(kept, time_rows, counts, counts_d2, cmp)))
+        log("kernels", json.dumps(kernels))
         log("rehearsal on the CPU finished; no kernel was built or launched")
         return 3
 
     # ---- result lines ----
-    kernels = kernels_line(kept, time_rows, counts, counts_d2, cmp)
     print(json.dumps({"main_path": main_rows}), flush=True)
     print(json.dumps({"distance2_path": d2_rows}), flush=True)
-    print(json.dumps({"kernel_times": time_rows}), flush=True)
+    print(json.dumps({"serve_path": serve_row}), flush=True)
+    print(json.dumps({"aggregate_path": agg_row}), flush=True)
+    print(json.dumps({"kernel_times": time_rows + model_rows}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

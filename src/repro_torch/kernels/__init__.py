@@ -1,14 +1,19 @@
-"""Hand-written CUDA kernels of the coloring hot loop, their wrappers and
-plain PyTorch versions.
+"""Hand-written CUDA kernels (the coloring hot loop, attention, ELL
+aggregation), their wrappers and plain PyTorch versions.
 
 ``csrc/coloring.cu``   firstfit + detect_recolor (built by ``_build.py`` at
-                       first launch, with ``csrc/twohop.cu``; shared helpers
+                       first launch, with every other ``csrc/*.cu``; shared helpers
                        in ``csrc/pass_common.cuh``)
 ``csrc/twohop.cu``     the fused two-hop (distance-2) kernel
 ``firstfit.py``        wrapper + launch counter (round 0 of RSOC)
 ``detect_recolor.py``  wrapper + launch counter (every repair round; with
                        ``row_ids`` the compacted-frontier pass)
 ``twohop.py``          wrapper + launch counter (every distance-2 pass)
+``csrc/flash_attention.cu``, ``flash_attention.py``
+                       forward attention kernel + wrapper (serving prefill)
+``csrc/ell_spmm.cu``, ``ell_spmm.py``
+                       ELL neighbour-aggregation kernel + wrapper
+                       (``ops.ell_aggregate``)
 ``ref.py``             the plain versions (CPU path and on-card oracle)
 ``ops.py``             dispatchers the engines call
 """

@@ -1,4 +1,4 @@
-"""Dispatch wrappers for the coloring kernels.
+"""Dispatch wrappers for the kernels.
 
 ``backend="auto"`` follows the tensors: a CUDA tensor launches the
 hand-written CUDA kernel or raises (no build, load or launch failure ever
@@ -24,7 +24,11 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.detect_recolor import detect_recolor as _dr_cuda
+from repro_torch.kernels.ell_spmm import check_spmm
+from repro_torch.kernels.ell_spmm import ell_spmm as _spmm_cuda
 from repro_torch.kernels.firstfit import firstfit as _firstfit_cuda
+from repro_torch.kernels.flash_attention import check_attention
+from repro_torch.kernels.flash_attention import flash_attention as _fa_cuda
 from repro_torch.kernels.twohop import twohop_detect_recolor as _twohop_cuda
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.resilience import faults
@@ -105,3 +109,27 @@ def twohop(ell_rows, ell_all, colors, pri, U_rows, row_start: int,
     return _twohop_cuda(ell_rows, ell_all, colors, pri, U_rows, row_start, C,
                         page_rows, force=force, valid=valid, row_ids=row_ids,
                         detect=detect, **kw)
+
+
+def ell_aggregate(ell, feats, op: str = "sum", backend: str = "auto", **kw):
+    """GNN neighbour aggregation ``out[v] = op_j feats[ell[v, j]]``.  The
+    kernel reads the features from device memory: there is no residency
+    predicate and no shape fallback (the reference's VMEM budget and its
+    ``reason=vmem`` fallback do not exist here)."""
+    check_spmm(ell, feats, op)
+    b = _forced_fallback("ell_aggregate", _resolve(backend, ell))
+    _dispatched("ell_aggregate", b)
+    if b == "torch":
+        return ref.ell_spmm_ref(ell, feats, op)
+    return _spmm_cuda(ell, feats, op, **kw)
+
+
+def attention(q, k, v, *, causal: bool = True, backend: str = "auto"):
+    """Forward attention (GQA, causal with offset Lk - Lq); ``causal`` with
+    Lk < Lq raises on every backend."""
+    check_attention(q, k, v, causal)
+    b = _forced_fallback("attention", _resolve(backend, q))
+    _dispatched("attention", b)
+    if b == "torch":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    return _fa_cuda(q, k, v, causal=causal)

@@ -1,14 +1,16 @@
-"""Plain PyTorch versions of the coloring kernels (the bit-equality oracle).
+"""Plain PyTorch versions of the kernels (the oracle the kernels are held to).
 
 Each ``<name>_ref`` computes exactly what the CUDA kernel of the same name
-in ``csrc/coloring.cu`` computes; the wrappers take these for tensors that
-lie on the CPU, the CPU tests hold them against the reference package, and
-``chip_smoke.py`` holds each kernel against them on the card.
+in ``csrc/`` computes — bit for bit for the integer coloring kernels, up to
+float rounding for ``ell_spmm_ref`` and ``flash_attention_ref``.  The
+wrappers take these for tensors that lie on the CPU, the CPU tests hold them
+against the reference package, and ``chip_smoke.py`` holds each kernel
+against them on the card.
 
-The refs take ``impl``: "bitset" (default) runs the packed forbidden-set +
-branch-free mex of ``core/bitset.py``, "dense" keeps the (R, W, C) one-hot +
-first-zero formulation as the independent oracle.  All corners agree
-bit-for-bit.
+The coloring refs take ``impl``: "bitset" (default) runs the packed
+forbidden-set + branch-free mex of ``core/bitset.py``, "dense" keeps the
+(R, W, C) one-hot + first-zero formulation as the independent oracle.  All
+corners agree bit-for-bit.
 
 Beyond the reference package's refs, they take the optional inputs that
 the engines' chunk passes need (``core/coloring._chunked_pass``,
@@ -224,3 +226,63 @@ def twohop_ref(ell_rows, ell_all, colors, pri, row_start: int, U_rows, C: int,
     cat = lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs)
     work = _work(U_rows, cat(defect) if detect else None, force, valid)
     return bitset.apply_recolor(work, cat(mex), cat(ovf), colors[vid])
+
+
+# --------------------------------------------------------------------------
+# ELL aggregation (GNN message passing over padded neighbor tiles)
+# --------------------------------------------------------------------------
+
+def ell_spmm_ref(ell, feats, op: str = "sum"):
+    """out[v] = op over feats[nbr] for nbr in ell[v], FILL ignored — the
+    plain version of the CUDA kernel ``ell_spmm`` (``csrc/ell_spmm.cu``).
+
+    ell:   (R, W) int32 (an id >= n reads row n - 1, as the reference's
+           clipped gather does)
+    feats: (n, d) float32 or bfloat16
+    op in {sum, mean, max}; an all-FILL row gives 0 for every op.  The sum
+    is taken in float32 and rounded once to the feature type (the
+    reference's jnp version sums in the feature type; equal for float32).
+    Returns (R, d) in the feature type.
+    """
+    if op not in ("sum", "mean", "max"):
+        raise ValueError(op)
+    n = feats.shape[0]
+    valid = (ell >= 0)[..., None]
+    rows = feats[ell.clamp(0, n - 1).long()].float()          # (R, W, d)
+    if op == "max":
+        out = torch.where(valid, rows, -torch.inf).amax(dim=1)
+        out = torch.where(torch.isfinite(out), out, 0.0)
+    else:
+        out = torch.where(valid, rows, 0.0).sum(dim=1)
+        if op == "mean":
+            out = out / valid.sum(dim=1).clamp(min=1)
+    return out.to(feats.dtype)
+
+
+# --------------------------------------------------------------------------
+# blockwise (flash) attention
+# --------------------------------------------------------------------------
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        scale: Optional[float] = None):
+    """Plain softmax attention — the plain version of the CUDA kernel
+    ``attn_flash_forward`` (``csrc/flash_attention.cu``).
+
+    q: (B, Hq, Lq, D); k, v: (B, Hkv, Lk, D); GQA: Hq % Hkv == 0; query i
+    sees keys <= i + (Lk - Lq) when causal.  Computed in float32 from the
+    inputs and rounded once to q's type (the reference's jnp version works
+    in the input type; equal for float32).
+    """
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    kr = k.float().repeat_interleave(G, dim=1)
+    vr = v.float().repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+    if causal:
+        mask = (torch.arange(Lk, device=q.device)[None, :]
+                <= torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq))
+        s = s.masked_fill(~mask, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)

@@ -71,7 +71,14 @@ def test_every_module_is_found():
               "repro_torch.kernels.twohop", "repro_torch.kernels.ops",
               "repro_torch.kernels.ref", "repro_torch.obs.export",
               "repro_torch.obs.metrics", "repro_torch.obs.trace",
-              "repro_torch.resilience.errors", "repro_torch.resilience.faults"):
+              "repro_torch.resilience.errors", "repro_torch.resilience.faults",
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.kernels.ell_spmm", "repro_torch.models",
+              "repro_torch.models.layers", "repro_torch.models.transformer",
+              "repro_torch.configs", "repro_torch.configs.common",
+              "repro_torch.configs.qwen3_1_7b", "repro_torch.serving",
+              "repro_torch.serving.serve_loop", "repro_torch.launch",
+              "repro_torch.launch.serve"):
         assert m in mods, m
 
 
