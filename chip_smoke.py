@@ -7,11 +7,16 @@ ends the run with a non-zero exit code:
 
   1. device   require CUDA; print the card's name and power limit and the
               torch / CUDA / nvcc / triton versions
-  2. build    build the kernels from src/repro_torch/kernels/csrc
+  2. build    build the kernels from src/repro_torch/kernels/csrc; print
+              ptxas -v of every variant of the attention kernel's sm90
+              design (registers, spills) and its shared memory per CTA
   3. kernels  each kernel against its plain PyTorch version on the card
               over shape sweeps: the coloring kernels bit-equal (integer
               arithmetic), attention and aggregation within stated
-              tolerances (FA_TOL, SPMM_TOL)
+              tolerances (FA_TOL, SPMM_TOL; attention also row by row,
+              ROW_TOL); attention at the tile edges of its sm90 design
+              too, each call checked to have launched the design its dtype
+              and head dim name
   4. golden   paper_suite("tiny") x seeds 0-2 at distance 1 and 2, and two
               bipartite graphs (mode="partial"), through repro_torch.api.color
               on the card against tests/torch_golden.json (made by the JAX
@@ -29,15 +34,18 @@ ends the run with a non-zero exit code:
   5d. serve   ServeEngine on qwen3-1.7b at full width (random weights, seed
               0): 8 requests, prompts of 128-2048 tokens, 32 new tokens
               each; counters zeroed before, read after (one attention launch
-              per layer per prefill); the prompts' prefill logits against
-              the plain attention on the card (kernel.fallback)
+              per layer per prefill, all on the sm90 design); the prompts'
+              prefill logits against the plain attention on the card
+              (kernel.fallback)
   5e. agg     ops.ell_aggregate on RMAT-ER's ELL table with d=100 features,
               float32 and bfloat16, sum / mean / max, against the plain
               version; counters zeroed before, read after
   6. times    per-kernel time / plain-version time / bound (and, for the
               attention and aggregation kernels, the time of the one
               PyTorch call that computes the same function) at the shapes
-              phases 5, 5c, 5d and 5e used; one compacted repair pass per
+              phases 5, 5c, 5d and 5e used — attention at L 512, 2048 and
+              8192 in bfloat16 and at L 2048 in float32, each with its
+              ratio to SDPA; one compacted repair pass per
               compacted path (detect_recolor with row_ids, forb0 and
               extra_defect on RMAT-B; twohop with row_ids on RMAT-ER),
               kernels against plain versions on the same inputs
@@ -121,6 +129,7 @@ class Cmp:
 
     def __init__(self):
         self.max_err = {k: 0 for k in KERNELS}
+        self.max_row_err = {}
         self.cases = {k: [] for k in KERNELS}
 
     def close(self, kernel, label, got, want, rtol, atol):
@@ -137,6 +146,22 @@ class Cmp:
                  f"version past rtol {rtol} / atol {atol} (max abs err "
                  f"{err}), or are not finite")
         self.cases[kernel].append(label)
+
+    def rows(self, kernel, label, got, want, tol):
+        """Per row (the last dimension), the RMS of the error over the RMS
+        of the plain output, computed in float64: a check that scales with
+        the row, where ``close``'s atol may be as large as a row's values
+        (a late row of a long causal attention averages many keys)."""
+        g, w = got.double(), want.double()
+        rel = ((g - w).pow(2).mean(-1).sqrt()
+               / w.pow(2).mean(-1).sqrt().clamp_min(1e-30))
+        worst = float(rel.max())
+        self.max_row_err[kernel] = max(self.max_row_err.get(kernel, 0.0),
+                                       worst)
+        if not worst <= tol:
+            bad = int((~(rel <= tol)).sum())
+            fail(f"{kernel} {label}: {bad} rows differ from the plain "
+                 f"version past {tol} of their RMS (worst {worst})")
 
     def check(self, kernel, label, got, want, names):
         for g, w, nm in zip(got, want, names):
@@ -398,6 +423,12 @@ def phase_kernels_twohop(device, launch: bool, cmp: Cmp):
 # |out| in [2, 4)) plus p's rounding (at most 2^-9 of max |v|).  bfloat16
 # aggregation: tests/test_kernels.py's.
 FA_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 2e-2)}
+# Beside FA_TOL, attention row by row (Cmp.rows: RMS of the error over the
+# RMS of the plain row).  bfloat16: below one bfloat16 step of every element
+# (2^-7 relative) even if each rounded the other way, where a wrong or stale
+# key tile moves a row by its share of the keys; float32: the same float32
+# arithmetic in another order (about 1e-6).
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SPMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-1)}
 
 
@@ -408,9 +439,15 @@ def randn(rng, shape, dtype, device):
 def phase_kernels_attention(device, launch: bool, cmp: Cmp):
     """``flash_attention`` against ``flash_attention_ref`` on the card: the
     reference's test shapes, qwen3-1.7b's heads at ragged lengths, Lk > Lq,
-    the head dims of the smoke configs; causal and not, float32 and
-    bfloat16."""
+    the head dims of the smoke configs; the tile edges of the sm90 design
+    (128-row query tiles, 128-key tiles: L = 1, 63-65, 127-129,
+    255, 257, 2049, and Lk > Lq with a ragged offset at GQA ratios 1, 2 and
+    8, B = 2); causal and not, float32 and bfloat16; a few in the serving
+    prefill's layout (views of (B, L, H, D) tensors, no copy).  Each case
+    is held to ``FA_TOL`` and, row by row, to ``ROW_TOL``, and checks that
+    the launch went to the design ``design(dtype, D)`` names."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import design
     kb = "cuda" if launch else "torch"
     # (B, Hq, Hkv, Lq, Lk, D)
     shapes = [(1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 256, 64),
@@ -418,19 +455,45 @@ def phase_kernels_attention(device, launch: bool, cmp: Cmp):
     shapes += [(1, 16, 8, L, L, 128) for L in (1, 17, 300, 1000)]
     shapes += [(1, 16, 8, 300, 1000, 128), (2, 4, 2, 33, 70, 16),
                (3, 4, 4, 65, 65, 32)]
+    shapes += [(1, 16, 8, L, L, 128)
+               for L in (63, 64, 65, 127, 128, 129, 255, 257, 2049)]
+    shapes += [(2, 8, 8, 129, 257, 64), (2, 8, 4, 65, 300, 128),
+               (2, 16, 2, 255, 383, 64), (2, 8, 1, 257, 257, 128),
+               (2, 16, 2, 63, 191, 128)]
+    views = {(1, 16, 8, 300, 300, 128), (2, 8, 4, 65, 300, 128),
+             (2, 16, 2, 255, 383, 64)}
+
+    def make(rng, shape, dtype, view):
+        if not view:
+            return randn(rng, shape, dtype, device)
+        B, H, L, D = shape      # the prefill's layout: (B, L, H, D) memory
+        return randn(rng, (B, L, H, D), dtype, device).transpose(1, 2)
+
     for B, Hq, Hkv, Lq, Lk, D in shapes:
-        rng = np.random.default_rng(Lq * 31 + Lk + D)
-        for dtype in (torch.float32, torch.bfloat16):
-            q = randn(rng, (B, Hq, Lq, D), dtype, device)
-            k = randn(rng, (B, Hkv, Lk, D), dtype, device)
-            v = randn(rng, (B, Hkv, Lk, D), dtype, device)
-            for causal in (True, False):
-                cmp.close("flash_attention",
-                          f"B{B} Hq{Hq} Hkv{Hkv} Lq{Lq} Lk{Lk} D{D} "
-                          f"{str(dtype)[6:]} causal={causal}",
-                          ops.attention(q, k, v, causal=causal, backend=kb),
-                          ref.flash_attention_ref(q, k, v, causal=causal),
-                          *FA_TOL[dtype])
+        for view in (False, True) if (B, Hq, Hkv, Lq, Lk, D) in views \
+                else (False,):
+            rng = np.random.default_rng(Lq * 31 + Lk + D)
+            for dtype in (torch.float32, torch.bfloat16):
+                q = make(rng, (B, Hq, Lq, D), dtype, view)
+                k = make(rng, (B, Hkv, Lk, D), dtype, view)
+                v = make(rng, (B, Hkv, Lk, D), dtype, view)
+                route = design(dtype, D)
+                for causal in (True, False):
+                    want = ref.flash_attention_ref(q, k, v, causal=causal)
+                    before = attention_designs()
+                    got = ops.attention(q, k, v, causal=causal, backend=kb)
+                    after = attention_designs()
+                    if launch and after[route] != before[route] + 1:
+                        fail(f"flash_attention: a {dtype} D={D} call did "
+                             f"not launch the {route} design ({before} -> "
+                             f"{after})")
+                    label = (f"B{B} Hq{Hq} Hkv{Hkv} Lq{Lq} Lk{Lk} D{D} "
+                             f"{str(dtype)[6:]} causal={causal} {route}"
+                             + (" view" if view else ""))
+                    cmp.close("flash_attention", label, got, want,
+                              *FA_TOL[dtype])
+                    cmp.rows("flash_attention", label, got, want,
+                             ROW_TOL[dtype])
     if launch:
         torch.cuda.synchronize()
 
@@ -606,8 +669,7 @@ def phase_main(rmats, device, rehearse: bool):
     rows, kept = [], {}
     obs.metrics.reset()
     # counts to 0 just before the main path is driven ...
-    for w in launch_counters().values():
-        w.launches = 0
+    zero_counts()
     for name, make in build_graphs(rmats, rehearse).items():
         g, gen_s = make()
         ff0, dr0 = firstfit.launches, detect_recolor.launches
@@ -694,6 +756,44 @@ def launch_counters() -> dict:
 
 def launch_counts() -> dict:
     return {k: w.launches for k, w in launch_counters().items()}
+
+
+def sm90_ptxas(build_log: str, lib) -> list:
+    """``ptxas -v`` of each variant of the attention kernel's sm90 design
+    (``flash_fwd_sm90<D, CAUSAL>``): registers, spill stores / loads as
+    ptxas printed them, and the dynamic shared memory a CTA asks for (the
+    kernel's own ``Layout<D>::kBytes``, through the library)."""
+    rows, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            v = re.search(r"flash_fwd_sm90ILi(\d+)ELb([01])E", m.group(1))
+            cur = None
+            if v:
+                D, causal = int(v.group(1)), v.group(2)
+                cur = {"D": D, "causal": causal == "1",
+                       "smem_bytes": lib.attn_flash_sm90_smem(D)}
+                rows.append(cur)
+        elif cur is not None and "spill" in line:
+            cur["spills"] = line.strip()
+        elif cur is not None and "Used" in line:
+            cur["ptxas"] = line.split(":", 1)[-1].strip()
+    return rows
+
+
+def zero_counts():
+    """Every wrapper's count to 0, the attention kernel's per-design counts
+    (``launches_sm90``, ``launches_fma``) too."""
+    for w in launch_counters().values():
+        w.launches = 0
+    fa = launch_counters()["flash_attention"]
+    fa.launches_sm90 = fa.launches_fma = 0
+
+
+def attention_designs() -> dict:
+    """Launches of each attention design since the counts were zeroed."""
+    fa = launch_counters()["flash_attention"]
+    return {"sm90": fa.launches_sm90, "fma": fa.launches_fma}
 
 
 def phase_plain(device, kept, skip=("rmat_b",), **kw):
@@ -806,8 +906,7 @@ def phase_distance2(kept, bip, device, rehearse: bool, pool):
                for nm in D2_MESHES + (rmat_b,)])
     rows, kept_d2, kept_compact, checks = [], {}, {}, {}
     # counts to 0 just before this path is driven ...
-    for w in launch_counters().values():
-        w.launches = 0
+    zero_counts()
     for name, g, kw in runs:
         what = "partial" if "mode" in kw else (
             "distance2" if "distance" in kw else "rsoc_compact")
@@ -929,7 +1028,7 @@ def device_time(fn, device) -> dict:
     with profile(activities=acts) as prof:
         fn()
         sync(device)
-    kern = []
+    kern, copies = [], [0.0, 0]
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -937,10 +1036,14 @@ def device_time(fn, device) -> dict:
         if us is None:
             us = e.self_cuda_time_total
         kern.append((e.key[:90], us / 1e3, e.count))
+        if "copy" in e.key.lower():     # copy kernels and memcpys
+            copies[0] += us / 1e3
+            copies[1] += e.count
     busy = sum(ms for _, ms, _ in kern)
     return {"wall_ms": wall, "device_busy_ms": busy if busy > 0 else None,
             "device_idle_share": 1 - busy / wall if busy > 0 else None,
             "kernel_launches": sum(c for _, _, c in kern),
+            "copies": {"ms": copies[0], "count": copies[1]},
             "top_kernels": [{"name": k, "ms": ms, "count": c} for k, ms, c
                             in sorted(kern, key=lambda r: -r[1])[:6]]}
 
@@ -950,7 +1053,9 @@ def phase_serve(device, rehearse: bool):
     the rehearsal), random weights from ``torch.Generator`` seed 0: 8
     requests with prompts of 128-2048 tokens (``default_rng(0)``), 32 new
     tokens each, 4 slots of 4096.  Counts zeroed before, read after: the
-    attention kernel launches exactly once per layer per prefill.  Then the
+    attention kernel launches exactly once per layer per prefill.  Each
+    request's TTFT comes with the caching allocator's cudaMalloc calls
+    during its submit (``device_allocs_in_submit``).  Then the
     same prompts' prefill through the plain attention on the card
     (``kernel.fallback``): logits within ``LOGITS_ATOL``, the same greedy
     first token wherever the plain route's top-2 margin exceeds it."""
@@ -975,16 +1080,24 @@ def phase_serve(device, rehearse: bool):
     # warm-up (library handles, allocator): one short request, not counted
     eng.run([Request(prompt=prompts[0][:64], max_new_tokens=2)])
     # time each prefill and each decode step (host clock, synchronized)
-    ttft, steps = {}, []
+    ttft, allocs, steps = {}, {}, []
     submit, step_all = eng.submit, eng.step_all
+
+    def device_allocs() -> int:
+        """cudaMalloc calls of PyTorch's caching allocator so far (a submit
+        during which the cache grows pays for them on the host)."""
+        return (torch.cuda.memory_stats(device).get("num_device_alloc", 0)
+                if device.type == "cuda" else 0)
 
     def timed_submit(req):
         sync(device)
+        a0 = device_allocs()
         t0 = time.perf_counter()
         ok = submit(req)
         sync(device)
         if ok:
             ttft[id(req)] = (time.perf_counter() - t0) * 1e3
+            allocs[id(req)] = device_allocs() - a0
         return ok
 
     def timed_step():
@@ -1001,14 +1114,14 @@ def phase_serve(device, rehearse: bool):
             for p in prompts]
     obs.metrics.reset()
     # counts to 0 just before the serving path is driven ...
-    for w in launch_counters().values():
-        w.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     eng.run(reqs)
     sync(device)
     wall_s = time.perf_counter() - t0
     # ... and read just after
     counts = launch_counts()
+    designs = attention_designs()
     fb = obs.metrics.counters_matching("kernels.fallback")
     if fb:
         fail(f"serve: kernels.fallback counters are not empty: {fb}")
@@ -1018,6 +1131,10 @@ def phase_serve(device, rehearse: bool):
         if counts != want:
             fail(f"serve: launches {counts}, expected {want} (one attention "
                  f"launch per layer per prefill)")
+        # bfloat16, head dim 128: every prefill on the Hopper design
+        if designs != {"sm90": want["flash_attention"], "fma": 0}:
+            fail(f"serve: attention launches by design {designs}, expected "
+                 f"all {want['flash_attention']} on sm90")
     for r in reqs:
         if not r.done or len(r.out_tokens) != SERVE_NEW_TOKENS or not all(
                 0 <= t < cfg.vocab for t in r.out_tokens):
@@ -1056,6 +1173,7 @@ def phase_serve(device, rehearse: bool):
     for L, r in zip(lens, reqs):
         mine = [ms for ms, live in steps if id(r) in live]
         per_req.append({"prompt_len": int(L), "ttft_ms": ttft[id(r)],
+                        "device_allocs_in_submit": allocs[id(r)],
                         "decode_ms_per_step": statistics.mean(mine),
                         "decode_steps": len(mine)})
     n_tok = sum(len(r.out_tokens) for r in reqs)
@@ -1075,6 +1193,7 @@ def phase_serve(device, rehearse: bool):
            "requests": per_req, "tokens": n_tok, "wall_s": wall_s,
            "tokens_per_s": n_tok / wall_s, "decode_steps": len(steps),
            "decode_ms_per_step_mean": statistics.mean(ms for ms, _ in steps),
+           "attention_designs": designs,
            "logits_max_abs_err_vs_plain": worst,
            "logits_tol": LOGITS_ATOL, "first_tokens_checked": checked,
            "top2_margins": margins, "breakdown": breakdown}
@@ -1118,8 +1237,7 @@ def phase_aggregate(device, g, name: str, cmp: Cmp):
     inputs = {torch.float32: feats32, torch.bfloat16: feats32.bfloat16()}
     obs.metrics.reset()
     # counts to 0 just before the aggregation path is driven ...
-    for w in launch_counters().values():
-        w.launches = 0
+    zero_counts()
     outs = {}
     for dtype, feats in inputs.items():
         for op in ("sum", "mean", "max"):
@@ -1173,6 +1291,33 @@ def time_ms(fn, device, reps: int, rounds: int = 5) -> float:
             for _ in range(reps):
                 fn()
             out.append((time.perf_counter() - t) * 1e3 / reps)
+    return statistics.median(out)
+
+
+SLEEP_CYCLES = 20_000_000   # about 10 ms of device sleep at H100 clocks
+
+
+def device_ms(fn, device, reps: int, rounds: int = 5) -> float:
+    """A kernel's own time: CUDA events around ``reps`` back-to-back calls
+    queued behind a device-side sleep (``torch.cuda._sleep``) that outlasts
+    their host side, so that the device runs them back to back whatever
+    each call costs the host; divided by ``reps``, the median of ``rounds``,
+    after a warm-up call.  (Host clock on the CPU rehearsal.)"""
+    if device.type != "cuda":
+        return time_ms(fn, device, reps, rounds)
+    fn()
+    sync(device)
+    out = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize(device)
+        out.append(a.elapsed_time(b) / reps)
     return statistics.median(out)
 
 
@@ -1417,7 +1562,10 @@ def phase_times_twohop(device, kept_d2, cmp: Cmp, launch: bool):
 
 
 BF16_TFLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
-FA_TIME_LENS = (2048, 8192)  # serving prefill's longest prompt, and 4x it
+F32_TFLOPS = 67e12       # H100 SXM float32 rate outside the tensor cores
+# a typical serving prompt, the serving prefill's longest, and 4x it
+FA_TIME_LENS = (512, 2048, 8192)
+FA_F32_LEN = 2048        # the float32 row (the unchanged CUDA-core kernel)
 
 
 def attention_pairs(Lq: int, Lk: int, causal: bool) -> int:
@@ -1434,11 +1582,19 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
     """Times of the two float kernels at their paths' shapes.
 
     ``flash_attention`` at the serving prefill's head shape (B=1, Hq=16,
-    Hkv=8, D=128, bfloat16, causal) at L = 2048 and 8192.  Bound: the larger
-    of 4 * Hq * D FLOPs per visible (query, key) pair at the bf16
-    tensor-core rate and q, k, v, out read / written once at the memory rate
-    — operations bound it.  Library: ``scaled_dot_product_attention(...,
-    is_causal=True, enable_gqa=True)`` on the same tensors (timed here only).
+    Hkv=8, D=128, causal): bfloat16 at L = 512, 2048 and 8192 (the sm90
+    design), and float32 at L = 2048 (the CUDA-core design, unchanged);
+    each held to ``FA_TOL`` and ``ROW_TOL``.  Bound: the larger
+    of 4 * Hq * D FLOPs per visible (query, key) pair at the type's rate
+    (bf16 tensor cores; float32 outside them) and q, k, v, out read /
+    written once at the memory rate — operations bound it.  Library:
+    ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
+    on the same tensors (timed here only); ``ms_over_library`` is the
+    ratio of the two in this run.  ``ms`` and ``library_ms`` are device
+    times (``device_ms``: launches queued behind a device-side sleep);
+    ``call_ms`` is what a caller's loop of ``ops.attention`` calls pays per
+    call, host side included (``time_ms``, the method of the other
+    kernels' ``ms``).
 
     ``ell_spmm`` on the uniform RMAT's table, d=100 float32, ``sum``.  Bound:
     the table's bytes, each distinct feature row a live slot names once and
@@ -1447,36 +1603,53 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
     sum; for ``mean`` / ``max`` no single PyTorch call computes the
     function."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import design
     kb = "cuda" if launch else "torch"
     rows = []
     gen = torch.Generator(device=device).manual_seed(1)
     B, Hq, Hkv, D = (1, 4, 2, 16) if rehearse else (1, 16, 8, 128)
-    dt = torch.bfloat16
-    for L in ((64, 128) if rehearse else FA_TIME_LENS):
+    lens = (32, 64, 128) if rehearse else FA_TIME_LENS
+    cases = [(L, torch.bfloat16) for L in lens]
+    cases.append((64 if rehearse else FA_F32_LEN, torch.float32))
+    for L, dt in cases:
         q, k, v = (torch.randn((B, H, L, D), generator=gen, device=device,
                                dtype=torch.float32).to(dt)
                    for H in (Hq, Hkv, Hkv))
+        name = str(dt)[6:]
         fn = lambda: ops.attention(q, k, v, causal=True, backend=kb)
         plain = lambda: ref.flash_attention_ref(q, k, v, causal=True)
-        cmp.close("flash_attention", f"times B{B} Hq{Hq} Hkv{Hkv} L{L} D{D} "
-                  f"bfloat16 causal", fn(), plain(), *FA_TOL[dt])
+        route, before = design(dt, D), attention_designs()
+        want, got = plain(), fn()
+        if launch and attention_designs()[route] != before[route] + 1:
+            fail(f"flash_attention: the {name} L={L} call did not launch "
+                 f"the {route} design")
+        label = f"times B{B} Hq{Hq} Hkv{Hkv} L{L} D{D} {name} causal"
+        cmp.close("flash_attention", label, got, want, *FA_TOL[dt])
+        cmp.rows("flash_attention", label, got, want, ROW_TOL[dt])
+        del got
         lib = lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)
         pairs = attention_pairs(L, L, True)
         flops = 4 * B * Hq * D * pairs
-        nbytes = (2 * B * Hq * L * D + 2 * B * Hkv * L * D) * 2
-        rows.append({"kernel": "flash_attention", "B": B, "Hq": Hq,
-                     "Hkv": Hkv, "L": L, "D": D, "dtype": "bfloat16",
-                     "causal": True, "flops": flops, "bytes": nbytes,
-                     "ms": time_ms(fn, device, 5),
-                     "plain_ms": time_ms(plain, device, 1, 3),
-                     "library_ms": time_ms(lib, device, 5),
-                     "bound_ms": max(flops / BF16_TFLOPS,
-                                     nbytes / HBM_BYTES_PER_S) * 1e3,
-                     "bound_by": ("operations" if flops / BF16_TFLOPS
-                                  >= nbytes / HBM_BYTES_PER_S else "bytes")})
-        log("times", json.dumps(rows[-1]))
-        del q, k, v
+        nbytes = (2 * B * Hq * L * D + 2 * B * Hkv * L * D) * q.element_size()
+        rate = BF16_TFLOPS if dt == torch.bfloat16 else F32_TFLOPS
+        row = {"kernel": "flash_attention", "B": B, "Hq": Hq, "Hkv": Hkv,
+               "L": L, "D": D, "dtype": name, "causal": True,
+               # the kernels line's row: the serving prefill's longest prompt
+               "kernels_line": dt == torch.bfloat16 and L == lens[1],
+               "design": route, "flops": flops, "bytes": nbytes,
+               "ms": device_ms(fn, device, 10),
+               "call_ms": time_ms(fn, device, 10),
+               "plain_ms": time_ms(plain, device, 1, 3),
+               "library_ms": device_ms(lib, device, 10),
+               "bound_ms": max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3,
+               "bound_by": ("operations" if flops / rate
+                            >= nbytes / HBM_BYTES_PER_S else "bytes")}
+        row["ms_over_library"] = row["ms"] / row["library_ms"]
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        log("times", json.dumps(row))
+        del q, k, v, want
     # ell_spmm, sum, float32, on the table of phase 5e
     R, W = ell.shape
     n, d = feats32.shape
@@ -1568,7 +1741,12 @@ def kernels_line(kept, time_rows, model_rows, paths: dict,
     (float32, sum).  ``launches`` is the count of the path that runs the
     kernel: phase 5 for B1 / B2, 5c for B3, 5d (serve) for the attention
     kernel, 5e (aggregate) for the aggregation kernel; ``paths`` holds every
-    path's counts."""
+    path's counts.  ``ms_method`` names how ``ms`` was taken: ``calls``
+    (back-to-back wrapper calls, ``time_ms``) or, for the attention kernel,
+    ``device`` (calls queued behind a device sleep, ``device_ms``);
+    ``call_ms`` is the back-to-back call time of every kernel, the one
+    number taken the same way for all.  ``source`` of the attention kernel
+    is the file of the design that served the path."""
     counts, counts_d2 = paths["main"], paths["distance2_compact"]
     csrc = "src/repro_torch/kernels/csrc/"
     largest = {"firstfit": list(kept)[-1], "detect_recolor": list(kept)[-1],
@@ -1592,17 +1770,20 @@ def kernels_line(kept, time_rows, model_rows, paths: dict,
             "name": name, "route": "cuda", "source": csrc + src,
             "replaces": replaces, "launches": path_counts[name],
             "max_abs_err": cmp.max_err[name],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "ms_method": "calls", "call_ms": r["ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
             "library_ms_why": "no single PyTorch call computes it",
             "launches_per_path": {p: c[name] for p, c in paths.items()},
             "shape": {k: r[k] for k in ("graph", "R", "W", "n", "C")},
             "cases_checked": len(cmp.cases[name])})
-    fa = next(r for r in model_rows if r["kernel"] == "flash_attention")
+    fa = next(r for r in model_rows if r.get("kernels_line"))
     sp = next(r for r in model_rows if r["kernel"] == "ell_spmm")
+    fa_src = {"sm90": "flash_attention_sm90.cu",
+              "fma": "flash_attention.cu"}[fa["design"]]
     for name, r, src, replaces, path, shape in (
-            ("flash_attention", fa, "flash_attention.cu",
+            ("flash_attention", fa, fa_src,
              "src/repro/kernels/flash_attention.py:58", "serve",
              ("B", "Hq", "Hkv", "L", "D", "dtype", "causal")),
             ("ell_spmm", sp, "ell_spmm.cu", "src/repro/kernels/ell_spmm.py:52",
@@ -1611,7 +1792,12 @@ def kernels_line(kept, time_rows, model_rows, paths: dict,
             "name": name, "route": "cuda", "source": csrc + src,
             "replaces": replaces, "launches": paths[path][name],
             "max_abs_err": cmp.max_err[name],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            **({"max_row_rel_err": cmp.max_row_err[name]}
+               if name in cmp.max_row_err else {}),
+            "ms": r["ms"],
+            "ms_method": "device" if "call_ms" in r else "calls",
+            "call_ms": r.get("call_ms", r["ms"]),
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "launches_per_path": {p: c[name] for p, c in paths.items()},
@@ -1698,6 +1884,9 @@ def main() -> int:
                     f"{max(regs)} registers, {len(spills)} with spills")
             for fn, line in spills.items():
                 log("build", f"spills: {fn}: {line}")
+            for row in sm90_ptxas(_build.build_log, _build.library()):
+                log("build", "ptxas -v, attention sm90 design:",
+                    json.dumps(row))
 
         # ---- phase 3: kernels vs plain versions ----
         cmp = phase_kernels(device, launch)

@@ -43,8 +43,12 @@ SIGNATURES = {
     # ell_rows ell_all colors pri U force valid row_ids newc recolored ovf |
     # R W n n_all C row_start detect lanes window | stream
     "coloring_twohop_detect_recolor": [_P] * 11 + [_I] * 9 + [_P],
-    # q k v out | B Hq Hkv Lq Lk D causal dtype | scale | stream
-    "attn_flash_forward": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P],
+    # q k v out | B Hq Hkv Lq Lk D causal dtype design | (batch, head, row)
+    # strides of q, k, v | scale | stream
+    "attn_flash_forward": [_P] * 4 + [_I] * 9 + [ctypes.c_longlong] * 9
+                          + [ctypes.c_float, _P],
+    # D -> dynamic shared memory of the sm90 attention kernel
+    "attn_flash_sm90_smem": [_I],
     # ell feats out | R W n d op dtype lanes vec | stream
     "ell_spmm": [_P] * 3 + [_I] * 8 + [_P],
 }

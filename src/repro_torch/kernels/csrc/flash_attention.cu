@@ -1,11 +1,19 @@
-// Hand-written Hopper (sm_90a) forward attention kernel:
+// Hand-written forward attention kernel on the CUDA cores, and the entry
+// point of B5:
 //
 //   attn_flash_forward  replaces the Pallas kernel
 //                       src/repro/kernels/flash_attention.py::flash_attention
 //                       (body _flash_kernel)
 //
-// What it computes (equal to _flash_kernel up to the order of f32 sums):
-// q (B, Hq, Lq, D), k and v (B, Hkv, Lk, D), row-major, f32 or bf16; query
+// attn_flash_forward launches one of two designs, chosen by the wrapper
+// (kernels/flash_attention.py::design) and passed in: design 1, the Hopper
+// kernel of csrc/flash_attention_sm90.cu (wgmma, TMA, warp specialisation),
+// for every bfloat16 call with D in {64, 128}; design 0, the kernel below,
+// for float32 (wgmma on float32 is TF32, which would miss the float32
+// tolerance) and for D in {16, 32}.
+//
+// What both compute (equal to _flash_kernel up to the order of f32 sums):
+// q (B, Hq, Lq, D), k and v (B, Hkv, Lk, D), f32 or bf16; query
 // head h reads KV head h / (Hq / Hkv) (GQA).  Scores s = (q . k) * scale in
 // f32; with CAUSAL, key c is visible to query r iff c <= r + (Lk - Lq) and a
 // hidden score is -1e30, as on the TPU.  A running max m, running sum l and
@@ -15,7 +23,7 @@
 // TPU kernel casts p to v's type before its P.V product (l sums the f32 p).
 // The output is acc / max(l, 1e-30), rounded once to the input type.
 //
-// Any Lq, Lk >= 1 runs: the kernel masks its own ragged tiles.  A query row
+// Any Lq, Lk >= 1 runs: the kernels mask their own ragged tiles.  A query row
 // past Lq is computed on zeros and never stored; a key past Lk gets no weight
 // at all (its score is -inf, so p = 0 exactly and the max is unaffected), the
 // same result as the TPU kernel, which admits only Lk that its tile divides.
@@ -28,7 +36,8 @@
 // (at L = 2048, Hq = 16, D = 128: 4.4e10 causal FLOPs on 25 MB).  The card's
 // bound for that work is its bf16 tensor-core rate (989 TFLOP/s dense).
 //
-// The design is the simple one, and leaves most of that rate on the table:
+// The design below (design 0) is the simple one, and leaves most of that
+// rate on the table:
 //  * one block of 256 threads per (query tile of kBQ = 64 rows, head, batch);
 //    KV head h / G is read by each of the G query heads' blocks;
 //  * the block stages its query tile once and each key / value tile of
@@ -41,10 +50,7 @@
 //  * the running max / sum live in shared memory, four threads per row;
 //  * key tiles wholly above the causal diagonal of the block's last row are
 //    not visited (they would add p = 0 with alpha = 1: the same result).
-// What a later version does about it: wgmma on bf16 tiles with the scores in
-// registers (FlashAttention-3's layout), TMA loads into a ring of stages
-// overlapping the products, and the query tile in registers.  The f32 path
-// would use TF32 or stay on the CUDA cores.
+// It reads contiguous inputs (the wrapper copies a strided view first).
 //
 // Plain C interface, no PyTorch headers: launches on the given stream, does
 // not synchronise, allocates nothing and returns cudaGetLastError().
@@ -270,7 +276,8 @@ cudaError_t by_causal(int causal, const void* q, const void* k, const void* v,
                                       stream);
 }
 
-template <typename T>
+// WIDE: D 64 and 128 too (float32 only: bfloat16 there is design 1's)
+template <typename T, bool WIDE>
 cudaError_t by_dim(int D, int causal, const void* q, const void* k,
                    const void* v, void* out, int B, int Hq, int Hkv, int Lq,
                    int Lk, float scale, cudaStream_t stream) {
@@ -281,37 +288,75 @@ cudaError_t by_dim(int D, int causal, const void* q, const void* k,
     case 32:
       return by_causal<T, 32>(causal, q, k, v, out, B, Hq, Hkv, Lq, Lk, scale,
                               stream);
-    case 64:
-      return by_causal<T, 64>(causal, q, k, v, out, B, Hq, Hkv, Lq, Lk, scale,
-                              stream);
-    case 128:
-      return by_causal<T, 128>(causal, q, k, v, out, B, Hq, Hkv, Lq, Lk,
-                               scale, stream);
     default:
-      return cudaErrorInvalidValue;
+      break;
   }
+  if constexpr (WIDE) {
+    switch (D) {
+      case 64:
+        return by_causal<T, 64>(causal, q, k, v, out, B, Hq, Hkv, Lq, Lk,
+                                scale, stream);
+      case 128:
+        return by_causal<T, 128>(causal, q, k, v, out, B, Hq, Hkv, Lq, Lk,
+                                 scale, stream);
+      default:
+        break;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  D in {16, 32, 64, 128}; Hkv divides
-// Hq; B, Hq <= 65535; Lq, Lk >= 1 (the wrapper checks all of it).
+// The Hopper design (csrc/flash_attention_sm90.cu).
+extern "C" int attn_flash_sm90(const void* q, const void* k, const void* v,
+                               void* out, int B, int Hq, int Hkv, int Lq,
+                               int Lk, int D, int causal, long long q_sb,
+                               long long q_sh, long long q_sl,
+                               long long k_sb, long long k_sh, long long k_sl,
+                               long long v_sb, long long v_sh, long long v_sl,
+                               float scale, cudaStream_t stream);
+
+// dtype: 0 = float32, 1 = bfloat16.  design: 0 = the kernel above (float32
+// at D in {16, 32, 64, 128}, bfloat16 at D in {16, 32}; contiguous q, k, v),
+// 1 = the Hopper kernel (bfloat16, D in {64, 128}, any strides the wrapper
+// admits): one kernel per (dtype, D).  Strides are in elements, (batch,
+// head, row) for q, k and v, the last dimension contiguous; out is
+// contiguous.  Hkv divides Hq; B, Hq <= 65535; Lq, Lk >= 1 (the wrapper
+// checks all of it).
 extern "C" int attn_flash_forward(const void* q, const void* k, const void* v,
                                   void* out, int B, int Hq, int Hkv, int Lq,
                                   int Lk, int D, int causal, int dtype,
-                                  float scale, void* stream) {
+                                  int design, long long q_sb,
+                                  long long q_sh, long long q_sl,
+                                  long long k_sb, long long k_sh,
+                                  long long k_sl, long long v_sb,
+                                  long long v_sh, long long v_sl, float scale,
+                                  void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || Lq < 1 || Lk < 1 ||
       B > 65535 || Hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (design == 1) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return attn_flash_sm90(q, k, v, out, B, Hq, Hkv, Lq, Lk, D, causal,
+                           q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh,
+                           v_sl, scale, st);
+  }
+  const long long lq = Lq, lk = Lk;
+  if (design != 0 || q_sl != D || q_sh != lq * D || q_sb != Hq * lq * D ||
+      k_sl != D || k_sh != lk * D || k_sb != Hkv * lk * D || v_sl != D ||
+      v_sh != lk * D || v_sb != Hkv * lk * D)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   switch (dtype) {
     case 0:
-      e = by_dim<float>(D, causal, q, k, v, out, B, Hq, Hkv, Lq, Lk, scale, st);
+      e = by_dim<float, true>(D, causal, q, k, v, out, B, Hq, Hkv, Lq, Lk,
+                              scale, st);
       break;
     case 1:
-      e = by_dim<__nv_bfloat16>(D, causal, q, k, v, out, B, Hq, Hkv, Lq, Lk,
-                                scale, st);
+      e = by_dim<__nv_bfloat16, false>(D, causal, q, k, v, out, B, Hq, Hkv,
+                                       Lq, Lk, scale, st);
       break;
     default:
       e = cudaErrorInvalidValue;

@@ -50,7 +50,12 @@ def pick_window(C: int) -> int:
     return next((w for w in WINDOWS if w >= nW), WINDOWS[-1])
 
 
-def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+def check_tensor(name: str, t: torch.Tensor, dtype, shape, device, *,
+                 views: bool = False) -> None:
+    """Type, device, dtype and shape of a kernel input, and its layout:
+    contiguous, or with ``views`` any view whose last dimension is
+    contiguous and whose other strides and address are 16-byte multiples
+    (what a TMA tensor map reads)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor "
                         f"(got {type(t).__name__})")
@@ -61,7 +66,16 @@ def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)} "
                          f"(got {tuple(t.shape)})")
-    if not t.is_contiguous():
+    if views:
+        outer = [st * t.element_size() for n, st in
+                 zip(t.shape[:-1], t.stride()[:-1]) if n > 1]
+        if t.stride(-1) != 1 or any(st % 16 for st in outer) \
+                or t.data_ptr() % 16:
+            raise ValueError(
+                f"{name} must be contiguous in its last dimension, with its "
+                f"other strides and its address 16-byte multiples (got "
+                f"strides {tuple(t.stride())})")
+    elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 

@@ -1,28 +1,43 @@
-"""Blockwise-softmax (flash) attention, forward: CUDA kernel + plain version.
+"""Blockwise-softmax (flash) attention, forward: CUDA kernels + plain version.
 
 Replaces the Pallas kernel ``src/repro/kernels/flash_attention.py::
 flash_attention`` (body ``_flash_kernel``): q (B, Hq, Lq, D), k and v
 (B, Hkv, Lk, D) -> (B, Hq, Lq, D) in q's type; GQA (query head h reads KV
 head h // (Hq // Hkv)), causal with the decode offset Lk - Lq, running max
 and sum with f32 accumulation, p cast to v's type before P.V, output
-acc / max(l, 1e-30).  The kernel is ``attn_flash_forward`` in
+acc / max(l, 1e-30).  The entry point is ``attn_flash_forward`` in
 ``csrc/flash_attention.cu``; the plain PyTorch version of the same function
 is ``flash_attention_ref`` (``kernels/ref.py``).
 
-Unlike the TPU kernel, any Lq, Lk >= 1 runs (the kernel masks its ragged
+Unlike the TPU kernel, any Lq, Lk >= 1 runs (the kernels mask their ragged
 tiles: serving prompts are no multiple of a tile).  ``causal`` with
 Lk < Lq is refused: there the first Lq - Lk rows see no key at all, and the
 TPU kernel (a uniform average over its -1e30 scores) and the plain version
 (NaN) disagree about them.
 
+Two designs on the card, chosen by dtype and head dim (``design``):
+
+* ``"sm90"`` — every bfloat16 call with D in {64, 128}:
+  ``csrc/flash_attention_sm90.cu``, wgmma on the tensor cores, TMA loads
+  of 128-key tiles into a ring of stages, a producer warp and two consumer
+  warpgroups (see the note there).  It reads q, k and v through tensor maps over their own
+  strides: any view whose last dimension is contiguous and whose other
+  strides and address are 16-byte multiples runs without a copy (the
+  serving prefill's (B, L, H, D)-ordered projections, for one).
+* ``"fma"`` — float32 at every D, and bfloat16 with D in {16, 32}: the
+  CUDA-core kernel of ``csrc/flash_attention.cu``, unchanged (wgmma on
+  float32 is TF32, which would break the float32 tolerance).  It reads
+  contiguous rows: the wrapper copies a strided view first.
+
 Bound on the card: operations at prefill shapes, 4 * B * Hq * Lq * Lk * D
 FLOPs (about half of it when causal) against the card's bf16 tensor-core
-rate; the kernel is the simple f32-FMA design and leaves most of that rate
-unused (see the note in ``csrc/flash_attention.cu``).
+rate.
 
-``flash_attention`` launches the kernel for CUDA tensors and takes the
-plain version for CPU tensors — for those only: on a CUDA tensor it
-launches or raises.  ``flash_attention.launches`` counts the launches.
+``flash_attention`` launches a kernel for CUDA tensors and takes the plain
+version for CPU tensors — for those only: on a CUDA tensor it launches or
+raises (no fallback from one design to the other either).
+``flash_attention.launches`` counts the launches, ``launches_sm90`` and
+``launches_fma`` those of each design.
 """
 from __future__ import annotations
 
@@ -35,6 +50,15 @@ from repro_torch.kernels import ref
 
 HEAD_DIMS = (16, 32, 64, 128)            # compiled into the library
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DESIGNS = ("fma", "sm90")                # the C entry point's design ids
+SM90_HEAD_DIMS = (64, 128)
+
+
+def design(dtype, D: int) -> str:
+    """The kernel that serves a call on the card: ``"sm90"`` for bfloat16
+    with D in {64, 128}, else ``"fma"``."""
+    return "sm90" if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS \
+        else "fma"
 
 
 def check_attention(q, k, v, causal: bool):
@@ -58,31 +82,57 @@ def check_attention(q, k, v, causal: bool):
         raise ValueError(
             f"causal attention needs Lk >= Lq (got Lq={Lq}, Lk={Lk}): the "
             f"first {Lq - Lk} query rows would see no key")
-    check_tensor("q", q, q.dtype, (B, Hq, Lq, D), q.device)
-    check_tensor("k", k, q.dtype, (B, Hkv, Lk, D), q.device)
-    check_tensor("v", v, q.dtype, (B, Hkv, Lk, D), q.device)
+    check_tensor("q", q, q.dtype, (B, Hq, Lq, D), q.device, views=True)
+    check_tensor("k", k, q.dtype, (B, Hkv, Lk, D), q.device, views=True)
+    check_tensor("v", v, q.dtype, (B, Hkv, Lk, D), q.device, views=True)
     if B > 65535 or Hq > 65535:
         raise ValueError(f"B={B} and Hq={Hq} must be <= 65535 (grid limit)")
     return B, Hq, Hkv, Lq, Lk, D
 
 
+def row_strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """(batch, head, row) strides in elements of a (B, H, L, D) tensor; a
+    dimension of size 1 gets the stride of the dimension inside it times
+    that one's size (its own stride is never used, and may be anything,
+    where a tensor map wants a positive multiple of 16 bytes)."""
+    B, H, L, D = t.shape
+    sb, sh, sl, _ = t.stride()
+    sl = D if L == 1 else sl
+    sh = sl * L if H == 1 else sh
+    sb = sh * H if B == 1 else sb
+    return sb, sh, sl
+
+
 def flash_attention(q, k, v, *, causal: bool = True):
     """Forward attention; q (B, Hq, Lq, D), k / v (B, Hkv, Lk, D), one type
-    (float32 or bfloat16), contiguous.  Returns (B, Hq, Lq, D) in q's type.
-    The scale is 1 / sqrt(D), as in the reference."""
+    (float32 or bfloat16), each contiguous or a view that ``check_tensor``
+    admits (last dimension contiguous, 16-byte strides).  Returns a
+    contiguous (B, Hq, Lq, D) in q's type.  The scale is 1 / sqrt(D), as in
+    the reference."""
     B, Hq, Hkv, Lq, Lk, D = check_attention(q, k, v, causal)
     if q.device.type != "cuda":
         return ref.flash_attention_ref(q, k, v, causal=causal)
+    route = design(q.dtype, D)
+    if route == "fma":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lib = _build.library()
-    out = torch.empty_like(q)
+    out = torch.empty((B, Hq, Lq, D), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.attn_flash_forward(
             ptr(q), ptr(k), ptr(v), ptr(out), B, Hq, Hkv, Lq, Lk, D,
-            int(bool(causal)), DTYPES[q.dtype], 1.0 / (D ** 0.5), stream)
-    check_launch("flash_attention", err)
+            int(bool(causal)), DTYPES[q.dtype], DESIGNS.index(route),
+            *row_strides(q), *row_strides(k), *row_strides(v),
+            1.0 / (D ** 0.5), stream)
+    check_launch(f"flash_attention ({route})", err)
     flash_attention.launches += 1
+    if route == "sm90":
+        flash_attention.launches_sm90 += 1
+    else:
+        flash_attention.launches_fma += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_sm90 = 0
+flash_attention.launches_fma = 0

@@ -144,10 +144,10 @@ def decode_attention(q, k, v, length=None):
 def prefill_attention(q, k, v, *, causal: bool, chunk_q: int, chunk_k: int):
     """Attention of the Lq queries at the end of Lk keys (causal offset
     Lk - Lq): on CUDA tensors the hand-written kernel (``ops.attention``,
-    which launches it or raises), on CPU tensors ``chunked_attention``."""
+    which launches it or raises; it reads the (B, L, H, D)-ordered views of
+    the projections as they are), on CPU tensors ``chunked_attention``."""
     if q.device.type == "cuda":
-        return ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                             causal=causal)
+        return ops.attention(q, k, v, causal=causal)
     return chunked_attention(q, k, v, causal=causal,
                              q_offset=k.shape[2] - q.shape[2],
                              chunk_q=chunk_q, chunk_k=chunk_k)

@@ -9,8 +9,15 @@ the same float32 softmax computed in another order).  Ragged lengths, which
 the Pallas kernel does not admit, are held against the jnp ref and the
 reference's ``chunked_attention`` (the serving path's plain attention).
 
-The CUDA kernel has no CPU mode: the ``cuda``-marked case at the end holds
-it against the plain version on a GPU, as ``chip_smoke.py`` does.
+The wrapper's routing rule (dtype and head dim -> design) and its input
+checks (strided views with a contiguous last dimension and 16-byte strides
+are admitted, others refused) are tested here on CPU tensors; strided views
+go through the plain version and are held against the reference.
+
+The CUDA kernels have no CPU mode: the ``cuda``-marked cases at the end
+hold them against the plain version on a GPU, as ``chip_smoke.py`` does —
+the sm90 design at the edges of its tiles (128 query rows, 64 / 128 keys)
+among them.
 """
 import jax
 import jax.numpy as jnp
@@ -22,7 +29,8 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.models import layers as JL
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (design, flash_attention,
+                                                 row_strides)
 from repro_torch.models import layers as TL
 from repro_torch.obs import metrics as obs_metrics
 
@@ -167,3 +175,166 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, causal):
         tol = TOL if dt == torch.float32 else dict(rtol=1e-2, atol=2e-2)
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(), **tol)
+
+
+# --------------------------------------------------------------------------
+# the routing rule and the input checks of the wrapper (CPU)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,D,want", [
+    ("bfloat16", 64, "sm90"), ("bfloat16", 128, "sm90"),
+    ("bfloat16", 16, "fma"), ("bfloat16", 32, "fma"),
+    ("float32", 16, "fma"), ("float32", 32, "fma"),
+    ("float32", 64, "fma"), ("float32", 128, "fma"),
+])
+def test_design_by_dtype_and_head_dim(dtype, D, want):
+    # bfloat16 at D 64 / 128 on the tensor cores; float32 stays on the
+    # CUDA-core kernel (TF32 would miss the float32 tolerance)
+    assert design(getattr(torch, dtype), D) == want
+
+
+def _bl_hd(x):
+    """A (B, H, L, D) view of a (B, L, H, D) array: the serving prefill's
+    layout of q, k and v."""
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+                            ).transpose(1, 2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Lq,Lk,D", [
+    (1, 16, 8, 17, 17, 128),
+    (2, 4, 2, 45, 70, 32),
+    (2, 4, 1, 33, 33, 64),
+])
+def test_strided_views_match_reference(causal, B, Hq, Hkv, Lq, Lk, D):
+    """Views in the prefill's (B, L, H, D) layout, no copy: admitted by
+    every route and equal to the reference."""
+    q, k, v = _qkv(Lq * 3 + Lk + D, B, Hq, Hkv, Lq, Lk, D)
+    views = [_bl_hd(x) for x in (q, k, v)]
+    assert not views[0].is_contiguous() or Hq == 1
+    want = np.asarray(jref.flash_attention_ref(
+        *(jnp.asarray(x) for x in (q, k, v)), causal=causal))
+    for name, got in (
+            ("flash_attention", flash_attention(*views, causal=causal)),
+            ("ops.attention", ops.attention(*views, causal=causal))):
+        assert got.shape == (B, Hq, Lq, D)
+        np.testing.assert_allclose(got.numpy(), want, err_msg=name, **TOL)
+
+
+def test_strided_view_checks():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(5, 1, 2, 2, 8, 8, 16))
+    # a slice along the head dim: last dimension contiguous, rows 32
+    # elements (128 bytes) apart -> admitted
+    wide = torch.from_numpy(_qkv(6, 1, 2, 2, 8, 8, 32)[0])
+    got = flash_attention(wide[..., :16], k, v, causal=False)
+    want = ref.flash_attention_ref(wide[..., :16].contiguous(), k, v,
+                                   causal=False)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    # rows 17 float32 (68 bytes) apart: no tensor map can read it
+    odd = torch.zeros((1, 2, 8, 17))[..., :16]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(odd, k, v)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.attention(q, odd, v, causal=False)
+    # an address 4 bytes past a 16-byte boundary
+    flat = torch.zeros(q.numel() + 1)
+    shifted = flat[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(shifted, k, v)
+    # the last dimension strided
+    with pytest.raises(ValueError, match="contiguous in its last"):
+        flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
+
+
+@pytest.mark.parametrize("shape,strides,want", [
+    ((2, 4, 8, 64), (2048, 512, 64, 1), (2048, 512, 64)),     # contiguous
+    ((2, 4, 8, 64), (2048, 64, 256, 1), (2048, 64, 256)),     # (B, L, H, D)
+    ((1, 4, 8, 64), (7, 64, 256, 1), (4 * 64, 64, 256)),      # B = 1
+    ((2, 1, 8, 64), (512, 3, 64, 1), (512, 512, 64)),         # one head
+    ((2, 4, 1, 64), (256, 64, 5, 1), (256, 64, 64)),          # one row
+])
+def test_row_strides_of_size_one_dims(shape, strides, want):
+    """A dimension of size 1 gets the stride of the dimension inside it
+    times that one's size (a tensor map wants a positive multiple of 16
+    bytes; the value is never used)."""
+    t = torch.empty(0).set_(torch.empty(4096).untyped_storage(), 0, shape,
+                            strides)
+    assert row_strides(t) == want
+
+
+def test_prefill_attention_on_views_matches_reference():
+    """The model layer hands the (B, L, H, D)-ordered projections to the
+    attention as views (no copy); on a CPU its chunked plain attention
+    runs, equal to the reference's."""
+    q, k, v = _qkv(9, 1, 4, 2, 40, 40, 32)
+    got = TL.prefill_attention(*(_bl_hd(x) for x in (q, k, v)), causal=True,
+                               chunk_q=16, chunk_k=16)
+    want = np.asarray(_j_chunked(*(jnp.asarray(x) for x in (q, k, v)),
+                                 causal=True, q_offset=0, chunk_q=16,
+                                 chunk_k=16))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+# --------------------------------------------------------------------------
+# the sm90 design on the card: the edges of its tiles
+# --------------------------------------------------------------------------
+
+# (B, Hq, Hkv, Lq, Lk, D): L across the 64 / 128-row tile edges; Lk > Lq
+# with a ragged offset at GQA ratios 1, 2 and 8; B = 2; D 64 and 128
+SM90_EDGES = [(1, 16, 8, L, L, 128)
+              for L in (1, 63, 64, 65, 127, 128, 129, 255, 257, 2049)]
+SM90_EDGES += [(2, 8, 8, 129, 257, 64), (2, 8, 4, 65, 300, 128),
+               (2, 16, 2, 255, 383, 64), (2, 8, 1, 257, 257, 128),
+               (2, 16, 2, 63, 191, 128), (2, 4, 4, 200, 200, 64)]
+
+
+def _row_rel_err(got, want):
+    """Per query row, the RMS of the error over the RMS of the plain
+    output; the largest.  Scales with the row, where a late row of a long
+    causal attention averages many keys and its outputs are small."""
+    g, w = got.double(), want.double()
+    return float(((g - w).pow(2).mean(-1).sqrt()
+                  / w.pow(2).mean(-1).sqrt().clamp_min(1e-30)).max())
+
+
+# bfloat16: below one bfloat16 step of every element (2^-7 relative) even if
+# each rounded the other way; a wrong or stale key tile moves a row by its
+# share of the keys
+ROW_TOL_BF16 = 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Lq,Lk,D", SM90_EDGES)
+def test_cuda_sm90_tile_edges(cuda_device, B, Hq, Hkv, Lq, Lk, D, causal):
+    q, k, v = (torch.from_numpy(x).to(cuda_device).to(torch.bfloat16)
+               for x in _qkv(Lq * 5 + Lk, B, Hq, Hkv, Lq, Lk, D))
+    before = flash_attention.launches_sm90
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_sm90 == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=1e-2,
+                               atol=2e-2)
+    assert _row_rel_err(got, want) <= ROW_TOL_BF16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_strided_views(cuda_device, dtype):
+    """The prefill's (B, L, H, D) views: read in place by the sm90 design,
+    copied by the wrapper for the CUDA-core design (float32)."""
+    dt = getattr(torch, dtype)
+    q, k, v = (_bl_hd(x).to(cuda_device).to(dt)
+               for x in _qkv(11, 2, 16, 8, 300, 300, 128))
+    before = dict(sm90=flash_attention.launches_sm90,
+                  fma=flash_attention.launches_fma)
+    got = ops.attention(q, k, v, causal=True)
+    route = design(dt, 128)
+    assert getattr(flash_attention, f"launches_{route}") == before[route] + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    tol = TOL if dt == torch.float32 else dict(rtol=1e-2, atol=2e-2)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+
