@@ -9,20 +9,25 @@ ends the run with a non-zero exit code:
               torch / CUDA / nvcc / triton versions
   2. build    build the kernels from src/repro_torch/kernels/csrc; print
               ptxas -v of every variant of the attention kernel's sm90
-              design (registers, spills) and its shared memory per CTA
+              design (registers, spills) and its shared memory per CTA, and
+              of every variant of the staged pass (B2, B3's staged designs)
+              with its shared memory and resident groups at the main path's
+              widths
   3. kernels  each kernel against its plain PyTorch version on the card
               over shape sweeps: the coloring kernels bit-equal (integer
               arithmetic), attention and aggregation within stated
               tolerances (FA_TOL, SPMM_TOL; attention also row by row,
               ROW_TOL); attention at the tile edges of its sm90 design
               too, each call checked to have launched the design its dtype
-              and head dim name
+              and head dim name; B2 and B3 at the tile edges of their
+              staged designs (phase_kernels_staged)
   4. golden   paper_suite("tiny") x seeds 0-2 at distance 1 and 2, and two
               bipartite graphs (mode="partial"), through repro_torch.api.color
               on the card against tests/torch_golden.json (made by the JAX
               reference package)
   5. main     repro_torch.api.color(g), default spec, on the paper's graph
-              classes at real size; launch counters zeroed before, read after
+              classes at real size; launch counters zeroed before, read
+              after, launches per design logged per graph
   5c. d2      api.color(g, distance=2) on the meshes and RMAT-ER,
               mode="partial" on a 2^20 x 2^20 Jacobian pattern,
               algorithm="rsoc_compact" on the meshes and RMAT-B; counters
@@ -40,7 +45,8 @@ ends the run with a non-zero exit code:
   5e. agg     ops.ell_aggregate on RMAT-ER's ELL table with d=100 features,
               float32 and bfloat16, sum / mean / max, against the plain
               version; counters zeroed before, read after
-  6. times    per-kernel time / plain-version time / bound (and, for the
+  6. times    per-kernel device time (device_ms; the back-to-back call time
+              as call_ms) / plain-version time / bound (and, for the
               attention and aggregation kernels, the time of the one
               PyTorch call that computes the same function) at the shapes
               phases 5, 5c, 5d and 5e used — attention at L 512, 2048 and
@@ -274,6 +280,7 @@ def phase_kernels(device, launch: bool) -> Cmp:
         torch.cuda.synchronize()
     phase_kernels_rows(device, launch, cmp)
     phase_kernels_twohop(device, launch, cmp)
+    phase_kernels_staged(device, launch, cmp)
     phase_kernels_attention(device, launch, cmp)
     phase_kernels_spmm(device, launch, cmp)
     return cmp
@@ -413,6 +420,154 @@ def phase_kernels_twohop(device, launch: bool, cmp: Cmp):
                               row_ids=ids, force=force, lanes=lanes,
                               window=window), want, names)
         torch.cuda.synchronize()
+
+
+def packed_ell(rng, R, W, n, deg):
+    """(R, W) left-packed rows (as graphs/csr.py writes them): row r has
+    deg[r] live ids, then FILL."""
+    ell = rng.integers(0, n, size=(R, W)).astype(np.int32)
+    ell[np.arange(W)[None, :] >= np.asarray(deg)[:, None]] = -1
+    return ell
+
+
+def resident_groups(kernel: str, W: int, launch: bool):
+    """The groups the staged pass keeps resident for this call's shape on
+    this card (its persistent grid); 64 on the CPU rehearsal; None where
+    the wrapper picks the direct design (no persistent grid)."""
+    from repro_torch.kernels import _build, detect_recolor as dr, twohop
+    from repro_torch.kernels.firstfit import pick_lanes
+    if kernel == "detect_recolor":
+        lanes, route = dr.default_lanes(W), dr.design(W)
+    elif not launch:            # the rehearsal has no library to ask
+        lanes, route = pick_lanes(W), ("direct" if W <= twohop.DIRECT_MAX_W
+                                       else "staged16")
+    else:
+        lanes = pick_lanes(W)
+        route = twohop.design(W, twohop.staged_fits(lanes, W))
+    if route == "direct":
+        return None
+    if not launch:
+        return 64
+    lib = _build.library()
+    if kernel == "detect_recolor":
+        shape = staged_shape(lib, 1, dr.DESIGNS.index(route), lanes, W)
+    else:
+        shape = staged_shape(lib, 2, twohop.DESIGNS.index(route), lanes, W)
+    if shape is None:
+        fail(f"{kernel}: no staged launch shape at W={W}, lanes={lanes}")
+    return int(shape[2])
+
+
+def phase_kernels_staged(device, launch: bool, cmp: Cmp):
+    """The tile edges of the designs of ``detect_recolor`` (B2) and
+    ``twohop_detect_recolor`` (B3), bit-equal to the plain versions: R at
+    the staged designs' resident groups T - 1, T, T + 1 (a group's rows
+    wrap the two-buffer ring); W in {1, 3, 4} (the direct designs), 17
+    and 20 (the narrowest staged rows), 44, 45, 512 (W*4 % 16 != 0 takes
+    B3's 4-B copies and B2's direct design) and, for B2 at 8 lanes, W
+    252 / 256 / 260 around the stage slice's 256 ints (rows staged in one
+    and in two batches); B3 rows with one fewer, as many
+    and one more live neighbours than a stage batch holds; rows whose first
+    window is full (C above one window); scattered ``row_ids``; ``forb0`` /
+    ``extra_defect`` on and off."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.firstfit import pick_lanes
+    kb = "cuda" if launch else "torch"
+    names = ("newc", "recolored", "ovf")
+    K2, K3 = "detect_recolor", "twohop_detect_recolor"
+    # ---- B2 ----
+    for W in (1, 3, 4, 17, 20, 44, 45, 252, 256, 260, 512):
+        T = resident_groups(K2, W, launch)
+        C = 700 if W >= 44 else 33
+        n = max(4096, 2 * W, (T or 0) + 2)     # the tile's rows lie in [0, n)
+        Rs = ((257,) if T is None else
+              (T - 1, T, T + 1) if W in (20, 44, 512) else (T + 1,))
+        for R in Rs:
+            rng = np.random.default_rng(R + W)
+            deg = rng.integers(0, W + 1, size=R)
+            ell_np = packed_ell(rng, R, W, n, deg)
+            colors = rng.integers(0, 560 if C > 512 else C - 1,
+                                  size=n).astype(np.int32)
+            colors[rng.integers(0, n, size=n // 10)] = -1
+            if W >= 512:
+                # rows 0-4 see colours 0..511 once each: a full first window
+                colors[:512] = np.arange(512)
+                ell_np[:5] = np.stack([rng.permutation(512)
+                                       for _ in range(5)]).astype(np.int32)
+            ell, colors = dev(ell_np, device), dev(colors, device)
+            full = dev(packed_ell(rng, n, W, n, rng.integers(0, W + 1,
+                                                             size=n)), device)
+            pri = dev(rng.permutation(n).astype(np.int32), device)
+            U = dev(rng.random(R) < 0.7, device)
+            opt = dict(forb0=rand_words(rng, R, C, device),
+                       extra_defect=dev(rng.random(R) < 0.2, device),
+                       force=dev(rng.random(R) < 0.2, device),
+                       valid=dev(rng.random(R) < 0.8, device))
+            ids = rng.permutation(n)[:R] if R <= n else rng.integers(0, n, R)
+            ids = ids.astype(np.int32)
+            ids[rng.random(R) < 0.1] = n + 5          # dead slots, clamped
+            ids = dev(ids, device)
+            for keys, rows in (((), False), (("forb0", "extra_defect"), False),
+                               (tuple(opt), False), ((), True),
+                               (tuple(opt), True)):
+                kw = {k: opt[k] for k in keys}
+                e = full if rows else ell
+                if rows:
+                    kw["row_ids"] = ids
+                want = ref.detect_recolor_ref(e, colors, pri, 0, U, C, **kw)
+                got = ops.detect_recolor(e, colors, pri, U, 0, C, backend=kb,
+                                         **kw)
+                cmp.check(K2, f"staged edge R{R} (T{T}) W{W} C{C} "
+                          f"+{'+'.join(kw) or 'none'}", got, want, names)
+    # ---- B3 ----
+    for W in (1, 3, 4, 17, 20, 44, 45, 512):
+        lanes = pick_lanes(W)
+        T = resident_groups(K3, W, launch)
+        batch = max(1, 32 * lanes // W)        # neighbour rows a stage batch
+        n = max(4096, 4 * W)
+        Rs = ((257,) if T is None else
+              (T - 1, T, T + 1) if W in (17, 44, 45) else (T + 1,))
+        if W == 512:
+            Rs = (33,)                         # the plain panels are W*W wide
+        C = 700 if W >= 44 else 33
+        for R in Rs:
+            rng = np.random.default_rng(7 * R + W)
+            deg = rng.integers(0, W + 1, size=n)
+            # rows W..W+5: around a stage batch's neighbour count
+            deg[W:W + 6] = np.clip([batch - 1, batch, batch + 1, W, 0, 1], 0,
+                                   W)
+            ell_all = packed_ell(rng, n, W, n, deg)
+            colors = rng.integers(0, 560 if C > 512 else C - 1,
+                                  size=n).astype(np.int32)
+            colors[rng.integers(0, n, size=n // 10)] = -1
+            if W in (44, 45):
+                # row 0's two hops cover colours 0..511: a full first window
+                colors[:W * W] = np.arange(W * W) % 512
+                ell_all[:W] = (np.arange(W)[:, None] * W
+                               + np.arange(W)[None, :]).astype(np.int32)
+            ell_all, colors = dev(ell_all, device), dev(colors, device)
+            pri = dev(rng.permutation(n).astype(np.int32), device)
+            U = dev(rng.random(R) < 0.7, device)
+            force = dev(rng.random(R) < 0.2, device)
+            valid = dev(rng.random(R) < 0.8, device)
+            ids = rng.integers(0, n, size=R).astype(np.int32)
+            ids[rng.random(R) < 0.1] = n + 3          # dead slots, clamped
+            ids[:7] = np.r_[0, np.arange(W, W + 6)]
+            ids = dev(ids, device)
+            rows = ell_all[:R] if R <= n else None
+            for kw in (dict(), dict(force=force, valid=valid),
+                       dict(detect=False), dict(row_ids=ids),
+                       dict(row_ids=ids, force=force, valid=valid,
+                            detect=False)):
+                if rows is None and "row_ids" not in kw:
+                    continue
+                r = None if "row_ids" in kw else rows
+                want = ref.twohop_ref(r, ell_all, colors, pri, 0, U, C, **kw)
+                got = ops.twohop(r, ell_all, colors, pri, U, 0, C,
+                                 backend=kb, **kw)
+                cmp.check(K3, f"staged edge R{R} (T{T}) W{W} C{C} batch "
+                          f"{batch} +{'+'.join(kw) or 'none'}", got, want,
+                          names)
 
 
 # Tolerances of the float kernels against their plain versions on the card.
@@ -673,6 +828,7 @@ def phase_main(rmats, device, rehearse: bool):
     for name, make in build_graphs(rmats, rehearse).items():
         g, gen_s = make()
         ff0, dr0 = firstfit.launches, detect_recolor.launches
+        des0 = design_counts()
         # run 1: the default call, cold (includes host-side prepare)
         sync(device)
         t = time.perf_counter()
@@ -680,6 +836,8 @@ def phase_main(rmats, device, rehearse: bool):
         sync(device)
         e2e_ms = (time.perf_counter() - t) * 1e3
         ff1, dr1 = firstfit.launches, detect_recolor.launches
+        per_design = design_delta(des0, design_counts(),
+                                  {"detect_recolor": dr1 - dr0}, name)
         # run 2: the same call traced, for the prepare / solve split (the
         # solve phase is synchronize()-bracketed by the tracer)
         res2 = api.color(g, device=device, trace=True)
@@ -712,7 +870,8 @@ def phase_main(rmats, device, rehearse: bool):
                "prepare_ms": round(prepare_ms, 2),
                "solve_ms": round(solve_ms, 3),
                "firstfit_launches": ff1 - ff0,
-               "detect_recolor_launches": dr1 - dr0}
+               "detect_recolor_launches": dr1 - dr0,
+               "launches_per_design": per_design}
         log("main", json.dumps(row))
         rows.append(row)
         # kept for phase 5b / 6: the meshes and the uniform and the skewed
@@ -781,19 +940,97 @@ def sm90_ptxas(build_log: str, lib) -> list:
     return rows
 
 
+# the kernels with more than one design, and each one's designs (a wrapper
+# counts a design's launches in ``launches_<design>``)
+DESIGNS = {"detect_recolor": ("vec16", "direct"),
+           "twohop_detect_recolor": ("staged16", "staged4", "direct"),
+           "flash_attention": ("sm90", "fma")}
+
+
+# The staged pass's shapes phase 2 reports shared memory and resident groups
+# at: the main path's widest tiles (RMAT-B's W 512 for the repair pass,
+# RMAT-ER's W 44 for the two-hop pass).
+STAGED_REPORT_W = {1: 512, 2: 44}
+
+
+def staged_shape(lib, hops: int, design: int, lanes: int, W: int):
+    """(threads a block, dynamic shared memory a block, resident groups) of
+    a staged-pass launch, from the library (``coloring_staged_shape``); None
+    for a shape the design does not take."""
+    import ctypes
+    out = (ctypes.c_longlong * 3)()
+    err = lib.coloring_staged_shape(hops, design, lanes, W, out)
+    return None if err else tuple(out)
+
+
+def staged_ptxas(build_log: str, lib) -> list:
+    """``ptxas -v`` of each variant of the staged pass
+    (``coloring::staged::pass<G, VEC, HOPS>``: the repair pass and
+    the two-hop staged designs): registers, spill stores / loads as ptxas
+    printed them, and the launch shape at ``STAGED_REPORT_W``."""
+    rows, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            v = re.search(r"staged4passILi(\d+)ELi(\d+)ELi(\d+)EE",
+                          m.group(1))
+            cur = None
+            if v:
+                G, vec, hops = (int(x) for x in v.groups())
+                design = ("vec16" if hops == 1 else
+                          "staged16" if vec == 4 else "staged4")
+                W = STAGED_REPORT_W[hops]
+                # the C ids: B2's vec16 is 0, B3's staged16 / staged4 1 / 2
+                shape = staged_shape(lib, hops, 0 if hops == 1 else
+                                     (1 if vec == 4 else 2), G, W)
+                cur = {"kernel": ("detect_recolor" if hops == 1 else
+                                  "twohop_detect_recolor"),
+                       "design": design, "lanes": G, "at_W": W, "threads": shape and shape[0],
+                       "smem_bytes": shape and shape[1],
+                       "resident_groups": shape and shape[2]}
+                rows.append(cur)
+        elif cur is not None and "spill" in line:
+            cur["spills"] = line.strip()
+        elif cur is not None and "Used" in line:
+            cur["ptxas"] = line.split(":", 1)[-1].strip()
+    return rows
+
+
 def zero_counts():
-    """Every wrapper's count to 0, the attention kernel's per-design counts
-    (``launches_sm90``, ``launches_fma``) too."""
-    for w in launch_counters().values():
+    """Every wrapper's count to 0, the per-design counts too."""
+    wrappers = launch_counters()
+    for w in wrappers.values():
         w.launches = 0
-    fa = launch_counters()["flash_attention"]
-    fa.launches_sm90 = fa.launches_fma = 0
+    for k, designs in DESIGNS.items():
+        for d in designs:
+            setattr(wrappers[k], f"launches_{d}", 0)
+
+
+def design_counts() -> dict:
+    """kernel -> design -> launches since the counts were zeroed."""
+    wrappers = launch_counters()
+    return {k: {d: getattr(wrappers[k], f"launches_{d}") for d in designs}
+            for k, designs in DESIGNS.items()}
+
+
+def design_delta(before: dict, after: dict, counts: dict, what: str) -> dict:
+    """Launches per design between two ``design_counts``, for the kernels
+    that launched; fails unless they add up to the kernel's launches
+    (``counts``: kernel -> launches over the same span)."""
+    out = {}
+    for k, designs in after.items():
+        d = {x: after[k][x] - before[k][x] for x in designs}
+        if sum(d.values()) != counts.get(k, 0):
+            fail(f"{what}: {k} launched {counts.get(k, 0)} times but its "
+                 f"designs count {d}")
+        if counts.get(k, 0):
+            out[k] = {x: v for x, v in d.items() if v}
+    return out
 
 
 def attention_designs() -> dict:
     """Launches of each attention design since the counts were zeroed."""
-    fa = launch_counters()["flash_attention"]
-    return {"sm90": fa.launches_sm90, "fma": fa.launches_fma}
+    return design_counts()["flash_attention"]
 
 
 def phase_plain(device, kept, skip=("rmat_b",), **kw):
@@ -911,7 +1148,7 @@ def phase_distance2(kept, bip, device, rehearse: bool, pool):
         what = "partial" if "mode" in kw else (
             "distance2" if "distance" in kw else "rsoc_compact")
         obs.metrics.reset()
-        c0 = launch_counts()
+        c0, des0 = launch_counts(), design_counts()
         traced_only = what == "rsoc_compact"
         sync(device)
         t = time.perf_counter()
@@ -920,6 +1157,8 @@ def phase_distance2(kept, bip, device, rehearse: bool, pool):
         e2e_ms = (time.perf_counter() - t) * 1e3
         c1 = launch_counts()
         d = {k: c1[k] - c0[k] for k in c1}
+        per_design = design_delta(des0, design_counts(), d,
+                                  f"{name} {what}")
         res2 = res if traced_only else api.color(g, device=device,
                                                  trace=True, **kw)
         if not traced_only:
@@ -973,7 +1212,8 @@ def phase_distance2(kept, bip, device, rehearse: bool, pool):
                "prepare_ms": round(res2.trace.phase_wall_s("prepare") * 1e3,
                                    2),
                "solve_ms": round(res2.trace.phase_wall_s("solve") * 1e3, 3),
-               "launches": d, "check": check}
+               "launches": d, "launches_per_design": per_design,
+               "check": check}
         if what == "partial":
             row["n_left"] = n_left
             row["generate_ms"] = round(bip_gen_s * 1e3, 1)
@@ -1321,6 +1561,25 @@ def device_ms(fn, device, reps: int, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
+def timed(kernel: str, fn, device, reps: int, launch: bool) -> dict:
+    """``ms`` (``device_ms``), ``call_ms`` (``time_ms``) and ``design`` of
+    ``fn``: the design whose count rose over those timed calls, read from
+    the wrapper's per-design counts (None for a kernel of one design, and
+    on the CPU rehearsal, where nothing launches).  Fails unless exactly
+    one design rose."""
+    before = design_counts().get(kernel)
+    out = {"ms": device_ms(fn, device, reps),
+           "call_ms": time_ms(fn, device, reps), "design": None}
+    if before is not None and launch:
+        after = design_counts()[kernel]
+        rose = [d for d in after if after[d] != before[d]]
+        if len(rose) != 1:
+            fail(f"{kernel}: the timed calls launched the designs {rose}, "
+                 f"not exactly one ({before} -> {after})")
+        out["design"] = rose[0]
+    return out
+
+
 def gather_bytes(ell_k, colors, vids, work, test, *, own: bool, ell=None):
     """The gathered part of the bytes a pass must move, each input read
     once, counted on this call's data.  ``vids`` (R,) are the rows' vertex
@@ -1431,9 +1690,11 @@ def phase_times(device, kept, kept_compact, cmp: Cmp, launch: bool):
         ff_plain = lambda: ref.firstfit_ref(ell_k, colors, C, forb0=f0)
         cmp.check("firstfit", f"{name} chunk R{cs} W{W} n{n_pad} C{C}",
                   ff(), ff_plain(), ("mex", "ovf"))
+        t = timed("firstfit", ff, device, reps, launch)
+        del t["design"]
         rows.append({"kernel": "firstfit", "graph": name, "R": cs, "W": W,
                      "n": n_pad, "C": C, "live_slots": live,
-                     "bytes": ff_bytes, "ms": time_ms(ff, device, reps),
+                     "bytes": ff_bytes, **t,
                      "plain_ms": time_ms(ff_plain, device, 3, 3),
                      "bound_ms": bound(ff_bytes)})
         # state after a whole round 0
@@ -1464,7 +1725,8 @@ def phase_times(device, kept, kept_compact, cmp: Cmp, launch: bool):
                   dr(), dr_plain(), ("newc", "recolored", "ovf"))
         rows.append({"kernel": "detect_recolor", "graph": name, "R": cs,
                      "W": W, "n": n_pad, "C": C, "live_slots": live_may,
-                     "bytes": dr_bytes, "ms": time_ms(dr, device, reps),
+                     "bytes": dr_bytes,
+                     **timed("detect_recolor", dr, device, reps, launch),
                      "plain_ms": time_ms(dr_plain, device, 3, 3),
                      "bound_ms": bound(dr_bytes)})
         for r in rows[-2:]:
@@ -1538,7 +1800,7 @@ def phase_times_twohop(device, kept_d2, cmp: Cmp, launch: bool):
         big = live > 2 ** 26                     # the plain panels are large
         rows.append({"kernel": K, "graph": name, "R": cs, "W": W, "n": n_pad,
                      "C": C, "live_slots": live, "bytes": nbytes,
-                     "ms": time_ms(fn, device, 10),
+                     **timed(K, fn, device, 10, launch),
                      "plain_ms": time_ms(plain, device, 1 if big else 3,
                                          3),
                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
@@ -1732,7 +1994,7 @@ def wait_checks(checks: dict) -> list:
     return done
 
 
-def kernels_line(kept, time_rows, model_rows, paths: dict,
+def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
                  cmp: Cmp) -> list:
     """The ``kernels`` entries: per coloring kernel, the chunk of the
     largest table its path ran (RMAT-B for the distance-1 kernels, RMAT-ER
@@ -1741,36 +2003,47 @@ def kernels_line(kept, time_rows, model_rows, paths: dict,
     (float32, sum).  ``launches`` is the count of the path that runs the
     kernel: phase 5 for B1 / B2, 5c for B3, 5d (serve) for the attention
     kernel, 5e (aggregate) for the aggregation kernel; ``paths`` holds every
-    path's counts.  ``ms_method`` names how ``ms`` was taken: ``calls``
-    (back-to-back wrapper calls, ``time_ms``) or, for the attention kernel,
-    ``device`` (calls queued behind a device sleep, ``device_ms``);
-    ``call_ms`` is the back-to-back call time of every kernel, the one
-    number taken the same way for all.  ``source`` of the attention kernel
-    is the file of the design that served the path."""
-    counts, counts_d2 = paths["main"], paths["distance2_compact"]
+    path's counts, ``designs`` every path's launches per design
+    (``launches_per_design``: the kernel's path).  ``ms_method`` names how
+    ``ms`` was taken: ``device`` (calls queued behind a device sleep,
+    ``device_ms``) or, for the aggregation kernel, ``calls`` (back-to-back
+    wrapper calls, ``time_ms``); ``call_ms`` is the back-to-back call time
+    of every kernel, the one number taken the same way for all.  ``design``
+    and ``source`` name the design that served the row's shape and its
+    file."""
     csrc = "src/repro_torch/kernels/csrc/"
     largest = {"firstfit": list(kept)[-1], "detect_recolor": list(kept)[-1],
                "twohop_detect_recolor": next(k for k in kept
                                              if k.startswith("rmat_er"))}
     row_of = {r["kernel"]: r for r in time_rows
               if r["graph"] == largest[r["kernel"]]}
-    meta = {"firstfit": ("coloring.cu", "src/repro/kernels/firstfit.py:48",
-                         counts),
-            "detect_recolor": ("coloring.cu",
-                               "src/repro/kernels/detect_recolor.py:54",
-                               counts),
-            "twohop_detect_recolor": ("twohop.cu",
-                                      "src/repro/kernels/twohop.py:130",
-                                      counts_d2)}
+    meta = {"firstfit": ("src/repro/kernels/firstfit.py:48", "main"),
+            "detect_recolor": ("src/repro/kernels/detect_recolor.py:54",
+                               "main"),
+            "twohop_detect_recolor": ("src/repro/kernels/twohop.py:130",
+                                      "distance2_compact")}
+    source = {("firstfit", None): "coloring.cu",
+              ("detect_recolor", "vec16"): "detect_recolor.cu",
+              # the rehearsal launches nothing: the entry point's file
+              ("detect_recolor", None): "detect_recolor.cu",
+              ("twohop_detect_recolor", None): "twohop.cu",
+              ("detect_recolor", "direct"): "coloring.cu",
+              ("twohop_detect_recolor", "staged16"): "twohop_staged.cu",
+              ("twohop_detect_recolor", "staged4"): "twohop_staged.cu",
+              ("twohop_detect_recolor", "direct"): "twohop.cu"}
     kernels = []
     for name in COLORING_KERNELS:
         r = row_of[name]
-        src, replaces, path_counts = meta[name]
+        replaces, path = meta[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": csrc + src,
-            "replaces": replaces, "launches": path_counts[name],
+            "name": name, "route": "cuda",
+            "source": csrc + source[name, r.get("design")],
+            "replaces": replaces, "launches": paths[path][name],
+            **({"design": r["design"],
+                "launches_per_design": designs[path][name]}
+               if name in designs[path] else {}),
             "max_abs_err": cmp.max_err[name],
-            "ms": r["ms"], "ms_method": "calls", "call_ms": r["ms"],
+            "ms": r["ms"], "ms_method": "device", "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
@@ -1791,6 +2064,9 @@ def kernels_line(kept, time_rows, model_rows, paths: dict,
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + src,
             "replaces": replaces, "launches": paths[path][name],
+            **({"design": r["design"],
+                "launches_per_design": designs[path][name]}
+               if name in designs[path] else {}),
             "max_abs_err": cmp.max_err[name],
             **({"max_row_rel_err": cmp.max_row_err[name]}
                if name in cmp.max_row_err else {}),
@@ -1887,6 +2163,8 @@ def main() -> int:
             for row in sm90_ptxas(_build.build_log, _build.library()):
                 log("build", "ptxas -v, attention sm90 design:",
                     json.dumps(row))
+            for row in staged_ptxas(_build.build_log, _build.library()):
+                log("build", "ptxas -v, staged pass:", json.dumps(row))
 
         # ---- phase 3: kernels vs plain versions ----
         cmp = phase_kernels(device, launch)
@@ -1904,12 +2182,23 @@ def main() -> int:
         if args.rmat_scale != 24:
             log("main", f"RMAT scale {args.rmat_scale}: {RMAT_SCALE_WHY}")
         main_rows, kept, counts = phase_main(rmats, device, args.rehearse)
-        log("main", json.dumps({"launches": counts}))
+        # every path zeroes the counts before it runs: a path's launches per
+        # design are the counts just after it
+        zeros = {k: dict.fromkeys(d, 0) for k, d in DESIGNS.items()}
+        designs = {"main": design_delta(zeros, design_counts(), counts,
+                                        "the main path")}
+        log("main", json.dumps({"launches": counts,
+                                "launches_per_design": designs["main"]}))
 
         # ---- phase 5c: distance-2, partial, compacted ----
         d2_rows, kept_d2, kept_compact, counts_d2, checks = phase_distance2(
             kept, bip, device, args.rehearse, pool)
-        log("distance2", json.dumps({"launches": counts_d2}))
+        designs["distance2_compact"] = design_delta(
+            zeros, design_counts(), counts_d2, "the distance-2 / compacted "
+                                               "path")
+        log("distance2", json.dumps({
+            "launches": counts_d2,
+            "launches_per_design": designs["distance2_compact"]}))
 
         # ---- phase 5b: plain versions on the card ----
         done = phase_plain(device, kept)
@@ -1926,12 +2215,19 @@ def main() -> int:
 
         # ---- phase 5d: serving qwen3-1.7b ----
         serve_row, counts_serve = phase_serve(device, args.rehearse)
+        # (the serving phase launches again after reading its counts: its
+        # designs were read with them)
+        designs["serve"] = design_delta(
+            zeros, dict(zeros, flash_attention=serve_row["attention_designs"]),
+            counts_serve, "the serving path")
         log("serve", json.dumps({"launches": counts_serve}))
 
         # ---- phase 5e: ops.ell_aggregate on the RMAT-ER table ----
         rmat_er = next(k for k in kept if k.startswith("rmat_er"))
         agg_row, counts_agg, ell, feats = phase_aggregate(
             device, kept[rmat_er][0], rmat_er, cmp)
+        designs["aggregate"] = design_delta(zeros, design_counts(),
+                                            counts_agg, "the aggregation path")
         log("aggregate", json.dumps({"launches": counts_agg}))
 
         # ---- phase 6: kernel times ----
@@ -1946,7 +2242,7 @@ def main() -> int:
 
     paths = {"main": counts, "distance2_compact": counts_d2,
              "serve": counts_serve, "aggregate": counts_agg}
-    kernels = kernels_line(kept, time_rows, model_rows, paths, cmp)
+    kernels = kernels_line(kept, time_rows, model_rows, paths, designs, cmp)
     if args.rehearse:
         log("kernels", json.dumps(kernels))
         log("rehearsal on the CPU finished; no kernel was built or launched")

@@ -1,10 +1,19 @@
 """Hand-written CUDA kernels (the coloring hot loop, attention, ELL
 aggregation), their wrappers and plain PyTorch versions.
 
-``csrc/coloring.cu``   firstfit + detect_recolor (built by ``_build.py`` at
-                       first launch, with every other ``csrc/*.cu``; shared helpers
-                       in ``csrc/pass_common.cuh``)
-``csrc/twohop.cu``     the fused two-hop (distance-2) kernel
+``csrc/coloring.cu``   firstfit, and detect_recolor's design ``direct``
+                       (built by ``_build.py`` at first launch, with every
+                       other ``csrc/*.cu``; shared helpers in
+                       ``csrc/pass_common.cuh``)
+``csrc/staged_pass.cuh``
+                       the staged pass behind detect_recolor's and twohop's
+                       other designs
+``csrc/detect_recolor.cu``
+                       the fused detect-and-recolor entry (designs
+                       ``vec16`` / ``direct``)
+``csrc/twohop.cu``, ``csrc/twohop_staged.cu``
+                       the fused two-hop (distance-2) kernel (designs
+                       ``direct``; ``staged16`` / ``staged4``)
 ``firstfit.py``        wrapper + launch counter (round 0 of RSOC)
 ``detect_recolor.py``  wrapper + launch counter (every repair round; with
                        ``row_ids`` the compacted-frontier pass)

@@ -38,15 +38,20 @@ SIGNATURES = {
     # ell colors forb0 mex ovf | R W n C lanes window | stream
     "coloring_firstfit": [_P] * 5 + [_I] * 6 + [_P],
     # ell colors pri U forb0 extra_defect force valid row_ids newc recolored
-    # ovf | R W n C row_start lanes window | stream
-    "coloring_detect_recolor": [_P] * 12 + [_I] * 7 + [_P],
+    # ovf | R W n C row_start lanes window design | stream
+    "coloring_detect_recolor": [_P] * 12 + [_I] * 8 + [_P],
     # ell_rows ell_all colors pri U force valid row_ids newc recolored ovf |
-    # R W n n_all C row_start detect lanes window | stream
-    "coloring_twohop_detect_recolor": [_P] * 11 + [_I] * 9 + [_P],
+    # R W n n_all C row_start detect lanes window design | stream
+    "coloring_twohop_detect_recolor": [_P] * 11 + [_I] * 10 + [_P],
     # q k v out | B Hq Hkv Lq Lk D causal dtype design | (batch, head, row)
     # strides of q, k, v | scale | stream
     "attn_flash_forward": [_P] * 4 + [_I] * 9 + [ctypes.c_longlong] * 9
                           + [ctypes.c_float, _P],
+    # hops design lanes W out(int64[3]) -> threads a block, dynamic shared
+    # memory a block, resident groups of the staged pass
+    "coloring_staged_shape": [_I] * 4 + [_P],
+    # lanes W -> 1 where the two-hop staged designs hold the shape, else 0
+    "coloring_twohop_staged_fits": [_I] * 2,
     # D -> dynamic shared memory of the sm90 attention kernel
     "attn_flash_sm90_smem": [_I],
     # ell feats out | R W n d op dtype lanes vec | stream

@@ -2,8 +2,14 @@
 //
 //   coloring_firstfit        replaces the Pallas kernel
 //                            src/repro/kernels/firstfit.py::firstfit
-//   coloring_detect_recolor  replaces the Pallas kernel
-//                            src/repro/kernels/detect_recolor.py::detect_recolor
+//   coloring::detect_recolor_direct
+//                            the design "direct" of coloring_detect_recolor
+//                            (detect_recolor.cu), which replaces the Pallas
+//                            kernel src/repro/kernels/detect_recolor.py::
+//                            detect_recolor: the narrow rows (W <= 16, the
+//                            meshes), where a row is a few loads and the
+//                            staged pass's per-row work costs more than it
+//                            saves
 //
 // Both are one template, pass_kernel<G, NW, DETECT>: for each row of an
 // (R, W) row-major int32 ELL tile, gather the neighbours' colours (and, with
@@ -194,18 +200,16 @@ extern "C" int coloring_firstfit(const void* ell, const void* colors,
 
 // row_ids null: rows [row_start, row_start + R) of the colour vector, ell
 // their (R, W) tile.  row_ids given: ell is the full table (>= n rows) and
-// row_start is unused.
-extern "C" int coloring_detect_recolor(
+// row_start is unused.  The entry (coloring_detect_recolor) checks the
+// arguments.
+namespace coloring {
+cudaError_t detect_recolor_direct(
     const void* ell, const void* colors, const void* pri, const void* U,
     const void* forb0, const void* extra_defect, const void* force,
     const void* valid, const void* row_ids, void* newc, void* recolored,
     void* ovf, int R, int W, int n, int C, int row_start, int lanes,
     int window, void* stream) {
-  if (R < 1 || W < 1 || n < 1 || C < 1 ||
-      (row_ids == nullptr &&
-       (row_start < 0 || static_cast<long long>(row_start) + R > n)))
-    return cudaErrorInvalidValue;
-  return static_cast<int>(launch<true>(
+  return launch<true>(
       lanes, window, static_cast<const int*>(ell),
       static_cast<const int*>(colors), static_cast<const int*>(pri),
       static_cast<const uint8_t*>(U), static_cast<const int*>(forb0),
@@ -213,5 +217,6 @@ extern "C" int coloring_detect_recolor(
       static_cast<const uint8_t*>(force), static_cast<const uint8_t*>(valid),
       static_cast<const int*>(row_ids), static_cast<int*>(newc),
       static_cast<uint8_t*>(recolored), static_cast<uint8_t*>(ovf), R, W, n,
-      C, row_start, static_cast<cudaStream_t>(stream)));
+      C, row_start, static_cast<cudaStream_t>(stream));
 }
+}  // namespace coloring

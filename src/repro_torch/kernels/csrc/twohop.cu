@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernel of the distance-2 coloring pass:
+// Hand-written Hopper (sm_90a) kernels of the distance-2 coloring pass:
 //
 //   coloring_twohop_detect_recolor  replaces the Pallas kernel
 //                                   src/repro/kernels/twohop.py::twohop_detect_recolor
@@ -10,6 +10,24 @@
 // colour as a higher-priority vertex within two hops) and the epilogue keeps
 // or replaces v's colour: work = valid & ((U & defect) | force).  Without
 // DETECT (round 0) work = valid & (U | force) and no priority is read.
+//
+// Two designs behind the one entry point, picked by the wrapper by shape
+// (kernels/twohop.py::design) and passed as an id:
+//
+//   "staged16", "staged4"  twohop_staged.cu: live hop-1 ids compacted, all
+//                          of a row's hop-2 rows copied into a shared-memory
+//                          stage with cp.async (16-B or 4-B copies) before
+//                          any is used, double-buffered across rows; rows
+//                          of 17..512 ids at the default lane count.  See
+//                          the note there.
+//   "direct"               the kernel below: hop-2 rows read straight from
+//                          global memory, one neighbour after another.  For
+//                          rows of at most 16 ids (the meshes: a row's two
+//                          hops are a few hundred ids, and the staged
+//                          pass's fixed per-row work costs more than it
+//                          saves) and the shapes the stage does not hold.
+//
+// The rest of this note is the direct design's.
 //
 // What the design is about.  A row reads W neighbour ids, then W rows of W
 // ids at random places of the (n_all, W) table, and one colour per live
@@ -168,21 +186,46 @@ cudaError_t launch(int lanes, int window, const int* ell_rows,
 
 }  // namespace
 
+namespace coloring {
+// twohop_staged.cu
+cudaError_t twohop_staged_launch(int vec, bool detect, int lanes, int window,
+                                 const int* ell_rows, const int* ell_all,
+                                 const int* colors, const int* pri,
+                                 const uint8_t* U, const uint8_t* force,
+                                 const uint8_t* valid, const int* row_ids,
+                                 int* out_c, uint8_t* out_rec,
+                                 uint8_t* out_ovf, int R, int W, int n, int C,
+                                 int row_start, cudaStream_t stream);
+}  // namespace coloring
+
 // ell_rows null needs row_ids (rows are then read from ell_all); with
 // row_ids, row_start is unused.  pri may be null when detect == 0.
-// lanes: 1 2 4 8 16 32; window: 2 8 16 register words.
+// lanes: 1 2 4 8 16 32; window: 2 8 16 register words.  design: 0 direct,
+// 1 staged with 16-B copies (W % 4 == 0, ell_all 16-B aligned), 2 staged
+// with 4-B copies (a staged design checks its shape rule itself).
 extern "C" int coloring_twohop_detect_recolor(
     const void* ell_rows, const void* ell_all, const void* colors,
     const void* pri, const void* U, const void* force, const void* valid,
     const void* row_ids, void* newc, void* recolored, void* ovf, int R, int W,
     int n, int n_all, int C, int row_start, int detect, int lanes, int window,
-    void* stream) {
+    int design, void* stream) {
   if (R < 1 || W < 1 || n < 1 || n_all < n || C < 1 ||
       (detect != 0 && pri == nullptr) ||
       (row_ids == nullptr &&
        (ell_rows == nullptr || row_start < 0 ||
-        static_cast<long long>(row_start) + R > n)))
+        static_cast<long long>(row_start) + R > n)) ||
+      design < 0 || design > 2)
     return cudaErrorInvalidValue;
+  const auto cs = static_cast<cudaStream_t>(stream);
+  if (design != 0)
+    return static_cast<int>(coloring::twohop_staged_launch(
+        design == 1 ? 4 : 1, detect != 0, lanes, window,
+        static_cast<const int*>(ell_rows), static_cast<const int*>(ell_all),
+        static_cast<const int*>(colors), static_cast<const int*>(pri),
+        static_cast<const uint8_t*>(U), static_cast<const uint8_t*>(force),
+        static_cast<const uint8_t*>(valid), static_cast<const int*>(row_ids),
+        static_cast<int*>(newc), static_cast<uint8_t*>(recolored),
+        static_cast<uint8_t*>(ovf), R, W, n, C, row_start, cs));
   auto run = [&](auto detect_tag) {
     return launch<decltype(detect_tag)::value>(
         lanes, window, static_cast<const int*>(ell_rows),
@@ -191,7 +234,7 @@ extern "C" int coloring_twohop_detect_recolor(
         static_cast<const uint8_t*>(force), static_cast<const uint8_t*>(valid),
         static_cast<const int*>(row_ids), static_cast<int*>(newc),
         static_cast<uint8_t*>(recolored), static_cast<uint8_t*>(ovf), R, W, n,
-        C, row_start, static_cast<cudaStream_t>(stream));
+        C, row_start, cs);
   };
   return static_cast<int>(detect != 0 ? run(std::true_type{})
                                       : run(std::false_type{}));

@@ -6,8 +6,8 @@ Replaces the Pallas kernel
 gather of the neighbours' colours and priorities feeds both the defect test
 (same colour as a higher-priority neighbour) and the packed forbidden
 bitset; rows that must work take their mex, all others keep their colour.
-The kernel is ``coloring_detect_recolor`` in ``csrc/coloring.cu``; the plain
-PyTorch version is ``detect_recolor_ref`` (``kernels/ref.py``).
+The kernel is ``coloring_detect_recolor`` in ``csrc/detect_recolor.cu``; the
+plain PyTorch version is ``detect_recolor_ref`` (``kernels/ref.py``).
 
 The optional inputs carry what the engines' chunk passes do beyond the
 reference kernel: ``forb0`` (R, n_words(C)) int32 is OR-ed into the initial
@@ -23,14 +23,26 @@ Bound on the card: bytes.  Rows outside ``valid & (U | force)`` cost their
 O(1) vector entries only; each other row costs its ``W*4`` bytes of ELL plus
 a 4-byte colour and a 4-byte priority per live slot (at most the two whole
 ``n*4``-byte vectors once), and every row writes 6 bytes.  No floating point.
-As for ``firstfit`` the design aims at the reads: ``lanes`` lanes share a
-row, the words stay in registers, colours and priorities come through L2.
+Rows of more than ``DIRECT_MAX_W`` ids that are whole 16-B chunks (W*4 a
+multiple of 16, ``ell`` 16-B aligned) take the design ``"vec16"``, the
+staged pass (``csrc/staged_pass.cuh``), which streams the tile: persistent
+groups of ``lanes`` lanes (by default ``default_lanes``) skip the rows that
+cannot work ``lanes`` at a time, copy each working row's W ids into a
+shared-memory stage with 16-B ``cp.async`` copies while the previous row's
+colours are gathered, load the colours of the live slots eight at a time a
+lane, a priority only where a colour equals the row's, and keep the
+forbidden words (``window`` of them at a time) in shared memory.  Every
+other shape — rows of at most ``DIRECT_MAX_W`` ids (the meshes) and rows
+that are not whole 16-B chunks — takes the design ``"direct"``:
+``csrc/coloring.cu``'s one-row-at-a-time ``pass_kernel`` (firstfit's, with
+the defect test), which took less device time at the meshes on an H100.
 The kernel writes ``newc`` and never ``colors``: every row of a launch sees
 the pre-launch colours whatever the block order; the caller commits.
 
 ``detect_recolor`` launches the kernel for CUDA tensors and takes the plain
 version for CPU tensors — for those only: on a CUDA tensor it launches or
-raises.  ``detect_recolor.launches`` counts the launches.
+raises.  ``detect_recolor.launches`` counts the launches,
+``launches_vec16`` / ``launches_direct`` those of each design.
 """
 from __future__ import annotations
 
@@ -40,11 +52,31 @@ import torch
 
 from repro_torch.core import bitset
 from repro_torch.kernels import _build
-from repro_torch.kernels.firstfit import (check_common, check_launch,
-                                          check_row_ids, check_tensor, ptr)
+from repro_torch.kernels.firstfit import (DIRECT_MAX_W, check_common,
+                                          check_launch, check_row_ids,
+                                          check_tensor, pick_lanes, ptr)
 # the plain version, as a module attribute: importing kernels.ref
 # first (it imports core, which imports these wrappers) must not cycle
 from repro_torch.kernels import ref
+
+DESIGNS = ("vec16", "direct")   # the C entry point's design ids
+
+
+def design(W: int, aligned: bool = True) -> str:
+    """The kernel for a call on the card: the staged pass with 16-B copies
+    (``"vec16"``) for rows of more than ``DIRECT_MAX_W`` ids that are whole
+    16-B chunks of a 16-B aligned table (``aligned``), ``"direct"`` for
+    every other shape."""
+    if W > DIRECT_MAX_W and W % 4 == 0 and aligned:
+        return "vec16"
+    return "direct"
+
+
+def default_lanes(W: int, aligned: bool = True) -> int:
+    """Lanes per row: 8 for the staged pass — more rows in flight beat
+    wider rows (measured on an H100 at W 44 and 512); the direct design's
+    (one slot a lane, a warp at most) elsewhere."""
+    return 8 if design(W, aligned) == "vec16" else pick_lanes(W)
 
 
 def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
@@ -58,8 +90,11 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
     full (>= n, W) table instead, and ``row_start`` unused; colors, pri (n,)
     int32; U_rows (R,) bool; optional forb0 (R, n_words(C)) int32 and
     extra_defect / force / valid (R,) bool.  Returns (new row colors (R,)
-    int32, recolored (R,) bool, overflow (R,) bool).
+    int32, recolored (R,) bool, overflow (R,) bool).  ``lanes`` /
+    ``window`` override the launch shape (the result does not depend on
+    them).
     """
+    lanes_given = lanes is not None
     if row_ids is None:
         R, W, n, lanes, window = check_common(ell, colors, C, forb0, lanes,
                                               window)
@@ -89,6 +124,10 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
             ell, colors, pri, row_start, U_rows, C, forb0=forb0,
             extra_defect=extra_defect, force=force, valid=valid,
             row_ids=row_ids)
+    aligned = ell.data_ptr() % 16 == 0
+    route = design(W, aligned)
+    if not lanes_given:
+        lanes = default_lanes(W, aligned)
     lib = _build.library()
     newc = torch.empty((R,), dtype=torch.int32, device=device)
     rec = torch.empty((R,), dtype=torch.bool, device=device)
@@ -99,10 +138,14 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
             ptr(ell), ptr(colors), ptr(pri), ptr(U_rows), ptr(forb0),
             ptr(extra_defect), ptr(force), ptr(valid), ptr(row_ids),
             ptr(newc), ptr(rec), ptr(ovf), R, W, n, int(C), row_start, lanes,
-            window, stream)
-    check_launch("detect_recolor", err)
+            window, DESIGNS.index(route), stream)
+    check_launch(f"detect_recolor ({route})", err)
     detect_recolor.launches += 1
+    setattr(detect_recolor, f"launches_{route}",
+            getattr(detect_recolor, f"launches_{route}") + 1)
     return newc, rec, ovf
 
 
 detect_recolor.launches = 0
+detect_recolor.launches_vec16 = 0
+detect_recolor.launches_direct = 0

@@ -35,6 +35,11 @@ from repro_torch.kernels import ref
 
 LANES = (1, 2, 4, 8, 16, 32)     # lanes per row compiled into the library
 WINDOWS = (2, 8, 16)             # register-resident forbidden words
+# Rows of at most this many ids take the one-row-at-a-time kernels in
+# detect_recolor and twohop_detect_recolor too (design "direct"): at the
+# meshes' W 8 and 14 they took less device time on an H100 than the staged
+# pass, which took less at W 26, 44 and 512.
+DIRECT_MAX_W = 16
 
 
 def pick_lanes(W: int) -> int:

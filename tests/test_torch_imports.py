@@ -78,7 +78,8 @@ def test_every_module_is_found():
               "repro_torch.configs", "repro_torch.configs.common",
               "repro_torch.configs.qwen3_1_7b", "repro_torch.serving",
               "repro_torch.serving.serve_loop", "repro_torch.launch",
-              "repro_torch.launch.serve"):
+              "repro_torch.launch.serve", "repro_torch.benchmarks",
+              "repro_torch.benchmarks.staged_ablation"):
         assert m in mods, m
 
 

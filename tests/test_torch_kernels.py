@@ -25,6 +25,7 @@ from repro.kernels.detect_recolor import detect_recolor as j_detect_recolor
 from repro.kernels.firstfit import firstfit as j_firstfit
 from repro_torch.core import bitset as tb
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import detect_recolor as dr_mod
 from repro_torch.kernels.detect_recolor import detect_recolor
 from repro_torch.kernels.firstfit import (firstfit, pick_lanes, pick_window)
 from repro_torch.obs import metrics as obs_metrics
@@ -275,6 +276,49 @@ def test_wrappers_check_their_arguments():
         [2, 2, 8, 8, 16, 16, 16]
 
 
+@pytest.mark.parametrize("W,aligned,want", [
+    (1, True, "direct"), (3, True, "direct"), (4, True, "direct"),
+    (8, True, "direct"), (14, True, "direct"), (16, True, "direct"),
+    (17, True, "direct"), (48, False, "direct"),
+    (20, True, "vec16"), (44, True, "vec16"), (45, True, "direct"),
+    (512, True, "vec16"), (512, False, "direct"), (600, True, "vec16")])
+def test_detect_recolor_design_picker(W, aligned, want):
+    """Rows of more than DIRECT_MAX_W ids that are whole 16-B chunks of a
+    16-B aligned table take the staged pass (16-B copies); every other
+    shape the direct design."""
+    assert dr_mod.DIRECT_MAX_W == 16
+    assert dr_mod.design(W, aligned) == want
+    assert want in dr_mod.DESIGNS
+
+
+def test_detect_recolor_default_lanes_and_knobs():
+    """The direct design's lanes (one slot a lane, a warp at most) wherever
+    it serves, 8 lanes for the staged pass; the kept knobs are still
+    checked, and on a CPU tensor they leave the result alone."""
+    assert [dr_mod.default_lanes(w) for w in (1, 2, 3, 8, 9, 16, 17, 44,
+                                              45, 512)] == \
+        [1, 2, 4, 8, 16, 16, 32, 8, 32, 8]
+    assert dr_mod.default_lanes(512, aligned=False) == 32
+    rng = np.random.default_rng(3)
+    ell = _t(_rand_ell(rng, 40, 12, 90))
+    colors = _t(rng.integers(-1, 20, size=(90,)).astype(np.int32))
+    pri = _t(rng.permutation(90).astype(np.int32))
+    U = _t(rng.random(40) < 0.7)
+    want = ref.detect_recolor_ref(ell, colors, pri, 0, U, 40)
+    for lanes, window in ((None, None), (1, 2), (32, 16), (8, 8)):
+        _eq(detect_recolor(ell, colors, pri, U, 0, 40, lanes=lanes,
+                           window=window), [w.numpy() for w in want], NAMES3)
+    with pytest.raises(ValueError, match="lanes must be one of"):
+        detect_recolor(ell, colors, pri, U, 0, 40, lanes=3)
+    with pytest.raises(ValueError, match="window must be one of"):
+        detect_recolor(ell, colors, pri, U, 0, 40, window=4)
+    counts = lambda: [detect_recolor.launches] + [
+        getattr(detect_recolor, f"launches_{d}") for d in dr_mod.DESIGNS]
+    before = counts()
+    detect_recolor(ell, colors, pri, U, 0, 40)
+    assert counts() == before                   # CPU: never launches
+
+
 # ---- on a GPU: the kernels against the plain versions ---------------------
 
 @pytest.mark.cuda
@@ -316,3 +360,39 @@ def test_cuda_detect_recolor_matches_plain(cuda_device, R, W, n, C,
     want = ref.detect_recolor_ref(ell, colors, pri, row_start, U, C, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,want", [
+    (1, "direct"), (3, "direct"), (4, "direct"), (16, "direct"),
+    (17, "direct"), (44, "vec16"), (45, "direct"), (256, "vec16"),
+    (260, "vec16"), (512, "vec16")])
+def test_cuda_detect_recolor_designs_match_plain(cuda_device, W, want):
+    """Each design at its tile edges: direct (W <= 16, and rows that are
+    not whole 16-B chunks), 16-B copies, rows staged in one and in two
+    batches (W at and past 8 lanes' 256-int slice), scattered row_ids,
+    forb0 and extra_defect on and off, a cap past one window."""
+    rng = np.random.default_rng(W)
+    d = cuda_device
+    n, R, C = 3000, 1500, 700
+    ell = _t(_rand_ell(rng, R, W, n, 0.5)).to(d)
+    full = _t(_rand_ell(rng, n, W, n, 0.5)).to(d)
+    colors = _t(rng.integers(-1, 560, size=n).astype(np.int32)).to(d)
+    pri = _t(rng.permutation(n).astype(np.int32)).to(d)
+    U = _t(rng.random(R) < 0.7).to(d)
+    ids = _t(rng.integers(0, n + 5, size=R).astype(np.int32)).to(d)
+    opt = dict(forb0=tb.pack_dense(_t((rng.random((R, C)) < 0.2)
+                                      .astype(np.uint8)).to(d), C),
+               extra_defect=_t(rng.random(R) < 0.2).to(d),
+               force=_t(rng.random(R) < 0.2).to(d),
+               valid=_t(rng.random(R) < 0.8).to(d))
+    route = dr_mod.design(W)
+    assert route == want
+    for e, kw in ((ell, {}), (ell, opt), (full, dict(row_ids=ids)),
+                  (full, dict(opt, row_ids=ids))):
+        before = getattr(detect_recolor, f"launches_{route}")
+        got = ops.detect_recolor(e, colors, pri, U, 0, C, **kw)
+        assert getattr(detect_recolor, f"launches_{route}") == before + 1
+        want = ref.detect_recolor_ref(e, colors, pri, 0, U, C, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)

@@ -32,6 +32,8 @@ from repro.kernels.twohop import twohop_detect_recolor as j_twohop
 from repro_torch.core import bitset as tb
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.detect_recolor import detect_recolor
+from repro_torch.kernels import twohop as th_mod
+from repro_torch.kernels.firstfit import pick_lanes
 from repro_torch.kernels.twohop import default_page_rows, twohop_detect_recolor
 from repro_torch.obs import metrics as obs_metrics
 
@@ -340,6 +342,45 @@ def test_dispatch_counters_and_wrapper_checks():
         assert default_page_rows(n_all, W) == j_default_page_rows(n_all, W)
 
 
+@pytest.mark.parametrize("W,fits,aligned,want", [
+    (1, True, True, "direct"), (3, True, True, "direct"),
+    (8, True, True, "direct"), (14, True, True, "direct"),
+    (16, True, True, "direct"), (17, True, True, "staged4"),
+    (20, True, True, "staged16"), (44, True, True, "staged16"),
+    (44, True, False, "staged4"), (45, True, True, "staged4"),
+    (512, True, True, "staged16"), (513, False, True, "direct"),
+    (45, False, True, "direct"), (45, False, False, "direct"),
+    (45, True, False, "staged4"), (44, False, True, "direct")])
+def test_twohop_design_picker(W, fits, aligned, want):
+    """The direct design for rows of at most DIRECT_MAX_W ids and for the
+    shapes the staged designs do not hold (``fits``, the kernel's rule);
+    the staged designs for the rest, 16-B copies where the rows are 16-B
+    chunks on a 16-B aligned table."""
+    assert th_mod.DIRECT_MAX_W == 16
+    assert th_mod.design(W, fits, aligned) == want
+    assert want in th_mod.DESIGNS
+
+
+def test_twohop_knobs_leave_the_result_alone():
+    """``lanes`` / ``window`` / ``page_rows`` are checked and, on a CPU
+    tensor (the plain version), change nothing; no launch is counted."""
+    _, ell_all, colors, pri, U = _case(40, 6, 120, 33, 4)
+    ea, c, p, u = _t(ell_all), _t(colors), _t(pri), _t(U)
+    want = ref.twohop_ref(ea[:40], ea, c, p, 0, u, 33)
+    counts = [getattr(twohop_detect_recolor, f"launches_{d}")
+              for d in th_mod.DESIGNS]
+    for kw in (dict(), dict(lanes=1, window=2), dict(lanes=32, window=16),
+               dict(page_rows=7)):
+        _eq(twohop_detect_recolor(ea[:40], ea, c, p, u, 0, 33, **kw),
+            [w.numpy() for w in want], NAMES3)
+    assert counts == [getattr(twohop_detect_recolor, f"launches_{d}")
+                      for d in th_mod.DESIGNS]
+    with pytest.raises(ValueError, match="lanes must be one of"):
+        twohop_detect_recolor(ea[:40], ea, c, p, u, 0, 33, lanes=6)
+    with pytest.raises(ValueError, match="window must be one of"):
+        twohop_detect_recolor(ea[:40], ea, c, p, u, 0, 33, window=3)
+
+
 # ---- on a GPU: the kernel against the plain version -----------------------
 
 @pytest.mark.cuda
@@ -384,6 +425,48 @@ def test_cuda_detect_recolor_row_ids_matches_plain(cuda_device):
     want = ref.detect_recolor_ref(ell, colors, pri, 0, U, C, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,lanes,want", [
+    (1, None, "direct"), (3, None, "direct"), (4, None, "direct"),
+    (16, None, "direct"), (17, None, "staged4"), (44, None, "staged16"),
+    (45, None, "staged4"), (44, 16, "staged16"), (45, 4, "staged4"),
+    (45, 1, "direct"), (513, None, "direct")])
+def test_cuda_twohop_designs_match_plain(cuda_device, W, lanes, want):
+    """Each design (staged16, staged4, direct) at its tile edges, picked by
+    the kernel's own shape rule: rows with one fewer, as many and one more
+    live neighbours than a stage batch holds, scattered row_ids,
+    detect=False, a cap past one window."""
+    rng = np.random.default_rng(W + 7)
+    d = cuda_device
+    n, C = 1200, 700
+    R = 300 if W < 100 else 12
+    g = pick_lanes(W) if lanes is None else lanes
+    batch = max(1, 32 * g // W)
+    deg = rng.integers(0, W + 1, size=n)
+    deg[:4] = np.clip([batch - 1, batch, batch + 1, W], 0, W)
+    ell_all = rng.integers(0, n, size=(n, W)).astype(np.int32)
+    ell_all[np.arange(W)[None, :] >= deg[:, None]] = -1
+    ea = _t(ell_all).to(d)
+    colors = _t(rng.integers(-1, 560, size=n).astype(np.int32)).to(d)
+    pri = _t(rng.permutation(n).astype(np.int32)).to(d)
+    U = _t(rng.random(R) < 0.7).to(d)
+    ids = _t(rng.integers(0, n + 3, size=R).astype(np.int32)).to(d)
+    force = _t(rng.random(R) < 0.2).to(d)
+    route = th_mod.design(W, th_mod.staged_fits(g, W))
+    assert route == want
+    for kw in (dict(), dict(force=force, detect=False),
+               dict(row_ids=ids, force=force)):
+        rows = None if "row_ids" in kw else ea[:R]
+        before = getattr(twohop_detect_recolor, f"launches_{route}")
+        got = ops.twohop(rows, ea, colors, pri, U, 0, C, lanes=lanes, **kw)
+        assert getattr(twohop_detect_recolor, f"launches_{route}") == \
+            before + 1
+        want = ref.twohop_ref(rows, ea, colors, pri, 0, U, C, **kw)
+        for got_t, want_t in zip(got, want):
+            assert torch.equal(got_t, want_t)
 
 
 def test_jax_is_on_the_cpu():
