@@ -9,25 +9,30 @@ ends the run with a non-zero exit code:
               torch / CUDA / nvcc / triton versions
   2. build    build the kernels from src/repro_torch/kernels/csrc; print
               ptxas -v of every variant of the attention kernel's sm90
-              design (registers, spills) and its shared memory per CTA, and
-              of every variant of the staged pass (B2, B3's staged designs)
-              with its shared memory and resident groups at the main path's
-              widths
+              design (registers, spills) and its shared memory per CTA, of
+              every variant of the staged pass (B1 / B2's vec16, B3's staged
+              designs) with its shared memory and resident groups at the
+              main path's widths, and a summary of B1's and B4's variants
+              (count, registers, how many spill)
   3. kernels  each kernel against its plain PyTorch version on the card
               over shape sweeps: the coloring kernels bit-equal (integer
               arithmetic), attention and aggregation within stated
               tolerances (FA_TOL, SPMM_TOL; attention also row by row,
               ROW_TOL); attention at the tile edges of its sm90 design
               too, each call checked to have launched the design its dtype
-              and head dim name; B2 and B3 at the tile edges of their
-              staged designs (phase_kernels_staged)
+              and head dim name; B1, B2 and B3 at the tile edges of their
+              staged designs (phase_kernels_staged); B4 at its edges (d
+              1-300, W 1-44, max over non-finite features)
   4. golden   paper_suite("tiny") x seeds 0-2 at distance 1 and 2, and two
               bipartite graphs (mode="partial"), through repro_torch.api.color
               on the card against tests/torch_golden.json (made by the JAX
               reference package)
   5. main     repro_torch.api.color(g), default spec, on the paper's graph
               classes at real size; launch counters zeroed before, read
-              after, launches per design logged per graph
+              after, launches per design logged per graph (B1: vec16 on the
+              RMATs, direct on the meshes); e2e_cold_ms from the first
+              call, prepare_ms / solve_ms and their total e2e_traced_ms
+              from a second, traced call
   5c. d2      api.color(g, distance=2) on the meshes and RMAT-ER,
               mode="partial" on a 2^20 x 2^20 Jacobian pattern,
               algorithm="rsoc_compact" on the meshes and RMAT-B; counters
@@ -45,11 +50,16 @@ ends the run with a non-zero exit code:
   5e. agg     ops.ell_aggregate on RMAT-ER's ELL table with d=100 features,
               float32 and bfloat16, sum / mean / max, against the plain
               version; counters zeroed before, read after
+  (5, 5c: each row's prepare_ms + solve_ms must not pass e2e_traced_ms,
+  the wall time of the call they split, by more than SPLIT_SLACK)
   6. times    per-kernel device time (device_ms; the back-to-back call time
               as call_ms) / plain-version time / bound (and, for the
               attention and aggregation kernels, the time of the one
               PyTorch call that computes the same function) at the shapes
-              phases 5, 5c, 5d and 5e used — attention at L 512, 2048 and
+              phases 5, 5c, 5d and 5e used — B1's vec16 chunks beside its
+              direct design on the same inputs, in turns; B4's six (dtype,
+              op) calls with embedding_bag, sparse.mm (sum, float32) and
+              the gather floor; attention at L 512, 2048 and
               8192 in bfloat16 and at L 2048 in float32, each with its
               ratio to SDPA; one compacted repair pass per
               compacted path (detect_recolor with row_ids, forb0 and
@@ -436,7 +446,7 @@ def resident_groups(kernel: str, W: int, launch: bool):
     the wrapper picks the direct design (no persistent grid)."""
     from repro_torch.kernels import _build, detect_recolor as dr, twohop
     from repro_torch.kernels.firstfit import pick_lanes
-    if kernel == "detect_recolor":
+    if kernel in ("firstfit", "detect_recolor"):
         lanes, route = dr.default_lanes(W), dr.design(W)
     elif not launch:            # the rehearsal has no library to ask
         lanes, route = pick_lanes(W), ("direct" if W <= twohop.DIRECT_MAX_W
@@ -449,7 +459,7 @@ def resident_groups(kernel: str, W: int, launch: bool):
     if not launch:
         return 64
     lib = _build.library()
-    if kernel == "detect_recolor":
+    if kernel in ("firstfit", "detect_recolor"):
         shape = staged_shape(lib, 1, dr.DESIGNS.index(route), lanes, W)
     else:
         shape = staged_shape(lib, 2, twohop.DESIGNS.index(route), lanes, W)
@@ -459,9 +469,10 @@ def resident_groups(kernel: str, W: int, launch: bool):
 
 
 def phase_kernels_staged(device, launch: bool, cmp: Cmp):
-    """The tile edges of the designs of ``detect_recolor`` (B2) and
-    ``twohop_detect_recolor`` (B3), bit-equal to the plain versions: R at
-    the staged designs' resident groups T - 1, T, T + 1 (a group's rows
+    """The tile edges of the designs of ``firstfit`` (B1),
+    ``detect_recolor`` (B2) and ``twohop_detect_recolor`` (B3), bit-equal
+    to the plain versions (B1: every row works, R > n, caps 4 / 33 / 700):
+    R at the staged designs' resident groups T - 1, T, T + 1 (a group's rows
     wrap the two-buffer ring); W in {1, 3, 4} (the direct designs), 17
     and 20 (the narrowest staged rows), 44, 45, 512 (W*4 % 16 != 0 takes
     B3's 4-B copies and B2's direct design) and, for B2 at 8 lanes, W
@@ -474,7 +485,39 @@ def phase_kernels_staged(device, launch: bool, cmp: Cmp):
     from repro_torch.kernels.firstfit import pick_lanes
     kb = "cuda" if launch else "torch"
     names = ("newc", "recolored", "ovf")
-    K2, K3 = "detect_recolor", "twohop_detect_recolor"
+    K1, K2, K3 = "firstfit", "detect_recolor", "twohop_detect_recolor"
+    # ---- B1: as B2's tile edges, every row working, more rows than
+    # colours (R > n), caps 4 (saturated rows), 33 and 700 ----
+    for W in (1, 4, 16, 17, 20, 44, 45, 252, 256, 260, 512):
+        T = resident_groups(K1, W, launch)
+        Rs = ((257,) if T is None else
+              (T - 1, T, T + 1) if W in (20, 44, 512) else (T + 1,))
+        for R in Rs:
+            rng = np.random.default_rng(3 * R + W)
+            for C in ((4, 33, 700) if W in (44, 512) else (33,)):
+                n = max(2 * W, R // 3)
+                ell_np = packed_ell(rng, R, W, n, rng.integers(0, W + 1,
+                                                                size=R))
+                colors = rng.integers(0, 4 if C == 4 else min(C + 8, 560),
+                                      size=n).astype(np.int32)
+                if C > 4:
+                    colors[rng.integers(0, n, size=n // 10)] = -1
+                if W >= 512 and C > 512:
+                    # rows 0-4 see colours 0..511 once each: a full first
+                    # window
+                    colors[:512] = np.arange(512)
+                    ell_np[:5] = np.stack([rng.permutation(512) for _
+                                           in range(5)]).astype(np.int32)
+                ell, colors = dev(ell_np, device), dev(colors, device)
+                f0 = rand_words(rng, R, C, device)
+                for kw in ({}, dict(forb0=f0)):
+                    want = ref.firstfit_ref(ell, colors, C, **kw)
+                    got = ops.firstfit(ell, colors, C, backend=kb, **kw)
+                    cmp.check(K1, f"staged edge R{R} (T{T}) W{W} n{n} C{C} "
+                              f"+{'+'.join(kw) or 'none'}", got, want,
+                              ("mex", "ovf"))
+                    if C == 4 and launch and not bool(got[1].any()):
+                        fail(f"{K1} staged edge W{W} C4: no row overflowed")
     # ---- B2 ----
     for W in (1, 3, 4, 17, 20, 44, 45, 252, 256, 260, 512):
         T = resident_groups(K2, W, launch)
@@ -655,7 +698,8 @@ def phase_kernels_attention(device, launch: bool, cmp: Cmp):
 
 def phase_kernels_spmm(device, launch: bool, cmp: Cmp):
     """``ell_spmm`` against ``ell_spmm_ref`` on the card: the reference's
-    test shapes, all-FILL rows, ids >= n (clamped), ragged R and d, every
+    test shapes, all-FILL rows, ids >= n (clamped), ragged R and d, the
+    kernel's edges (d 1-300, W 1-44, max over non-finite features), every
     compiled lane count; float32 and bfloat16, all three ops."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.ell_spmm import LANES, ell_spmm
@@ -679,6 +723,36 @@ def phase_kernels_spmm(device, launch: bool, cmp: Cmp):
                 if bool((got[::7] != 0).any()):
                     fail(f"ell_spmm R{R} W{W} n{n} d{d} {op}: an all-FILL "
                          f"row is not 0")
+    # the kernel's edges: the lane counts and vector widths the wrapper
+    # picks for d (1, 3: one element a load; 129, 300: more feature chunks),
+    # rows of 1 id and around a warp's ballot of 32 ids, RMAT-ER's 44; max
+    # also over +-inf / NaN features (a non-finite result is 0)
+    for d in (1, 3, 100, 128, 129, 300):
+        for W in (1, 31, 32, 33, 44):
+            rng = np.random.default_rng(d * 100 + W)
+            ell = rand_ell(rng, 300, W, 205, 0.5)   # ids up to n + 4
+            ell[::7] = -1
+            ell = dev(ell, device)
+            for dtype in (torch.float32, torch.bfloat16):
+                f = rng.standard_normal((200, d)).astype(np.float32)
+                for op in ("sum", "mean", "max"):
+                    feats = dev(f, device).to(dtype)
+                    cmp.close("ell_spmm", f"edge R300 W{W} n200 d{d} "
+                              f"{str(dtype)[6:]} {op}",
+                              ops.ell_aggregate(ell, feats, op,
+                                                backend=kb),
+                              ref.ell_spmm_ref(ell, feats, op),
+                              *SPMM_TOL[dtype])
+                f[3, 0], f[4, 0], f[5, -1] = np.inf, -np.inf, np.nan
+                feats = dev(f, device).to(dtype)
+                got = ops.ell_aggregate(ell, feats, "max", backend=kb)
+                cmp.close("ell_spmm", f"edge R300 W{W} n200 d{d} "
+                          f"{str(dtype)[6:]} max +-inf NaN", got,
+                          ref.ell_spmm_ref(ell, feats, "max"),
+                          *SPMM_TOL[dtype])
+                if bool((got[::7] != 0).any()):
+                    fail(f"ell_spmm edge W{W} d{d}: an all-FILL row is "
+                         f"not 0")
     # every compiled lane count computes the same function
     if launch:
         rng = np.random.default_rng(8)
@@ -815,6 +889,36 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
+SPLIT_SLACK = 0.01    # prepare + solve may exceed their call's total by 1 %
+
+
+def split_of(res, e2e_ms: float, what: str) -> dict:
+    """``prepare_ms`` / ``solve_ms`` of a traced run, the wall time of that
+    same call (``e2e_traced_ms``) and ``prepare_share`` = prepare over it;
+    fails if the two phases add up to more than the call took (past
+    ``SPLIT_SLACK``): a split and its total come from one call."""
+    prepare_ms = res.trace.phase_wall_s("prepare") * 1e3
+    solve_ms = res.trace.phase_wall_s("solve") * 1e3
+    if prepare_ms + solve_ms > e2e_ms * (1 + SPLIT_SLACK):
+        fail(f"{what}: prepare {prepare_ms:.2f} ms + solve {solve_ms:.3f} ms "
+             f"exceed the traced call's {e2e_ms:.2f} ms")
+    return {"e2e_traced_ms": round(e2e_ms, 2),
+            "prepare_ms": round(prepare_ms, 2),
+            "solve_ms": round(solve_ms, 3),
+            "prepare_share": round(prepare_ms / e2e_ms, 4)}
+
+
+def traced_split(g, device, what: str, **kw):
+    """One traced ``api.color(g, **kw)`` call, timed on the host clock
+    around a synchronize; returns (result, ``split_of`` its trace)."""
+    from repro_torch import api
+    sync(device)
+    t = time.perf_counter()
+    res = api.color(g, device=device, trace=True, **kw)
+    sync(device)
+    return res, split_of(res, (time.perf_counter() - t) * 1e3, what)
+
+
 def phase_main(rmats, device, rehearse: bool):
     from repro_torch import api, obs
     from repro_torch.core.coloring import is_proper
@@ -837,13 +941,13 @@ def phase_main(rmats, device, rehearse: bool):
         e2e_ms = (time.perf_counter() - t) * 1e3
         ff1, dr1 = firstfit.launches, detect_recolor.launches
         per_design = design_delta(des0, design_counts(),
-                                  {"detect_recolor": dr1 - dr0}, name)
-        # run 2: the same call traced, for the prepare / solve split (the
-        # solve phase is synchronize()-bracketed by the tracer)
-        res2 = api.color(g, device=device, trace=True)
+                                  {"firstfit": ff1 - ff0,
+                                   "detect_recolor": dr1 - dr0}, name)
+        # run 2: the same call traced and timed, for the prepare / solve
+        # split and the total they are a split of (the solve phase is
+        # synchronize()-bracketed by the tracer)
+        res2, split = traced_split(g, device, f"{name}")
         assert_same_result(res, res2, f"{name}: traced vs untraced run")
-        prepare_ms = res2.trace.phase_wall_s("prepare") * 1e3
-        solve_ms = res2.trace.phase_wall_s("solve") * 1e3
         if not is_proper(g, res.colors):
             fail(f"{name}: result is not a proper coloring")
         if res.colors.shape != (g.n_vertices,) or res.colors.dtype != np.int32:
@@ -854,6 +958,12 @@ def phase_main(rmats, device, rehearse: bool):
             if ff1 - ff0 != n_chunks:
                 fail(f"{name}: firstfit launched {ff1 - ff0} times, expected "
                      f"n_chunks = {n_chunks}")
+            # the RMATs' rows (W 44, 512) take the staged pass, the meshes'
+            # (W 8, 14) the direct design
+            route = "vec16" if name.startswith("rmat") else "direct"
+            if per_design["firstfit"] != {route: n_chunks}:
+                fail(f"{name}: firstfit launched {per_design['firstfit']} "
+                     f"per design, expected {{'{route}': {n_chunks}}}")
             if dr1 - dr0 != n_chunks * res.n_rounds:
                 fail(f"{name}: detect_recolor launched {dr1 - dr0} times, "
                      f"expected n_chunks*n_rounds = "
@@ -866,9 +976,7 @@ def phase_main(rmats, device, rehearse: bool):
                "n_colors": res.n_colors, "n_rounds": res.n_rounds,
                "conflicts": res.total_conflicts, "retries": res.retries,
                "final_C": res.final_C, "generate_ms": round(gen_s * 1e3, 1),
-               "e2e_cold_ms": round(e2e_ms, 2),
-               "prepare_ms": round(prepare_ms, 2),
-               "solve_ms": round(solve_ms, 3),
+               "e2e_cold_ms": round(e2e_ms, 2), **split,
                "firstfit_launches": ff1 - ff0,
                "detect_recolor_launches": dr1 - dr0,
                "launches_per_design": per_design}
@@ -942,7 +1050,8 @@ def sm90_ptxas(build_log: str, lib) -> list:
 
 # the kernels with more than one design, and each one's designs (a wrapper
 # counts a design's launches in ``launches_<design>``)
-DESIGNS = {"detect_recolor": ("vec16", "direct"),
+DESIGNS = {"firstfit": ("vec16", "direct"),
+           "detect_recolor": ("vec16", "direct"),
            "twohop_detect_recolor": ("staged16", "staged4", "direct"),
            "flash_attention": ("sm90", "fma")}
 
@@ -983,8 +1092,8 @@ def staged_ptxas(build_log: str, lib) -> list:
                 # the C ids: B2's vec16 is 0, B3's staged16 / staged4 1 / 2
                 shape = staged_shape(lib, hops, 0 if hops == 1 else
                                      (1 if vec == 4 else 2), G, W)
-                cur = {"kernel": ("detect_recolor" if hops == 1 else
-                                  "twohop_detect_recolor"),
+                cur = {"kernel": ("detect_recolor, firstfit" if hops == 1
+                                  else "twohop_detect_recolor"),
                        "design": design, "lanes": G, "at_W": W, "threads": shape and shape[0],
                        "smem_bytes": shape and shape[1],
                        "resident_groups": shape and shape[2]}
@@ -994,6 +1103,40 @@ def staged_ptxas(build_log: str, lib) -> list:
         elif cur is not None and "Used" in line:
             cur["ptxas"] = line.split(":", 1)[-1].strip()
     return rows
+
+
+# kernel -> the mangled-name pattern of its variants, for the ptxas summary
+# of phase 2 (B1: the direct design's firstfit_kernel and the staged pass
+# it shares with B2; B4: every (dtype, lanes, vector) variant)
+PTXAS_VARIANTS = {"firstfit direct": r"firstfit_kernelILi",
+                  "firstfit / detect_recolor vec16":
+                      r"staged4passILi\d+ELi4ELi1EE",
+                  "ell_spmm": r"ell_spmm_kernelI"}
+
+
+def ptxas_summary(build_log: str) -> dict:
+    """Per ``PTXAS_VARIANTS`` entry: its variants, their register range and
+    how many spill, from ``ptxas -v``."""
+    out = {k: {"variants": 0, "registers": [], "spilling": 0}
+           for k in PTXAS_VARIANTS}
+    cur = None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = next((k for k, pat in PTXAS_VARIANTS.items()
+                        if re.search(pat, m.group(1))), None)
+            if cur:
+                out[cur]["variants"] += 1
+        elif cur and "spill" in line and "0 bytes spill stores, 0 bytes " \
+                "spill loads" not in line:
+            out[cur]["spilling"] += 1
+        elif cur and "Used" in line:
+            out[cur]["registers"].append(
+                int(re.search(r"Used (\d+) registers", line).group(1)))
+    for v in out.values():
+        r = v.pop("registers")
+        v["registers"] = [min(r), max(r)] if r else None
+    return out
 
 
 def zero_counts():
@@ -1159,9 +1302,10 @@ def phase_distance2(kept, bip, device, rehearse: bool, pool):
         d = {k: c1[k] - c0[k] for k in c1}
         per_design = design_delta(des0, design_counts(), d,
                                   f"{name} {what}")
-        res2 = res if traced_only else api.color(g, device=device,
-                                                 trace=True, **kw)
-        if not traced_only:
+        if traced_only:
+            split = split_of(res, e2e_ms, f"{name} {what}")
+        else:
+            res2, split = traced_split(g, device, f"{name} {what}", **kw)
             assert_same_result(res, res2, f"{name} {what}: traced vs "
                                           f"untraced run")
         if device.type == "cuda":
@@ -1209,10 +1353,7 @@ def phase_distance2(kept, bip, device, rehearse: bool, pool):
                "n_colors": res.n_colors, "n_rounds": res.n_rounds,
                "conflicts": res.total_conflicts, "retries": res.retries,
                "final_C": res.final_C, "e2e_cold_ms": round(e2e_ms, 2),
-               "prepare_ms": round(res2.trace.phase_wall_s("prepare") * 1e3,
-                                   2),
-               "solve_ms": round(res2.trace.phase_wall_s("solve") * 1e3, 3),
-               "launches": d, "launches_per_design": per_design,
+               **split, "launches": d, "launches_per_design": per_design,
                "check": check}
         if what == "partial":
             row["n_left"] = n_left
@@ -1647,6 +1788,7 @@ def phase_times(device, kept, kept_compact, cmp: Cmp, launch: bool):
     from repro_torch.core import coloring, frontier
     from repro_torch.core.context import PassContext
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.firstfit import firstfit
     spec = api.ColoringSpec()
     kb = "cuda" if launch else "torch"
     rows = []
@@ -1691,7 +1833,15 @@ def phase_times(device, kept, kept_compact, cmp: Cmp, launch: bool):
         cmp.check("firstfit", f"{name} chunk R{cs} W{W} n{n_pad} C{C}",
                   ff(), ff_plain(), ("mex", "ovf"))
         t = timed("firstfit", ff, device, reps, launch)
-        del t["design"]
+        if t["design"] == "vec16":
+            # the direct design on the same inputs: the kernel every chunk
+            # took before first fit had the staged pass (its source is
+            # unchanged), timed in turns with the design that serves it
+            direct = lambda: firstfit(ell_k, colors, C, f0, route="direct")
+            cmp.check("firstfit", f"{name} chunk R{cs} W{W} direct",
+                      direct(), ff_plain(), ("mex", "ovf"))
+            t["direct_ms"] = device_ms(direct, device, reps)
+            t["ms_again"] = device_ms(ff, device, reps)
         rows.append({"kernel": "firstfit", "graph": name, "R": cs, "W": W,
                      "n": n_pad, "C": C, "live_slots": live,
                      "bytes": ff_bytes, **t,
@@ -1855,15 +2005,19 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
     ratio of the two in this run.  ``ms`` and ``library_ms`` are device
     times (``device_ms``: launches queued behind a device-side sleep);
     ``call_ms`` is what a caller's loop of ``ops.attention`` calls pays per
-    call, host side included (``time_ms``, the method of the other
-    kernels' ``ms``).
+    call, host side included (``time_ms``).
 
-    ``ell_spmm`` on the uniform RMAT's table, d=100 float32, ``sum``.  Bound:
-    the table's bytes, each distinct feature row a live slot names once and
-    the output, at the memory rate.  Library: ``torch.sparse.mm`` of a CSR
-    matrix built (untimed) from the same table with the features — the same
-    sum; for ``mean`` / ``max`` no single PyTorch call computes the
-    function."""
+    ``ell_spmm`` on the uniform RMAT's table, d=100, float32 and bfloat16,
+    ``sum`` / ``mean`` / ``max`` (six rows; the float32 ``sum`` one is the
+    kernels line's), ``ms`` by ``device_ms`` and ``call_ms`` by
+    ``time_ms``.  Bound: the table's bytes, each distinct feature row a
+    live slot names once and the output, at the memory rate; beside it the
+    gather floor (``ell_spmm.gather_floor_bytes``: every live slot's row
+    read as the 32-B sectors it spans, which a table without locality
+    costs).  Library: ``embedding_bag`` (FILL mapped to the padding row n
+    of an (n + 1)-row copy of the features, built untimed) for every op,
+    and for float32 ``sum`` also ``torch.sparse.mm`` of a CSR matrix of
+    the same table (built untimed); both timed by ``device_ms``."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import design
     kb = "cuda" if launch else "torch"
@@ -1912,7 +2066,8 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
         rows.append(row)
         log("times", json.dumps(row))
         del q, k, v, want
-    # ell_spmm, sum, float32, on the table of phase 5e
+    # ell_spmm on the table of phase 5e: float32 and bfloat16, each op
+    from repro_torch.kernels.ell_spmm import gather_floor_bytes
     R, W = ell.shape
     n, d = feats32.shape
     live = ell >= 0
@@ -1920,25 +2075,53 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
     need = torch.zeros(n, dtype=torch.bool, device=device)
     need[ids] = True
     distinct = int(need.sum())
-    nbytes = R * W * 4 + distinct * d * 4 + R * d * 4
-    fn = lambda: ops.ell_aggregate(ell, feats32, "sum", backend=kb)
-    plain = lambda: spmm_plain_blocks(ell, feats32, "sum")
+    # the yardsticks' inputs, built outside the timed windows: a CSR of the
+    # same table for torch.sparse.mm (sum, float32), and for embedding_bag
+    # the ids with FILL mapped to padding row n of an (n + 1)-row copy
     crow = torch.zeros(R + 1, dtype=torch.int64, device=device)
     crow[1:] = torch.cumsum(live.sum(dim=1), 0)
     csr = torch.sparse_csr_tensor(crow, ids, torch.ones(
         ids.shape[0], dtype=torch.float32, device=device), size=(R, n))
-    lib = lambda: torch.sparse.mm(csr, feats32)
-    lib_err = float((lib() - plain()).abs().max())
-    rows.append({"kernel": "ell_spmm", "R": R, "W": W, "n": n, "d": d,
-                 "dtype": "float32", "op": "sum",
-                 "live_slots": int(ids.shape[0]), "distinct_rows": distinct,
-                 "bytes": nbytes, "ms": time_ms(fn, device, 5),
-                 "plain_ms": time_ms(plain, device, 1, 3),
-                 "library_ms": time_ms(lib, device, 5),
-                 "library_max_abs_err_vs_plain": lib_err,
-                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                 "bound_by": "bytes"})
-    log("times", json.dumps(rows[-1]))
+    bag_ids = torch.where(live, ell.clamp(max=n - 1), n)
+    del ids, need
+    for dt in (torch.float32, torch.bfloat16):
+        feats = feats32.to(dt)
+        padded = torch.cat([feats, feats.new_zeros((1, d))])
+        es = feats.element_size()
+        nbytes = R * W * 4 + distinct * d * es + R * d * es
+        floor = gather_floor_bytes(ell, n, d, es)
+        for op in ("sum", "mean", "max"):
+            fn = lambda: ops.ell_aggregate(ell, feats, op, backend=kb)
+            plain = lambda: spmm_plain_blocks(ell, feats, op)
+            bag = lambda: torch.nn.functional.embedding_bag(
+                bag_ids, padded, mode=op, padding_idx=n)
+            want = plain()
+            lib_err = float((bag().float() - want.float()).abs().max())
+            row = {"kernel": "ell_spmm", "R": R, "W": W, "n": n, "d": d,
+                   "dtype": str(dt)[6:], "op": op,
+                   "kernels_line": dt == torch.float32 and op == "sum",
+                   "live_slots": int(live.sum()), "distinct_rows": distinct,
+                   "bytes": nbytes, "floor_bytes": floor,
+                   "ms": device_ms(fn, device, 5),
+                   "call_ms": time_ms(fn, device, 5),
+                   "plain_ms": time_ms(plain, device, 1, 3),
+                   "library": "embedding_bag",
+                   "library_ms": device_ms(bag, device, 5),
+                   "library_max_abs_err_vs_plain": lib_err,
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "gather_floor_ms": floor / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes"}
+            if dt == torch.float32 and op == "sum":
+                sp = lambda: torch.sparse.mm(csr, feats32)
+                row["sparse_mm_ms"] = device_ms(sp, device, 5)
+                row["sparse_mm_max_abs_err_vs_plain"] = float(
+                    (sp() - want).abs().max())
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["floor_share"] = row["gather_floor_ms"] / row["ms"]
+            rows.append(row)
+            log("times", json.dumps(row))
+            del want
+        del feats, padded
     return rows
 
 
@@ -2000,17 +2183,17 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
     largest table its path ran (RMAT-B for the distance-1 kernels, RMAT-ER
     for the two-hop kernel); the attention kernel at the serving prefill's
     longest prompt (L=2048); the aggregation kernel on the RMAT-ER table
-    (float32, sum).  ``launches`` is the count of the path that runs the
-    kernel: phase 5 for B1 / B2, 5c for B3, 5d (serve) for the attention
-    kernel, 5e (aggregate) for the aggregation kernel; ``paths`` holds every
-    path's counts, ``designs`` every path's launches per design
-    (``launches_per_design``: the kernel's path).  ``ms_method`` names how
-    ``ms`` was taken: ``device`` (calls queued behind a device sleep,
-    ``device_ms``) or, for the aggregation kernel, ``calls`` (back-to-back
-    wrapper calls, ``time_ms``); ``call_ms`` is the back-to-back call time
-    of every kernel, the one number taken the same way for all.  ``design``
-    and ``source`` name the design that served the row's shape and its
-    file."""
+    (float32, sum; beside its bound the gather floor, and as its library
+    call ``embedding_bag``, with ``torch.sparse.mm``'s time beside it).
+    ``launches`` is the count of the path that runs the kernel: phase 5 for
+    B1 / B2, 5c for B3, 5d (serve) for the attention kernel, 5e (aggregate)
+    for the aggregation kernel; ``paths`` holds every path's counts,
+    ``designs`` every path's launches per design (``launches_per_design``:
+    the kernel's path).  ``ms_method`` names how ``ms`` was taken:
+    ``device`` (calls queued behind a device sleep, ``device_ms``) for
+    every kernel; ``call_ms`` is the back-to-back call time (``time_ms``),
+    host side included.  ``design`` and ``source`` name the design that
+    served the row's shape and its file."""
     csrc = "src/repro_torch/kernels/csrc/"
     largest = {"firstfit": list(kept)[-1], "detect_recolor": list(kept)[-1],
                "twohop_detect_recolor": next(k for k in kept
@@ -2022,7 +2205,9 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
                                "main"),
             "twohop_detect_recolor": ("src/repro/kernels/twohop.py:130",
                                       "distance2_compact")}
-    source = {("firstfit", None): "coloring.cu",
+    source = {("firstfit", "vec16"): "staged_pass.cuh",
+              ("firstfit", "direct"): "coloring.cu",
+              ("firstfit", None): "coloring.cu",
               ("detect_recolor", "vec16"): "detect_recolor.cu",
               # the rehearsal launches nothing: the entry point's file
               ("detect_recolor", None): "detect_recolor.cu",
@@ -2052,7 +2237,8 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
             "shape": {k: r[k] for k in ("graph", "R", "W", "n", "C")},
             "cases_checked": len(cmp.cases[name])})
     fa = next(r for r in model_rows if r.get("kernels_line"))
-    sp = next(r for r in model_rows if r["kernel"] == "ell_spmm")
+    sp = next(r for r in model_rows
+              if r["kernel"] == "ell_spmm" and r["kernels_line"])
     fa_src = {"sm90": "flash_attention_sm90.cu",
               "fma": "flash_attention.cu"}[fa["design"]]
     for name, r, src, replaces, path, shape in (
@@ -2071,11 +2257,14 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
             **({"max_row_rel_err": cmp.max_row_err[name]}
                if name in cmp.max_row_err else {}),
             "ms": r["ms"],
-            "ms_method": "device" if "call_ms" in r else "calls",
-            "call_ms": r.get("call_ms", r["ms"]),
+            "ms_method": "device", "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            **({"gather_floor_ms": r["gather_floor_ms"]}
+               if "gather_floor_ms" in r else {}),
             "library_ms": r["library_ms"],
+            **({"library": r["library"], "sparse_mm_ms": r["sparse_mm_ms"]}
+               if "library" in r else {}),
             "launches_per_path": {p: c[name] for p, c in paths.items()},
             "shape": {k: r[k] for k in shape},
             "cases_checked": len(cmp.cases[name])})
@@ -2165,6 +2354,8 @@ def main() -> int:
                     json.dumps(row))
             for row in staged_ptxas(_build.build_log, _build.library()):
                 log("build", "ptxas -v, staged pass:", json.dumps(row))
+            log("build", "ptxas -v, B1 / B4 variants:",
+                json.dumps(ptxas_summary(_build.build_log)))
 
         # ---- phase 3: kernels vs plain versions ----
         cmp = phase_kernels(device, launch)

@@ -35,8 +35,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every exported function: c_void_p for each pointer and the
 # stream (else ctypes would pass a 32-bit int and cut the pointer)
 SIGNATURES = {
-    # ell colors forb0 mex ovf | R W n C lanes window | stream
-    "coloring_firstfit": [_P] * 5 + [_I] * 6 + [_P],
+    # ell colors forb0 mex ovf | R W n C lanes window design | stream
+    "coloring_firstfit": [_P] * 5 + [_I] * 7 + [_P],
     # ell colors pri U forb0 extra_defect force valid row_ids newc recolored
     # ovf | R W n C row_start lanes window design | stream
     "coloring_detect_recolor": [_P] * 12 + [_I] * 8 + [_P],

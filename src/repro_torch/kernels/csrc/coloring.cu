@@ -1,7 +1,20 @@
 // Hand-written Hopper (sm_90a) kernels of the coloring hot loop:
 //
 //   coloring_firstfit        replaces the Pallas kernel
-//                            src/repro/kernels/firstfit.py::firstfit
+//                            src/repro/kernels/firstfit.py::firstfit; two
+//                            designs, picked by the wrapper
+//                            (kernels/firstfit.py::design), the same rule
+//                            as detect_recolor's: "vec16", the staged pass
+//                            (staged_pass.cuh, entry firstfit_staged in
+//                            detect_recolor.cu) with no candidate set, for
+//                            rows of more than 16 ids that are whole 16-B
+//                            chunks of a 16-B aligned tile (the RMATs: it
+//                            streams the tile with cp.async where this
+//                            file's kernel keeps about one 128-B line in
+//                            flight a warp); "direct", this file's
+//                            firstfit_kernel (pass_body<G, NW, false>),
+//                            everywhere else
+//                            (the meshes' rows of 8 and 14 ids)
 //   coloring::detect_recolor_direct
 //                            the design "direct" of coloring_detect_recolor
 //                            (detect_recolor.cu), which replaces the Pallas
@@ -11,12 +24,13 @@
 //                            staged pass's per-row work costs more than it
 //                            saves
 //
-// Both are one template, pass_kernel<G, NW, DETECT>: for each row of an
-// (R, W) row-major int32 ELL tile, gather the neighbours' colours (and, with
-// DETECT, priorities) from the full (n,) vectors, OR the colours into a packed
-// forbidden bitset, and take the smallest free colour (mex).  With DETECT the
-// same gather also feeds the defect test (same colour as a higher-priority
-// neighbour) and the epilogue keeps or replaces the row's colour.
+// Both "direct" designs are one template, pass_body<G, NW, DETECT>: for
+// each row of an (R, W) row-major int32 ELL tile, gather the neighbours'
+// colours (and, with DETECT, priorities) from the full (n,) vectors, OR the
+// colours into a packed forbidden bitset, and take the smallest free colour
+// (mex).  With DETECT the same gather also feeds the defect test (same
+// colour as a higher-priority neighbour) and the epilogue keeps or replaces
+// the row's colour.
 //
 // What the design is about.  The work is a data-dependent gather with a few
 // integer operations per gathered value: it is bound by bytes, not by
@@ -65,20 +79,20 @@ namespace {
 using coloring::kThreads;
 
 template <int G, int NW, bool DETECT>
-__global__ void __launch_bounds__(kThreads)
-pass_kernel(const int* __restrict__ ell,             // (R, W) or (>= n, W)
-            const int* __restrict__ colors,          // (n,)
-            const int* __restrict__ pri,             // (n,)      DETECT
-            const uint8_t* __restrict__ U,           // (R,)      DETECT
-            const int* __restrict__ forb0,           // (R, nW)   or null
-            const uint8_t* __restrict__ extra_defect,  // (R,)    or null
-            const uint8_t* __restrict__ force,       // (R,)      or null
-            const uint8_t* __restrict__ valid,       // (R,)      or null
-            const int* __restrict__ row_ids,         // (R,)      or null
-            int* __restrict__ out_c,                 // (R,) mex / new colour
-            uint8_t* __restrict__ out_rec,           // (R,)      DETECT
-            uint8_t* __restrict__ out_ovf,           // (R,)
-            int R, int W, int n, int C, int nW, int row_start) {
+__device__ __forceinline__ void
+pass_body(const int* __restrict__ ell,             // (R, W) or (>= n, W)
+          const int* __restrict__ colors,          // (n,)
+          const int* __restrict__ pri,             // (n,)      DETECT
+          const uint8_t* __restrict__ U,           // (R,)      DETECT
+          const int* __restrict__ forb0,           // (R, nW)   or null
+          const uint8_t* __restrict__ extra_defect,  // (R,)      or null
+          const uint8_t* __restrict__ force,       // (R,)      or null
+          const uint8_t* __restrict__ valid,       // (R,)      or null
+          const int* __restrict__ row_ids,         // (R,)      or null
+          int* __restrict__ out_c,                 // (R,) mex / new colour
+          uint8_t* __restrict__ out_rec,           // (R,)      DETECT
+          uint8_t* __restrict__ out_ovf,           // (R,)
+          int R, int W, int n, int C, int nW, int row_start) {
   const long long gtid =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long row = gtid / G;
@@ -160,6 +174,37 @@ pass_kernel(const int* __restrict__ ell,             // (R, W) or (>= n, W)
   }
 }
 
+#define PASS_PARAMS                                                         \
+  const int* __restrict__ ell, const int* __restrict__ colors,               \
+      const int* __restrict__ pri, const uint8_t* __restrict__ U,            \
+      const int* __restrict__ forb0,                                         \
+      const uint8_t* __restrict__ extra_defect,                              \
+      const uint8_t* __restrict__ force, const uint8_t* __restrict__ valid,  \
+      const int* __restrict__ row_ids, int* __restrict__ out_c,              \
+      uint8_t* __restrict__ out_rec, uint8_t* __restrict__ out_ovf, int R,   \
+      int W, int n, int C, int nW, int row_start
+#define PASS_ARGS                                                            \
+  ell, colors, pri, U, forb0, extra_defect, force, valid, row_ids, out_c,    \
+      out_rec, out_ovf, R, W, n, C, nW, row_start
+
+// The two kernels of pass_body.  First fit's names a minimum of one block
+// an SM: ptxas then keeps every variant's words in registers (left to its
+// own register target it spilled 8 bytes at 32 lanes and 16 words) at the
+// same device time on the meshes' rows; the repair pass keeps ptxas's own
+// target, which took less time at W 14 on an H100.
+template <int G, int NW>
+__global__ void __launch_bounds__(kThreads, 1) firstfit_kernel(PASS_PARAMS) {
+  pass_body<G, NW, false>(PASS_ARGS);
+}
+
+template <int G, int NW>
+__global__ void __launch_bounds__(kThreads) detect_kernel(PASS_PARAMS) {
+  pass_body<G, NW, true>(PASS_ARGS);
+}
+
+#undef PASS_PARAMS
+#undef PASS_ARGS
+
 template <bool DETECT>
 cudaError_t launch(int lanes, int window, const int* ell, const int* colors,
                    const int* pri, const uint8_t* U, const int* forb0,
@@ -173,23 +218,43 @@ cudaError_t launch(int lanes, int window, const int* ell, const int* colors,
     constexpr int NW = decltype(nw)::value;
     const long long rows_per_block = kThreads / G;
     const long long blocks = (R + rows_per_block - 1) / rows_per_block;
-    pass_kernel<G, NW, DETECT><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 stream>>>(
-        ell, colors, pri, U, forb0, extra_defect, force, valid, row_ids,
-        out_c, out_rec, out_ovf, R, W, n, C, nW, row_start);
+    const unsigned grid = static_cast<unsigned>(blocks);
+    if constexpr (DETECT)
+      detect_kernel<G, NW><<<grid, kThreads, 0, stream>>>(
+          ell, colors, pri, U, forb0, extra_defect, force, valid, row_ids,
+          out_c, out_rec, out_ovf, R, W, n, C, nW, row_start);
+    else
+      firstfit_kernel<G, NW><<<grid, kThreads, 0, stream>>>(
+          ell, colors, pri, U, forb0, extra_defect, force, valid, row_ids,
+          out_c, out_rec, out_ovf, R, W, n, C, nW, row_start);
     return cudaGetLastError();
   });
 }
 
 }  // namespace
 
-// lanes: lanes per row, one of 1 2 4 8 16 32.
-// window: forbidden words held in registers, one of 2 8 16.
+namespace coloring {
+// detect_recolor.cu: first fit on the staged pass (design "vec16")
+cudaError_t firstfit_staged(const void* ell, const void* colors,
+                            const void* forb0, void* mex, void* ovf, int R,
+                            int W, int n, int C, int lanes, int window,
+                            void* stream);
+}  // namespace coloring
+
+// lanes: lanes per row, one of 1 2 4 8 16 32.  window: forbidden words a
+// window (2, 8 or 16 for "direct", 1..16 for "vec16").  design: 0 "vec16"
+// (the staged pass; W % 4 == 0, ell 16-B aligned), 1 "direct" (pass_body).
 extern "C" int coloring_firstfit(const void* ell, const void* colors,
                                  const void* forb0, void* mex, void* ovf,
                                  int R, int W, int n, int C, int lanes,
-                                 int window, void* stream) {
-  if (R < 1 || W < 1 || n < 1 || C < 1) return cudaErrorInvalidValue;
+                                 int window, int design, void* stream) {
+  if (R < 1 || W < 1 || n < 1 || C < 1 || design < 0 || design > 1 ||
+      (design == 0 &&
+       (W % 4 != 0 || reinterpret_cast<uintptr_t>(ell) % 16 != 0)))
+    return cudaErrorInvalidValue;
+  if (design == 0)
+    return static_cast<int>(coloring::firstfit_staged(
+        ell, colors, forb0, mex, ovf, R, W, n, C, lanes, window, stream));
   return static_cast<int>(launch<false>(
       lanes, window, static_cast<const int*>(ell),
       static_cast<const int*>(colors), nullptr, nullptr,

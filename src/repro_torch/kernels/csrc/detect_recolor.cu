@@ -14,7 +14,7 @@
 // What bounds it.  At the main path's hardest chunk (RMAT-B, 262144 x 512,
 // 97 % FILL) the pass must stream the whole tile once — 537 MB, nearly all
 // of its bytes bound — and gather a few colours per row from L2.  A
-// one-word-a-lane loop (pass_kernel in coloring.cu, firstfit's) keeps about
+// one-word-a-lane loop (pass_body in coloring.cu, firstfit's) keeps about
 // one 128-B line in flight per warp, each word followed by a data-dependent
 // body, and spends tens of instructions per slot on its register words.
 //
@@ -28,7 +28,7 @@
 // live colour).  Designs by shape, picked by the wrapper
 // (kernels/detect_recolor.py::design): "vec16", 16-B copies, for rows of
 // more than 16 ids where W*4 is a multiple of 16 and the table 16-B
-// aligned; "direct" (coloring.cu's one-row-at-a-time pass_kernel)
+// aligned; "direct" (coloring.cu's one-row-at-a-time pass_body)
 // everywhere else: rows of at most 16 ids — the meshes — where a row is a
 // few loads and the staged pass's fixed per-row work (the candidate scan,
 // the copy and its wait, the word init and scan) costs more than the
@@ -101,6 +101,31 @@ extern "C" int coloring_detect_recolor(
   return static_cast<int>(coloring::staged::launch<4, 1>(
       lanes, a, static_cast<cudaStream_t>(stream)));
 }
+
+// First fit's design "vec16" (entry coloring_firstfit in coloring.cu, which
+// checks the arguments): the same staged pass with no candidate set (every
+// row works), no defect test and no recolored output.
+namespace coloring {
+cudaError_t firstfit_staged(const void* ell, const void* colors,
+                            const void* forb0, void* mex, void* ovf, int R,
+                            int W, int n, int C, int lanes, int window,
+                            void* stream) {
+  staged::Args a{};
+  a.ell_rows = static_cast<const int*>(ell);
+  a.colors = static_cast<const int*>(colors);
+  a.forb0 = static_cast<const int*>(forb0);
+  a.out_c = static_cast<int*>(mex);
+  a.out_ovf = static_cast<uint8_t*>(ovf);
+  a.R = R;
+  a.W = W;
+  a.n = n;
+  a.C = C;
+  a.nW = (C + 31) / 32;
+  a.window = window;
+  a.detect = false;
+  return staged::launch<4, 1>(lanes, a, static_cast<cudaStream_t>(stream));
+}
+}  // namespace coloring
 
 // Launch shape of the staged pass, for reports and tests: out[0] threads a
 // block, out[1] dynamic shared memory a block (bytes), out[2] the groups

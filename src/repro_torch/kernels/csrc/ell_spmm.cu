@@ -20,21 +20,36 @@
 // What bounds it on the card: bytes.  One add or compare per gathered value
 // and no reuse a register could exploit: it must read the R * W * 4 bytes of
 // the table, each distinct feature row that a live slot names (d * 4 or
-// d * 2 bytes, once), and write the R * d output; a feature row named by
-// many rows is read many times unless L2 holds it.
+// d * 2 bytes, once), and write the R * d output.  That bytes bound is not
+// reachable on a graph without locality (a uniform random one): there the
+// feature table is many times the 50 MB L2, so nearly every live slot's row
+// is a device-memory read of the 32-B sectors it spans, whatever the row
+// order.  The "gather floor" (the table, the sectors of every live slot's
+// row, the output; kernels/ell_spmm.py::gather_floor_bytes) is what a design
+// can approach, and random sector reads do not reach the card's streaming
+// rate either.
 //
-// The design aims only at those reads:
-//  * a group of G lanes (a power of two, 1..32, the smallest with
+// The design keeps feature rows in flight and spends nothing on FILL:
+//  * A group of G lanes (a power of two, 1..32, the smallest with
 //    G * V >= d, a warp at most) owns a row; lane l holds features
 //    [l * V, l * V + V) of each chunk of G * V features, so the group reads a
 //    feature row as consecutive V-element vectors (V * sizeof(T) = 16 bytes
-//    where d and the pointers allow it, else 8, 4 or 2);
-//  * the group reads the row's ids G at a time, one per lane, and broadcasts
-//    them with shuffles, so the table is read once per feature chunk and
-//    coalesced;
-//  * the accumulators stay in registers, V per lane; nothing is staged in
-//    shared memory and blocks share nothing;
-//  * a ragged R or d is masked here: any R, W, d >= 1.
+//    where d and the pointers allow it, else 8, 4 or 2).
+//  * The group reads the row's ids G at a time, one a lane; a ballot gives
+//    the live ones, and they are taken lowest j first, kInFlight at a time,
+//    each broadcast from its lane by a shuffle.  A FILL slot costs its
+//    4-byte read and one ballot bit.
+//  * The kInFlight feature-row loads of a batch are issued before any of
+//    them is folded into the accumulators, and folded in ascending j: the
+//    f32 arithmetic, and so the result, is that of folding one slot at a
+//    time in ascending j.  The accumulators stay in registers, V per lane;
+//    blocks share nothing.
+//  * Small blocks (kThreads): on an H100, 64-thread blocks took less time
+//    than 256; 3 loads in flight took about as long as 2 or 4 and less than
+//    8, and 4 left ptxas spilling bfloat16's 16-B variants; an L2
+//    evict-first read of the table and a streaming store of the output did
+//    not help (src/repro_torch/benchmarks/ell_spmm_ab.py measures each).
+//  * A ragged R or d is masked here: any R, W, d >= 1.
 //
 // Plain C interface, no PyTorch headers: launches on the given stream, does
 // not synchronise, allocates nothing and returns cudaGetLastError().
@@ -44,9 +59,12 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 64;    // threads a block
+constexpr int kInFlight = 3;    // feature-row loads a lane before a fold
 
 enum Op { kSum = 0, kMean = 1, kMax = 2 };
 
@@ -70,6 +88,90 @@ struct alignas(V * sizeof(T)) Pack {
   T x[V];
 };
 
+// Store V results as one Pack: float32 as they are; bfloat16 rounded (to
+// nearest even) in pairs, each pair one 32-bit word, so the Pack is built in
+// registers and never through memory.
+template <typename T, int V>
+__device__ __forceinline__ void store_pack(T* dst, const float (&y)[V]) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && V % 2 == 0) {
+    unsigned w[V / 2];
+#pragma unroll
+    for (int e = 0; e < V / 2; ++e) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(y[2 * e], y[2 * e + 1]);
+      w[e] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    if constexpr (V == 8)
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    else if constexpr (V == 4)
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    else
+      *reinterpret_cast<unsigned*>(dst) = w[0];
+  } else {
+    Pack<T, V> o;
+#pragma unroll
+    for (int e = 0; e < V; ++e) o.x[e] = from_f<T>(y[e]);
+    *reinterpret_cast<Pack<T, V>*>(dst) = o;
+  }
+}
+
+// Lanes of the calling thread's group of G, as a shuffle mask.
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if constexpr (G == 32) {
+    return 0xFFFFFFFFu;
+  } else {
+    const unsigned lane = threadIdx.x & 31u;
+    return ((1u << G) - 1u) << (lane & ~static_cast<unsigned>(G - 1));
+  }
+}
+
+// The group's ballot, as bits 0..G-1.
+template <int G>
+__device__ __forceinline__ unsigned group_ballot(unsigned mask, bool p) {
+  const unsigned b = __ballot_sync(mask, p);
+  if constexpr (G == 32) {
+    return b;
+  } else {
+    const unsigned base = (threadIdx.x & 31u) & ~static_cast<unsigned>(G - 1);
+    return (b >> base) & ((1u << G) - 1u);
+  }
+}
+
+// V features of a row, widened to float: bfloat16 in pairs, each pair one
+// 32-bit word of the load, so no element is picked out through memory.
+template <typename T, int V>
+__device__ __forceinline__ void widen(const Pack<T, V>& p, float (&x)[V]) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && V % 2 == 0) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p.x);
+#pragma unroll
+    for (int e = 0; e < V / 2; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      x[2 * e] = f.x;
+      x[2 * e + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) x[e] = to_f(p.x[e]);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void fold(float (&acc)[V], const Pack<T, V>& p,
+                                     int op) {
+  float xs[V];
+  widen<T, V>(p, xs);
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const float x = xs[e];
+    if (op == kMax) {
+      // NaN-propagating max (jnp.maximum): a NaN acc stays NaN
+      if (x > acc[e] || x != x) acc[e] = x;
+    } else {
+      acc[e] += x;
+    }
+  }
+}
+
 template <typename T, int G, int V>
 __global__ void __launch_bounds__(kThreads)
 ell_spmm_kernel(const int* __restrict__ ell, const T* __restrict__ feats,
@@ -78,67 +180,62 @@ ell_spmm_kernel(const int* __restrict__ ell, const T* __restrict__ feats,
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long row = gtid / G;
   // G divides kThreads, so a group never straddles a block and its lanes
-  // leave together: the shuffles below always see the whole group
+  // leave together: the shuffles and ballots below see the whole group
   if (row >= R) return;
-  const int lane = static_cast<int>(threadIdx.x) % G;
-  const int warp_lane = static_cast<int>(threadIdx.x) % 32;
-  const unsigned mask =
-      G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (warp_lane & ~(G - 1));
+  const int lane = static_cast<int>(threadIdx.x) & (G - 1);
+  const unsigned mask = group_mask<G>();
   const int* erow = ell + row * W;
-  T* orow = out + row * d;
-
   for (int fb = 0; fb < d; fb += G * V) {
     const int f = fb + lane * V;
-    const bool act = f < d;              // d % V == 0: a whole vector
+    const bool act = f < d;          // d % V == 0: a whole vector
     float acc[V];
 #pragma unroll
     for (int e = 0; e < V; ++e) acc[e] = op == kMax ? -INFINITY : 0.f;
     int count = 0;
     for (int j0 = 0; j0 < W; j0 += G) {
-      const int mine = j0 + lane < W ? erow[j0 + lane] : -1;
-      const int m = min(G, W - j0);
-      for (int jj = 0; jj < m; ++jj) {
-        const int idx = __shfl_sync(mask, mine, jj, G);
-        if (idx < 0) continue;           // FILL: the same for the group
-        ++count;
-        if (!act) continue;
-        const long long r = min(idx, n - 1);
-        const Pack<T, V> p =
-            *reinterpret_cast<const Pack<T, V>*>(feats + r * d + f);
+      const int mine = j0 + lane < W ? __ldg(erow + j0 + lane) : -1;
+      // the group's live slots of these G, lowest j first; uniform
+      unsigned live = group_ballot<G>(mask, mine >= 0);
+      count += __popc(live);
+      while (live != 0) {
+        int id[kInFlight];
 #pragma unroll
-        for (int e = 0; e < V; ++e) {
-          const float x = to_f(p.x[e]);
-          if (op == kMax) {
-            // NaN-propagating max (jnp.maximum): a NaN acc stays NaN
-            if (x > acc[e] || x != x) acc[e] = x;
-          } else {
-            acc[e] += x;
-          }
+        for (int u = 0; u < kInFlight; ++u) {
+          const int jj = live != 0 ? __ffs(live) - 1 : 0;
+          const int v = __shfl_sync(mask, mine, jj, G);
+          id[u] = live != 0 ? min(v, n - 1) : -1;
+          live &= live - 1;
         }
+        Pack<T, V> p[kInFlight];
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u)
+          if (act && id[u] >= 0)
+            p[u] = *reinterpret_cast<const Pack<T, V>*>(
+                feats + static_cast<long long>(id[u]) * d + f);
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u)
+          if (act && id[u] >= 0) fold<T, V>(acc, p[u], op);
       }
     }
-    if (!act) continue;
-    Pack<T, V> o;
+    if (act) {
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      float y = acc[e];
-      if (op == kMean) y = y / static_cast<float>(max(count, 1));
-      if (op == kMax && !isfinite(y)) y = 0.f;
-      o.x[e] = from_f<T>(y);
+      for (int e = 0; e < V; ++e) {
+        if (op == kMean) acc[e] = acc[e] / static_cast<float>(max(count, 1));
+        if (op == kMax && !isfinite(acc[e])) acc[e] = 0.f;
+      }
+      store_pack<T, V>(out + row * d + f, acc);
     }
-    *reinterpret_cast<Pack<T, V>*>(orow + f) = o;
   }
 }
 
 template <typename T, int G, int V>
 cudaError_t launch(const int* ell, const void* feats, void* out, int R, int W,
                    int n, int d, int op, cudaStream_t stream) {
-  const long long threads = static_cast<long long>(R) * G;
-  const unsigned blocks =
-      static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  ell_spmm_kernel<T, G, V><<<blocks, kThreads, 0, stream>>>(
-      ell, static_cast<const T*>(feats), static_cast<T*>(out), R, W, n, d,
-      op);
+  const long long rows_per_block = kThreads / G;
+  const long long blocks = (R + rows_per_block - 1) / rows_per_block;
+  ell_spmm_kernel<T, G, V><<<static_cast<unsigned>(blocks), kThreads, 0,
+                             stream>>>(
+      ell, static_cast<const T*>(feats), static_cast<T*>(out), R, W, n, d, op);
   return cudaGetLastError();
 }
 

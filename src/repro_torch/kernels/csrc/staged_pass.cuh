@@ -1,9 +1,10 @@
 // The staged pass: one kernel template behind the repair pass
-// (detect_recolor.cu, HOPS 1) and the staged designs of the distance-2 pass
-// (twohop_staged.cu, HOPS 2).  See the notes at the top of those files for
-// what each computes; this note is about how.
+// (detect_recolor.cu, HOPS 1), first fit's design "vec16" (coloring.cu's
+// coloring_firstfit, HOPS 1 with no candidate set: U null) and the staged
+// designs of the distance-2 pass (twohop_staged.cu, HOPS 2).  See the notes
+// at the top of those files for what each computes; this note is about how.
 //
-// The one-row-at-a-time kernels (pass_kernel in coloring.cu; the direct
+// The one-row-at-a-time kernels (pass_body in coloring.cu; the direct
 // two-hop design in twohop.cu) run a dependent chain per row — the row's
 // flags, its ids, (two hops: each neighbour's table row, in turn), the
 // colours — and fold each colour into NW register words with an unrolled
@@ -18,7 +19,9 @@
 //    candidate row of the group's next G (valid & (U | force)) and writes
 //    the unchanged outputs of a row that cannot work; a ballot leaves the
 //    group the rows that can.  A late round with a handful of working rows
-//    costs R / (T * G) such steps a group.
+//    costs R / (T * G) such steps a group.  With U null (first fit) every
+//    row works and nothing is read for the scan: no flag, no colour of the
+//    row's own (R may exceed n there, and row r is no vertex).
 //  * Issue every copy before using any.  HOPS 1 copies the row's W ids
 //    (the tile is one contiguous span; with row_ids one row of the full
 //    table); HOPS 2 first packs the row's live ids into shared memory with
@@ -75,14 +78,15 @@ struct Args {
   const int* ell_all;           // the full (>= n, W) table (row_ids; hop 2)
   const int* colors;            // (n,)
   const int* pri;               // (n,), read only by the defect test
-  const uint8_t* U;             // (R,)
+  const uint8_t* U;             // (R,), or null: every row works (first
+                                //   fit; force / valid / row_ids null too)
   const int* forb0;             // (R, nW) or null (HOPS 1)
   const uint8_t* extra_defect;  // (R,) or null (HOPS 1)
   const uint8_t* force;         // (R,) or null
   const uint8_t* valid;         // (R,) or null
   const int* row_ids;           // (R,) or null
   int* out_c;                   // (R,)
-  uint8_t* out_rec;             // (R,)
+  uint8_t* out_rec;             // (R,), or null with U null
   uint8_t* out_ovf;             // (R,)
   int R, W, n, C, nW, row_start, window;
   bool detect;                  // false: round 0, no defect test
@@ -194,7 +198,10 @@ pass(const Args a) {
       if (gid + k0 * T >= a.R) return false;       // uniform in the group
       const long long r = gid + (k0 + lane) * T;
       bool w = false;
-      if (r < a.R) {
+      if (a.U == nullptr) {
+        w = r < a.R;                               // first fit: every row
+        s_bits = 1;
+      } else if (r < a.R) {
         const long long v = a.row_ids != nullptr
                                 ? min(max(a.row_ids[r], 0), n - 1)
                                 : a.row_start + r;
@@ -349,7 +356,7 @@ pass(const Args a) {
     const bool work = forced || (in_u && (a.detect ? defect : true));
     if (lane == 0) {
       a.out_c[row] = work ? mex : c_r;
-      a.out_rec[row] = work ? 1 : 0;
+      if (a.out_rec != nullptr) a.out_rec[row] = work ? 1 : 0;
       a.out_ovf[row] = (ovf && work) ? 1 : 0;
     }
   };

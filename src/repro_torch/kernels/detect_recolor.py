@@ -34,8 +34,10 @@ lane, a priority only where a colour equals the row's, and keep the
 forbidden words (``window`` of them at a time) in shared memory.  Every
 other shape — rows of at most ``DIRECT_MAX_W`` ids (the meshes) and rows
 that are not whole 16-B chunks — takes the design ``"direct"``:
-``csrc/coloring.cu``'s one-row-at-a-time ``pass_kernel`` (firstfit's, with
-the defect test), which took less device time at the meshes on an H100.
+``csrc/coloring.cu``'s one-row-at-a-time ``pass_body`` (firstfit's
+``"direct"``, with the defect test), which took less device time at the
+meshes on an H100.  The rule (``design``) is first fit's, in
+``kernels/firstfit.py``: the two kernels pick their designs alike.
 The kernel writes ``newc`` and never ``colors``: every row of a launch sees
 the pre-launch colours whatever the block order; the caller commits.
 
@@ -52,31 +54,14 @@ import torch
 
 from repro_torch.core import bitset
 from repro_torch.kernels import _build
-from repro_torch.kernels.firstfit import (DIRECT_MAX_W, check_common,
-                                          check_launch, check_row_ids,
-                                          check_tensor, pick_lanes, ptr)
+# the shape rule (``design``, ``default_lanes``) and the design ids are
+# first fit's: the two wrappers pick their designs alike
+from repro_torch.kernels.firstfit import (  # noqa: F401
+    DESIGNS, DIRECT_MAX_W, check_common, check_launch, check_row_ids,
+    check_tensor, count_launch, default_lanes, design, ptr)
 # the plain version, as a module attribute: importing kernels.ref
 # first (it imports core, which imports these wrappers) must not cycle
 from repro_torch.kernels import ref
-
-DESIGNS = ("vec16", "direct")   # the C entry point's design ids
-
-
-def design(W: int, aligned: bool = True) -> str:
-    """The kernel for a call on the card: the staged pass with 16-B copies
-    (``"vec16"``) for rows of more than ``DIRECT_MAX_W`` ids that are whole
-    16-B chunks of a 16-B aligned table (``aligned``), ``"direct"`` for
-    every other shape."""
-    if W > DIRECT_MAX_W and W % 4 == 0 and aligned:
-        return "vec16"
-    return "direct"
-
-
-def default_lanes(W: int, aligned: bool = True) -> int:
-    """Lanes per row: 8 for the staged pass — more rows in flight beat
-    wider rows (measured on an H100 at W 44 and 512); the direct design's
-    (one slot a lane, a warp at most) elsewhere."""
-    return 8 if design(W, aligned) == "vec16" else pick_lanes(W)
 
 
 def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
@@ -140,9 +125,7 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
             ptr(newc), ptr(rec), ptr(ovf), R, W, n, int(C), row_start, lanes,
             window, DESIGNS.index(route), stream)
     check_launch(f"detect_recolor ({route})", err)
-    detect_recolor.launches += 1
-    setattr(detect_recolor, f"launches_{route}",
-            getattr(detect_recolor, f"launches_{route}") + 1)
+    count_launch(detect_recolor, route)
     return newc, rec, ovf
 
 

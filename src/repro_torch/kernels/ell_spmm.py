@@ -18,9 +18,14 @@ fallback.  Any R, W, d >= 1 runs.
 
 Bound on the card: bytes — the R * W * 4 bytes of the table, each distinct
 feature row a live slot names, once, and the R * d output; one add or
-compare per gathered value.  The design aims at the reads: ``lanes`` lanes
-own a row and read each feature row as consecutive vectors of ``vec``
-elements (see the note in ``csrc/ell_spmm.cu``).
+compare per gathered value.  On a graph without locality the feature rows
+miss L2 whatever the order, so ``gather_floor_bytes`` (the table, the 32-B
+sectors of every live slot's row, the output) is the bytes a call really
+moves.  The design keeps feature rows in flight: ``lanes`` lanes own a row
+and read each feature row as consecutive vectors of ``vec`` elements; the
+row's live ids, found by a ballot, are gathered four at a time a lane
+before any is folded, in ascending j (see the note in
+``csrc/ell_spmm.cu``).
 
 ``ell_spmm`` launches the kernel for CUDA tensors and takes the plain
 version for CPU tensors — for those only: on a CUDA tensor it launches or
@@ -40,6 +45,24 @@ from repro_torch.kernels import ref
 OPS = {"sum": 0, "mean": 1, "max": 2}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LANES = (1, 2, 4, 8, 16, 32)             # lanes per row compiled in
+SECTOR = 32                              # bytes of an L2 / DRAM sector
+
+
+def gather_floor_bytes(ell: torch.Tensor, n: int, d: int,
+                       elem_size: int) -> int:
+    """Bytes an aggregation moves when no feature row is found in L2: the
+    table (``R*W*4``), every 32-byte sector that each live slot's feature
+    row spans (row ``min(id, n-1)`` of a 32-B aligned ``(n, d)`` table of
+    ``elem_size``-byte values; a row that straddles a sector boundary costs
+    the sectors it touches), and the ``(R, d)`` output.  Counted on the
+    slots of this ``ell``, on its device."""
+    R, W = ell.shape
+    row_bytes = d * elem_size
+    ids = ell[ell >= 0].clamp(max=n - 1).long()
+    first = ids * row_bytes // SECTOR
+    last = (ids * row_bytes + row_bytes - 1) // SECTOR
+    sectors = int((last - first + 1).sum())
+    return R * W * 4 + sectors * SECTOR + R * d * elem_size
 
 
 def pick_vec(d: int, feats: torch.Tensor, out: torch.Tensor) -> int:

@@ -4,22 +4,34 @@ Replaces the Pallas kernel ``src/repro/kernels/firstfit.py::firstfit`` (body
 ``_firstfit_kernel``): per ELL row, gather the neighbours' colours, OR them
 into a packed forbidden bitset (tail bits >= C pre-forbidden) and return the
 smallest free colour ``mex`` and the all-forbidden flag ``ovf`` (``mex=0`` on
-an all-ones row).  The kernel is ``coloring_firstfit`` in
+an all-ones row).  The entry is ``coloring_firstfit`` in
 ``csrc/coloring.cu``; the plain PyTorch version of the same function is
 ``firstfit_ref`` (``kernels/ref.py``).
 
 Bound on the card: bytes.  It must read the ``R*W*4`` bytes of the ELL tile
-and one 4-byte colour per live slot (at most the whole ``n*4``-byte vector
-once), optionally the ``R*nW*4`` bytes of ``forb0``, and write ``R*5`` bytes;
-it does a handful of integer operations per slot and no floating point.  The
-design therefore aims only at the reads: ``lanes`` lanes share a row and read
-consecutive slots of it, the forbidden words stay in registers, and the
-colour vector is read through L2 with no size limit (see the source note in
-``csrc/coloring.cu``).
+and one 4-byte colour per distinct live id (at most the whole ``n*4``-byte
+vector once), optionally the ``R*nW*4`` bytes of ``forb0``, and write ``R*5``
+bytes; it does a handful of integer operations per slot and no floating
+point.  Two designs, picked by shape (``design``; the rule is shared with
+``detect_recolor``), each launch counted in ``launches`` and in
+``launches_<design>``:
+
+* ``"vec16"`` for rows of more than ``DIRECT_MAX_W`` ids that are whole 16-B
+  chunks of a 16-B aligned tile (the RMATs' W 44 and 512): the staged pass
+  of ``csrc/staged_pass.cuh``, the repair pass's kernel with no candidate
+  set (every row works), no defect test and no ``recolored`` output.
+  Persistent groups of ``lanes`` lanes (8 by default) copy each row's W ids
+  into a shared-memory stage with 16-B ``cp.async`` copies (L2 evict-first)
+  while the previous row's colours are gathered, eight loads a lane at a
+  time, into forbidden words in shared memory.
+* ``"direct"`` everywhere else (the meshes' W 8 and 14, and rows that are
+  not whole 16-B chunks): ``pass_body`` in ``csrc/coloring.cu``, one row a
+  group of ``lanes`` lanes (one slot a lane), the forbidden words in
+  registers, where a row is a few loads and the staged pass's fixed per-row
+  work costs more than it saves.
 
 ``firstfit`` launches the kernel for CUDA tensors and takes the plain version
 for CPU tensors — for those only: on a CUDA tensor it launches or raises.
-``firstfit.launches`` counts the launches.
 """
 from __future__ import annotations
 
@@ -27,19 +39,42 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import bitset
 from repro_torch.kernels import _build
-# the plain version, as a module attribute: importing kernels.ref
-# first (it imports core, which imports these wrappers) must not cycle
-from repro_torch.kernels import ref
 
 LANES = (1, 2, 4, 8, 16, 32)     # lanes per row compiled into the library
 WINDOWS = (2, 8, 16)             # register-resident forbidden words
-# Rows of at most this many ids take the one-row-at-a-time kernels in
-# detect_recolor and twohop_detect_recolor too (design "direct"): at the
-# meshes' W 8 and 14 they took less device time on an H100 than the staged
-# pass, which took less at W 26, 44 and 512.
+# Rows of at most this many ids take the one-row-at-a-time kernels of
+# firstfit, detect_recolor and twohop_detect_recolor (design "direct"): at
+# the meshes' W 8 and 14 they took less device time on an H100 than the
+# staged pass, which took less at W 26, 44 and 512.
 DIRECT_MAX_W = 16
+DESIGNS = ("vec16", "direct")   # the C entry points' design ids (B1, B2)
+
+# core.bitset and the plain versions (kernels.ref) are imported where they
+# are used: both import the core package, whose engines import the wrappers,
+# which import this module's names, so it imports nothing of core itself
+
+
+def n_words(C: int) -> int:
+    from repro_torch.core import bitset
+    return bitset.n_words(C)
+
+
+def design(W: int, aligned: bool = True) -> str:
+    """The kernel of a ``firstfit`` or ``detect_recolor`` call on the card:
+    the staged pass with 16-B copies (``"vec16"``) for rows of more than
+    ``DIRECT_MAX_W`` ids that are whole 16-B chunks of a 16-B aligned table
+    (``aligned``), ``"direct"`` for every other shape."""
+    if W > DIRECT_MAX_W and W % 4 == 0 and aligned:
+        return "vec16"
+    return "direct"
+
+
+def default_lanes(W: int, aligned: bool = True) -> int:
+    """Lanes per row: 8 for the staged pass — more rows in flight beat
+    wider rows (measured on an H100 at W 44 and 512); the direct design's
+    (one slot a lane, a warp at most) elsewhere."""
+    return 8 if design(W, aligned) == "vec16" else pick_lanes(W)
 
 
 def pick_lanes(W: int) -> int:
@@ -51,7 +86,7 @@ def pick_lanes(W: int) -> int:
 def pick_window(C: int) -> int:
     """Smallest compiled window that holds all ``n_words(C)`` words; the
     widest one (swept repeatedly by the kernel) for larger caps."""
-    nW = bitset.n_words(C)
+    nW = n_words(C)
     return next((w for w in WINDOWS if w >= nW), WINDOWS[-1])
 
 
@@ -101,8 +136,7 @@ def check_common(ell, colors, C, forb0, lanes, window):
     n = colors.shape[0]
     check_tensor("colors", colors, torch.int32, (n,), device)
     if forb0 is not None:
-        check_tensor("forb0", forb0, torch.int32, (R, bitset.n_words(C)),
-                     device)
+        check_tensor("forb0", forb0, torch.int32, (R, n_words(C)), device)
     lanes = pick_lanes(W) if lanes is None else int(lanes)
     window = pick_window(C) if window is None else int(window)
     if lanes not in LANES:
@@ -132,20 +166,39 @@ def check_launch(name: str, err: int) -> None:
                            f"(cudaError {err})")
 
 
+def count_launch(wrapper, route: str) -> None:
+    """One launch of ``wrapper``'s kernel, on the design ``route``."""
+    wrapper.launches += 1
+    setattr(wrapper, f"launches_{route}",
+            getattr(wrapper, f"launches_{route}") + 1)
+
+
 def firstfit(ell, colors, C: int, forb0=None, *, lanes: Optional[int] = None,
-             window: Optional[int] = None):
+             window: Optional[int] = None, route: Optional[str] = None):
     """First-fit colours for every ELL row.
 
     ell (R, W) int32 (FILL = -1), colors (n,) int32, optional forb0
     (R, n_words(C)) int32 OR-ed into the forbidden words.  Returns
     (mex (R,) int32, overflow (R,) bool).  ``lanes`` / ``window`` override
-    the kernel's launch shape (tuning and tests; the result does not depend
-    on them).
+    the kernel's launch shape and ``route`` its design (``design``'s by
+    default; tuning, tests and same-run comparisons: the result depends on
+    none of them).
     """
+    lanes_given = lanes is not None
     R, W, n, lanes, window = check_common(ell, colors, C, forb0, lanes,
                                           window)
+    if route is not None and route not in DESIGNS:
+        raise ValueError(f"route must be one of {DESIGNS} (got {route!r})")
+    aligned = ell.data_ptr() % 16 == 0
+    if route == "vec16" and (W % 4 or not aligned):
+        raise ValueError(f"the vec16 design needs W % 4 == 0 and a 16-B "
+                         f"aligned ell (got W={W})")
     if ell.device.type != "cuda":
+        from repro_torch.kernels import ref
         return ref.firstfit_ref(ell, colors, C, forb0=forb0)
+    route = design(W, aligned) if route is None else route
+    if not lanes_given and route == "vec16":
+        lanes = default_lanes(W, aligned)
     lib = _build.library()
     mex = torch.empty((R,), dtype=torch.int32, device=ell.device)
     ovf = torch.empty((R,), dtype=torch.bool, device=ell.device)
@@ -153,10 +206,12 @@ def firstfit(ell, colors, C: int, forb0=None, *, lanes: Optional[int] = None,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.coloring_firstfit(
             ptr(ell), ptr(colors), ptr(forb0), ptr(mex), ptr(ovf),
-            R, W, n, int(C), lanes, window, stream)
-    check_launch("firstfit", err)
-    firstfit.launches += 1
+            R, W, n, int(C), lanes, window, DESIGNS.index(route), stream)
+    check_launch(f"firstfit ({route})", err)
+    count_launch(firstfit, route)
     return mex, ovf
 
 
 firstfit.launches = 0
+firstfit.launches_vec16 = 0
+firstfit.launches_direct = 0

@@ -22,14 +22,15 @@ from __future__ import annotations
 
 import torch
 
+# the wrappers' modules, their names read at call time: the wrappers import
+# core (through kernels.ref), whose engines import this module, so any of
+# them may be the first module a program imports
+from repro_torch.kernels import detect_recolor as _dr_mod
+from repro_torch.kernels import ell_spmm as _spmm_mod
+from repro_torch.kernels import firstfit as _ff_mod
+from repro_torch.kernels import flash_attention as _fa_mod
 from repro_torch.kernels import ref
-from repro_torch.kernels.detect_recolor import detect_recolor as _dr_cuda
-from repro_torch.kernels.ell_spmm import check_spmm
-from repro_torch.kernels.ell_spmm import ell_spmm as _spmm_cuda
-from repro_torch.kernels.firstfit import firstfit as _firstfit_cuda
-from repro_torch.kernels.flash_attention import check_attention
-from repro_torch.kernels.flash_attention import flash_attention as _fa_cuda
-from repro_torch.kernels.twohop import twohop_detect_recolor as _twohop_cuda
+from repro_torch.kernels import twohop as _twohop_mod
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.resilience import faults
 
@@ -73,7 +74,7 @@ def firstfit(ell, colors, C: int = 64, backend: str = "auto",
     _dispatched("firstfit", b)
     if b == "torch":
         return ref.firstfit_ref(ell, colors, C, impl=impl, forb0=forb0)
-    return _firstfit_cuda(ell, colors, C, forb0, **kw)
+    return _ff_mod.firstfit(ell, colors, C, forb0, **kw)
 
 
 def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int = 64,
@@ -87,8 +88,9 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int = 64,
             ell, colors, pri, row_start, U_rows, C, impl=impl, forb0=forb0,
             extra_defect=extra_defect, force=force, valid=valid,
             row_ids=row_ids)
-    return _dr_cuda(ell, colors, pri, U_rows, row_start, C, forb0,
-                    extra_defect, force, valid, row_ids=row_ids, **kw)
+    return _dr_mod.detect_recolor(ell, colors, pri, U_rows, row_start, C,
+                                  forb0, extra_defect, force, valid,
+                                  row_ids=row_ids, **kw)
 
 
 def twohop(ell_rows, ell_all, colors, pri, U_rows, row_start: int,
@@ -106,9 +108,9 @@ def twohop(ell_rows, ell_all, colors, pri, U_rows, row_start: int,
         return ref.twohop_ref(ell_rows, ell_all, colors, pri, row_start,
                               U_rows, C, impl=impl, force=force, valid=valid,
                               row_ids=row_ids, detect=detect)
-    return _twohop_cuda(ell_rows, ell_all, colors, pri, U_rows, row_start, C,
-                        page_rows, force=force, valid=valid, row_ids=row_ids,
-                        detect=detect, **kw)
+    return _twohop_mod.twohop_detect_recolor(
+        ell_rows, ell_all, colors, pri, U_rows, row_start, C, page_rows,
+        force=force, valid=valid, row_ids=row_ids, detect=detect, **kw)
 
 
 def ell_aggregate(ell, feats, op: str = "sum", backend: str = "auto", **kw):
@@ -116,20 +118,20 @@ def ell_aggregate(ell, feats, op: str = "sum", backend: str = "auto", **kw):
     kernel reads the features from device memory: there is no residency
     predicate and no shape fallback (the reference's VMEM budget and its
     ``reason=vmem`` fallback do not exist here)."""
-    check_spmm(ell, feats, op)
+    _spmm_mod.check_spmm(ell, feats, op)
     b = _forced_fallback("ell_aggregate", _resolve(backend, ell))
     _dispatched("ell_aggregate", b)
     if b == "torch":
         return ref.ell_spmm_ref(ell, feats, op)
-    return _spmm_cuda(ell, feats, op, **kw)
+    return _spmm_mod.ell_spmm(ell, feats, op, **kw)
 
 
 def attention(q, k, v, *, causal: bool = True, backend: str = "auto"):
     """Forward attention (GQA, causal with offset Lk - Lq); ``causal`` with
     Lk < Lq raises on every backend."""
-    check_attention(q, k, v, causal)
+    _fa_mod.check_attention(q, k, v, causal)
     b = _forced_fallback("attention", _resolve(backend, q))
     _dispatched("attention", b)
     if b == "torch":
         return ref.flash_attention_ref(q, k, v, causal=causal)
-    return _fa_cuda(q, k, v, causal=causal)
+    return _fa_mod.flash_attention(q, k, v, causal=causal)

@@ -21,7 +21,8 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.ell_spmm import ell_spmm as j_ell_spmm
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.ell_spmm import ell_spmm, pick_lanes, pick_vec
+from repro_torch.kernels.ell_spmm import (ell_spmm, gather_floor_bytes,
+                                          pick_lanes, pick_vec)
 
 torch.set_num_threads(1)
 
@@ -138,6 +139,22 @@ def test_launch_shape_choice():
     assert pick_vec(100, off, f32) == 1
 
 
+@pytest.mark.parametrize("d,elem,want", [
+    # f32, d 3: 12-B rows; row 2 ([24, 36)) straddles sectors 0 and 1
+    (3, 4, 36 + 7 * 32 + 3 * 3 * 4),
+    # bf16, d 12: 24-B rows; rows 1 ([24, 48)) and 2 ([48, 72)) straddle
+    (12, 2, 36 + 8 * 32 + 3 * 12 * 2)])
+def test_gather_floor_bytes_hand_counted(d, elem, want):
+    """The gather floor of a 3 x 3 table over n = 4 feature rows: the
+    table's 36 bytes, 32 bytes for each sector a live slot's row touches
+    (FILL slots none; id 7 >= n reads row 3), and the (3, d) output."""
+    ell = torch.tensor([[0, 2, -1], [-1, -1, -1], [7, 2, 1]],
+                       dtype=torch.int32)
+    # sectors per live slot: f32 d 3: 0 -> 1, 2 -> 2, 7 (row 3) -> 1,
+    # 2 -> 2, 1 -> 1 (7); bf16 d 12: 1, 2, 1, 2, 2 (8)
+    assert gather_floor_bytes(ell, 4, d, elem) == want
+
+
 def test_refusals():
     ell = torch.zeros((4, 3), dtype=torch.int32)
     feats = torch.zeros((5, 8))
@@ -170,3 +187,33 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype):
             np.testing.assert_allclose(got.float().cpu().numpy(),
                                        want.float().cpu().numpy(),
                                        **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1, 3, 100, 128, 129, 300])
+def test_cuda_kernel_shape_edges(cuda_device, d, dtype):
+    """The kernel at its edges, within the stated tolerances: every lane
+    count and vector width the wrapper picks for d (1 and 3: one element a
+    load; 129: a second feature chunk; 300: three), rows of 1 id and around
+    a warp's 32 (31, 32, 33; a second ballot of ids) and RMAT-ER's 44;
+    all-FILL rows, ids >= n (row n - 1), and +-inf / NaN features under max
+    (a non-finite result is 0)."""
+    for W in (1, 31, 32, 33, 44):
+        ell, feats = _case(d * 100 + W, 300, W, 200, d, fill=0.5, hi=205)
+        ell[::7] = -1
+        feats[3, 0], feats[4, 0], feats[5, -1] = np.inf, -np.inf, np.nan
+        te = torch.from_numpy(ell).to(cuda_device)
+        tf = torch.from_numpy(feats).to(cuda_device).to(getattr(torch, dtype))
+        for op in OPS:
+            before = ell_spmm.launches
+            got = ops.ell_aggregate(te, tf, op)
+            assert ell_spmm.launches == before + 1
+            want = ref.ell_spmm_ref(te, tf, op)
+            got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+            np.testing.assert_allclose(got, want, err_msg=f"W{W} {op}",
+                                       equal_nan=True, **_tol(dtype))
+            np.testing.assert_array_equal(got[::7], 0.0)
+            if op == "max":
+                assert np.isfinite(got).all()
+

@@ -79,8 +79,35 @@ def test_every_module_is_found():
               "repro_torch.configs.qwen3_1_7b", "repro_torch.serving",
               "repro_torch.serving.serve_loop", "repro_torch.launch",
               "repro_torch.launch.serve", "repro_torch.benchmarks",
-              "repro_torch.benchmarks.staged_ablation"):
+              "repro_torch.benchmarks.staged_ablation",
+              "repro_torch.benchmarks.ell_spmm_ab"):
         assert m in mods, m
+
+
+@pytest.mark.parametrize("first", [
+    "repro_torch.kernels.firstfit", "repro_torch.kernels.detect_recolor",
+    "repro_torch.kernels.twohop", "repro_torch.kernels.ell_spmm",
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.ops",
+    "repro_torch.kernels.ref", "repro_torch.core.coloring"])
+def test_any_kernel_module_imports_first(first):
+    """A program may import any of the wrappers first: the wrappers, the
+    plain versions and the engines import one another, and no order may
+    find a module half made (each wrapper's names are read at call time by
+    ``ops``, and ``firstfit`` imports nothing of core at import time)."""
+    code = (f"import {first}\n"
+            "from repro_torch.kernels import ops\n"
+            "import torch\n"
+            "ell = torch.tensor([[1, -1], [0, -1]], dtype=torch.int32)\n"
+            "c = torch.tensor([0, 1], dtype=torch.int32)\n"
+            "mex, ovf = ops.firstfit(ell, c, 32)\n"
+            "assert mex.tolist() == [0, 1] and not ovf.any()\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("REPRO_FAULTS", None)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
 
 
 def test_fresh_interpreter_imports_without_jax_or_reference():

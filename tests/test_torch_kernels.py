@@ -26,6 +26,7 @@ from repro.kernels.firstfit import firstfit as j_firstfit
 from repro_torch.core import bitset as tb
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import detect_recolor as dr_mod
+from repro_torch.kernels import firstfit as ff_mod
 from repro_torch.kernels.detect_recolor import detect_recolor
 from repro_torch.kernels.firstfit import (firstfit, pick_lanes, pick_window)
 from repro_torch.obs import metrics as obs_metrics
@@ -276,19 +277,27 @@ def test_wrappers_check_their_arguments():
         [2, 2, 8, 8, 16, 16, 16]
 
 
-@pytest.mark.parametrize("W,aligned,want", [
-    (1, True, "direct"), (3, True, "direct"), (4, True, "direct"),
-    (8, True, "direct"), (14, True, "direct"), (16, True, "direct"),
-    (17, True, "direct"), (48, False, "direct"),
-    (20, True, "vec16"), (44, True, "vec16"), (45, True, "direct"),
-    (512, True, "vec16"), (512, False, "direct"), (600, True, "vec16")])
-def test_detect_recolor_design_picker(W, aligned, want):
+_PICKS = [(1, True, "direct"), (3, True, "direct"), (4, True, "direct"),
+          (8, True, "direct"), (14, True, "direct"), (16, True, "direct"),
+          (17, True, "direct"), (48, False, "direct"),
+          (20, True, "vec16"), (44, True, "vec16"), (45, True, "direct"),
+          (512, True, "vec16"), (512, False, "direct"), (600, True, "vec16")]
+
+
+# both wrappers' pickers; detect_recolor's cases keep their earlier ids
+@pytest.mark.parametrize("mod,W,aligned,want", [
+    pytest.param(m, *p, id=("" if m is dr_mod else "firstfit-")
+                 + "-".join(map(str, p)))
+    for m in (dr_mod, ff_mod) for p in _PICKS])
+def test_detect_recolor_design_picker(mod, W, aligned, want):
     """Rows of more than DIRECT_MAX_W ids that are whole 16-B chunks of a
     16-B aligned table take the staged pass (16-B copies); every other
-    shape the direct design."""
-    assert dr_mod.DIRECT_MAX_W == 16
-    assert dr_mod.design(W, aligned) == want
-    assert want in dr_mod.DESIGNS
+    shape the direct design.  One rule, one home (``kernels/firstfit.py``):
+    first fit and detect_recolor pick alike."""
+    assert mod.DIRECT_MAX_W == 16
+    assert mod.design(W, aligned) == want
+    assert want in mod.DESIGNS
+    assert mod.design is ff_mod.design and mod.DESIGNS == ff_mod.DESIGNS
 
 
 def test_detect_recolor_default_lanes_and_knobs():
@@ -317,6 +326,29 @@ def test_detect_recolor_default_lanes_and_knobs():
     before = counts()
     detect_recolor(ell, colors, pri, U, 0, 40)
     assert counts() == before                   # CPU: never launches
+
+
+def test_firstfit_design_knobs():
+    """First fit's ``route`` override is checked (a name of ``DESIGNS``, and
+    ``vec16`` only on whole 16-B rows), and on a CPU tensor it, like
+    ``lanes`` / ``window``, leaves the result alone and launches nothing."""
+    assert [ff_mod.default_lanes(w) for w in (8, 14, 16, 17, 44, 45, 512)] \
+        == [8, 16, 16, 32, 8, 32, 8]
+    rng = np.random.default_rng(4)
+    ell = _t(_rand_ell(rng, 40, 44, 90))
+    colors = _t(rng.integers(-1, 20, size=(30,)).astype(np.int32))   # R > n
+    want = [w.numpy() for w in ref.firstfit_ref(ell, colors, 40)]
+    counts = lambda: [firstfit.launches] + [
+        getattr(firstfit, f"launches_{d}") for d in ff_mod.DESIGNS]
+    before = counts()
+    for kw in ({}, dict(route="vec16"), dict(route="direct", lanes=4),
+               dict(route="vec16", lanes=32, window=16)):
+        _eq(firstfit(ell, colors, 40, **kw), want, ("mex", "ovf"))
+    assert counts() == before                   # CPU: never launches
+    with pytest.raises(ValueError, match="route must be one of"):
+        firstfit(ell, colors, 40, route="vec4")
+    with pytest.raises(ValueError, match="vec16 design needs"):
+        firstfit(ell[:, :42].contiguous(), colors, 40, route="vec16")
 
 
 # ---- on a GPU: the kernels against the plain versions ---------------------
@@ -396,3 +428,58 @@ def test_cuda_detect_recolor_designs_match_plain(cuda_device, W, want):
         want = ref.detect_recolor_ref(e, colors, pri, 0, U, C, **kw)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+def _ff_design_case(rng, d, W, C, R=1500, n=3000):
+    ell = _t(_rand_ell(rng, R, W, n, 0.5)).to(d)
+    colors = _t(rng.integers(-1, min(C + 8, 560), size=n).astype(np.int32))
+    if C == 4:
+        colors = _t(rng.integers(0, 4, size=n).astype(np.int32))
+    f0 = tb.pack_dense(_t((rng.random((R, C)) < 0.2).astype(np.uint8)).to(d),
+                       C)
+    return ell, colors.to(d), f0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [16, 17, 44, 45, 512])
+@pytest.mark.parametrize("C", [4, 33, 256])
+def test_cuda_firstfit_designs_match_plain(cuda_device, W, C):
+    """Each design of first fit at its edges, bit-equal to the plain version:
+    the direct design at W 16, 17 and 45 (not whole 16-B chunks), the
+    staged pass at W 44 and 512 (rows staged in two batches at 8 lanes);
+    caps 4 (saturated rows: ovf and mex 0), 33 (a tail word) and 256;
+    forb0 on and off; more rows than colours (R > n); an unaligned view of
+    the table takes the direct design."""
+    rng = np.random.default_rng(W * 1000 + C)
+    d = cuda_device
+    ell, colors, f0 = _ff_design_case(rng, d, W, C)
+    route = ff_mod.design(W)
+    for kw in ({}, dict(forb0=f0)):
+        before = getattr(firstfit, f"launches_{route}")
+        got = ops.firstfit(ell, colors, C, **kw)
+        assert getattr(firstfit, f"launches_{route}") == before + 1
+        want = ref.firstfit_ref(ell, colors, C, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        if C == 4:
+            assert bool(got[1].any())
+    short = colors[:ell.shape[0] // 3].contiguous()       # R > n
+    assert all(torch.equal(g, w) for g, w in zip(
+        ops.firstfit(ell, short, C), ref.firstfit_ref(ell, short, C)))
+    if W % 4 == 0:
+        # a view of the table one slot in: never 16-B aligned
+        view = _t(_rand_ell(rng, 1501, W, 3000, 0.5)).to(d).view(-1)[1:]
+        view = view[:1500 * W].view(1500, W)
+        assert ff_mod.design(W, view.data_ptr() % 16 == 0) == "direct"
+        before = firstfit.launches_direct
+        got = ops.firstfit(view, colors, C, forb0=f0)
+        assert firstfit.launches_direct == before + 1
+        want = ref.firstfit_ref(view, colors, C, forb0=f0)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        for lanes in (4, 8, 16, 32):
+            for window in (2, 8, 16):
+                got = firstfit(ell, colors, C, f0, lanes=lanes, window=window,
+                               route="vec16" if W > 16 else "direct")
+                want = ref.firstfit_ref(ell, colors, C, forb0=f0)
+                assert all(torch.equal(g, w) for g, w in zip(got, want))
+
