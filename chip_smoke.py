@@ -22,25 +22,37 @@ ends the run with a non-zero exit code:
               too, each call checked to have launched the design its dtype
               and head dim name; B1, B2 and B3 at the tile edges of their
               staged designs (phase_kernels_staged); B4 at its edges (d
-              1-300, W 1-44, max over non-finite features)
-  4. golden   paper_suite("tiny") x seeds 0-2 at distance 1 and 2, and two
-              bipartite graphs (mode="partial"), through repro_torch.api.color
-              on the card against tests/torch_golden.json (made by the JAX
-              reference package)
+              1-300, W 1-44, max over non-finite features); B2's
+              detect-only form on both designs and CAT's phase A route
+              (phase_kernels_detect_only)
+  4. golden   paper_suite("tiny") x seeds 0-2 at distance 1 and 2 and with
+              algorithm cat / gm / jp, and two bipartite graphs
+              (mode="partial"), through repro_torch.api.color on the card
+              against tests/torch_golden.json (made by the JAX reference
+              package)
   5. main     repro_torch.api.color(g), default spec, on the paper's graph
               classes at real size; launch counters zeroed before, read
               after, launches per design logged per graph (B1: vec16 on the
               RMATs, direct on the meshes); e2e_cold_ms from the first
               call, prepare_ms / solve_ms and their total e2e_traced_ms
               from a second, traced call
+  5f. table1  on each graph of 5, while it is in memory: one traced
+              api.color(g, algorithm=...) call each of CAT (every graph),
+              GM (meshes, RMAT-ER) and JP (every graph), counts zeroed
+              before each call and read after and checked exactly (CAT: B1
+              n_chunks, B2 n_chunks a round, B2 detect-only 1 + rounds; GM:
+              B1 n_chunks, detect-only 1; JP: nothing, no dispatch); after
+              5c, the paper's Table 1: RSOC (5), CAT (5f), rsoc_compact (5c)
+              solve_ms, rounds, gather passes, conflicts, colours
   5c. d2      api.color(g, distance=2) on the meshes and RMAT-ER,
               mode="partial" on a 2^20 x 2^20 Jacobian pattern,
               algorithm="rsoc_compact" on the meshes and RMAT-B; counters
               zeroed before, read after; properness by the host oracles (in
               worker processes) or, for RMAT-ER, on the card
-  5b. plain   the problems of 5 and the distance-2 and rsoc_compact meshes
-              of 5c through the plain versions on the card (kernel.fallback
-              fault site), results equal field by field
+  5b. plain   the problems of 5, CAT's of 5f (meshes, RMAT-ER) and the
+              distance-2 and rsoc_compact meshes of 5c through the plain
+              versions on the card (kernel.fallback fault site), results
+              equal field by field
   5d. serve   ServeEngine on qwen3-1.7b at full width (random weights, seed
               0): 8 requests, prompts of 128-2048 tokens, 32 new tokens
               each; counters zeroed before, read after (one attention launch
@@ -64,7 +76,9 @@ ends the run with a non-zero exit code:
               ratio to SDPA; one compacted repair pass per
               compacted path (detect_recolor with row_ids, forb0 and
               extra_defect on RMAT-B; twohop with row_ids on RMAT-ER),
-              kernels against plain versions on the same inputs
+              kernels against plain versions on the same inputs; B2's
+              detect-only form at the full width CAT's detect pass
+              launches it, beside the full B2 pass at that shape
 
 The last line of the standard output is the result object; the line before
 it the card's name and power limit; before that one JSON object per kernel.
@@ -136,6 +150,9 @@ def rand_words(rng, R, C, device, density=0.2):
 
 COLORING_KERNELS = ("firstfit", "detect_recolor", "twohop_detect_recolor")
 KERNELS = COLORING_KERNELS + ("flash_attention", "ell_spmm")
+# B2's detect-only form (CAT's and GM's detect pass): its comparisons are
+# collected apart from the full pass's
+DETECT_ONLY = "detect_recolor detect_only"
 
 
 class Cmp:
@@ -144,9 +161,9 @@ class Cmp:
     tolerance, compared in float32)."""
 
     def __init__(self):
-        self.max_err = {k: 0 for k in KERNELS}
+        self.max_err = {k: 0 for k in KERNELS + (DETECT_ONLY,)}
         self.max_row_err = {}
-        self.cases = {k: [] for k in KERNELS}
+        self.cases = {k: [] for k in KERNELS + (DETECT_ONLY,)}
 
     def close(self, kernel, label, got, want, rtol, atol):
         if got.dtype != want.dtype or got.shape != want.shape:
@@ -289,6 +306,7 @@ def phase_kernels(device, launch: bool) -> Cmp:
                           want_dr, names)
         torch.cuda.synchronize()
     phase_kernels_rows(device, launch, cmp)
+    phase_kernels_detect_only(device, launch, cmp)
     phase_kernels_twohop(device, launch, cmp)
     phase_kernels_staged(device, launch, cmp)
     phase_kernels_attention(device, launch, cmp)
@@ -328,6 +346,96 @@ def phase_kernels_rows(device, launch: bool, cmp: Cmp):
             cmp.check("detect_recolor",
                       f"R{R} W{W} n{n} C{C} +row_ids{'+' if keys else ''}"
                       f"{'+'.join(keys)}", got, want, names)
+
+
+def phase_kernels_detect_only(device, launch: bool, cmp: Cmp):
+    """B2's detect-only form (CAT's and GM's detect pass) on both designs,
+    bit-equal to its plain version and to the full pass's ``recolored``:
+    rows of W 8 / 14 (``direct``) and 44 / 512 (``vec16``), C 32 / 64 /
+    256, with and without ``extra_defect`` and ``valid``, a ragged R at an
+    offset and one full-width R; each call counted once in
+    ``launches_detect_<design>`` and never in ``launches``.  Then CAT's
+    phase A after round 0 — ``detect_recolor`` with U all false and
+    ``force`` the work mask — against first fit + ``apply_recolor`` on the
+    card (both kernels), with the snapshot words."""
+    from repro_torch.core import bitset
+    from repro_torch.kernels import detect_recolor as dr_mod, ops, ref
+    dr = dr_mod.detect_recolor
+    kb = "cuda" if launch else "torch"
+    n = 5000
+    for W in (8, 14, 44, 512):
+        route = dr_mod.design(W)
+        for C in (32, 64, 256):
+            rng = np.random.default_rng(W * C)
+            table = dev(packed_ell(rng, n, W, n, rng.integers(0, W + 1,
+                                                               size=n)),
+                        device)
+            colors = rng.integers(0, C // 2, size=n).astype(np.int32)
+            colors[rng.integers(0, n, size=n // 10)] = -1
+            colors = dev(colors, device)
+            pri = dev(rng.permutation(n).astype(np.int32), device)
+            for R, rs in ((1237, 1001), (n, 0)):
+                ell = table[rs:rs + R]
+                U = dev(rng.random(R) < 0.7, device)
+                opt = dict(extra_defect=dev(rng.random(R) < 0.2, device),
+                           valid=dev(rng.random(R) < 0.8, device))
+                for keys in ((), ("extra_defect",), ("valid",), tuple(opt)):
+                    kw = {k: opt[k] for k in keys}
+                    before = (dr.launches, dr.launches_detect,
+                              getattr(dr, f"launches_detect_{route}"))
+                    got = ops.detect_recolor(ell, colors, pri, U, rs, C,
+                                             backend=kb, detect_only=True,
+                                             **kw)
+                    after = (dr.launches, dr.launches_detect,
+                             getattr(dr, f"launches_detect_{route}"))
+                    if launch and after != (before[0], before[1] + 1,
+                                            before[2] + 1):
+                        fail(f"detect only W{W}: counts {before} -> {after}, "
+                             f"expected one launch_detect on {route}")
+                    want = ref.detect_recolor_ref(ell, colors, pri, rs, U, C,
+                                                  detect_only=True, **kw)
+                    label = (f"detect only R{R} rs{rs} W{W} ({route}) C{C} "
+                             f"+{'+'.join(keys) or 'none'}")
+                    cmp.check(DETECT_ONLY, label, [got], [want],
+                              ("recolored",))
+                    full = ref.detect_recolor_ref(ell, colors, pri, rs, U, C,
+                                                  **kw)[1]
+                    if not torch.equal(want, full):
+                        fail(f"{label}: the plain detect-only flags differ "
+                             f"from the full pass's recolored")
+    # CAT's phase A route
+    names = ("newc", "recolored", "ovf")
+    for W in (8, 44, 512):
+        for C in (4, 32, 256):
+            rng = np.random.default_rng(W + C)
+            R, rs = 1237, 1001
+            table = dev(packed_ell(rng, n, W, n, rng.integers(0, W + 1,
+                                                               size=n)),
+                        device)
+            colors = rng.integers(0, C if C == 4 else C // 2,
+                                  size=n).astype(np.int32)
+            if C > 4:
+                colors[rng.integers(0, n, size=n // 10)] = -1
+            colors = dev(colors, device)
+            pri = dev(rng.permutation(n).astype(np.int32), device)
+            ell = table[rs:rs + R]
+            work = dev(rng.random(R) < 0.3, device)
+            no_u = torch.zeros(R, dtype=torch.bool, device=device)
+            f0 = rand_words(rng, R, C, device)
+            got = ops.detect_recolor(ell, colors, pri, no_u, rs, C,
+                                     backend=kb, forb0=f0, force=work)
+            mex, full = ops.firstfit(ell, colors, C, backend=kb, forb0=f0)
+            cmp.check("detect_recolor", f"phase A route R{R} W{W} C{C}",
+                      got, bitset.apply_recolor(work, mex, full,
+                                                colors[rs:rs + R]), names)
+            cmp.check("detect_recolor", f"phase A route R{R} W{W} C{C} "
+                      f"plain", got, ref.detect_recolor_ref(
+                          ell, colors, pri, rs, no_u, C, forb0=f0,
+                          force=work), names)
+            if C == 4 and not bool(got[2].any()):
+                fail(f"phase A route W{W} C4: no row overflowed")
+    if launch:
+        torch.cuda.synchronize()
 
 
 def twohop_case(rng, R, W, n, C, device, n_all=None, top=None, fill=0.3):
@@ -919,34 +1027,63 @@ def traced_split(g, device, what: str, **kw):
     return res, split_of(res, (time.perf_counter() - t) * 1e3, what)
 
 
+class Path:
+    """One path's launch counts, summed over its calls.  Each call runs
+    with every count set to 0 just before it and is read just after
+    (``run``), so the calls of another path in between add nothing here."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(launch_counters(), 0)
+        self.designs = {k: dict.fromkeys(d, 0) for k, d in DESIGNS.items()}
+        self.detect = dict.fromkeys(detect_only_counts(), 0)
+
+    def run(self, fn):
+        """``fn()`` between zeroed and read counts; returns (its result,
+        its launch counts, per design, of B2's detect-only form)."""
+        zero_counts()
+        out = fn()
+        c, d, x = launch_counts(), design_counts(), detect_only_counts()
+        for k, v in c.items():
+            self.counts[k] += v
+        for k, per in d.items():
+            for design, v in per.items():
+                self.designs[k][design] += v
+        for k, v in x.items():
+            self.detect[k] += v
+        return out, c, d, x
+
+
+def zero_designs() -> dict:
+    return {k: dict.fromkeys(d, 0) for k, d in DESIGNS.items()}
+
+
 def phase_main(rmats, device, rehearse: bool):
+    """Phase 5 (RSOC, the main path) and, on each graph while it is still
+    in memory, phase 5f (the paper's Table 1: ``table1_graph``)."""
     from repro_torch import api, obs
     from repro_torch.core.coloring import is_proper
-    from repro_torch.kernels.detect_recolor import detect_recolor
-    from repro_torch.kernels.firstfit import firstfit
     n_chunks = api.ColoringSpec().n_chunks
-    rows, kept = [], {}
-    obs.metrics.reset()
-    # counts to 0 just before the main path is driven ...
-    zero_counts()
+    rows, kept, t1_rows, kept_cat = [], {}, [], {}
+    main, table1 = Path(), Path()
     for name, make in build_graphs(rmats, rehearse).items():
         g, gen_s = make()
-        ff0, dr0 = firstfit.launches, detect_recolor.launches
-        des0 = design_counts()
+        obs.metrics.reset()
+
         # run 1: the default call, cold (includes host-side prepare)
-        sync(device)
-        t = time.perf_counter()
-        res = api.color(g, device=device)
-        sync(device)
-        e2e_ms = (time.perf_counter() - t) * 1e3
-        ff1, dr1 = firstfit.launches, detect_recolor.launches
-        per_design = design_delta(des0, design_counts(),
-                                  {"firstfit": ff1 - ff0,
-                                   "detect_recolor": dr1 - dr0}, name)
+        def cold():
+            sync(device)
+            t = time.perf_counter()
+            r = api.color(g, device=device)
+            sync(device)
+            return r, (time.perf_counter() - t) * 1e3
+
+        (res, e2e_ms), c, des, _ = main.run(cold)
+        per_design = design_delta(zero_designs(), des, c, name)
         # run 2: the same call traced and timed, for the prepare / solve
         # split and the total they are a split of (the solve phase is
         # synchronize()-bracketed by the tracer)
-        res2, split = traced_split(g, device, f"{name}")
+        (res2, split), _, _, _ = main.run(
+            lambda: traced_split(g, device, f"{name}"))
         assert_same_result(res, res2, f"{name}: traced vs untraced run")
         if not is_proper(g, res.colors):
             fail(f"{name}: result is not a proper coloring")
@@ -955,19 +1092,19 @@ def phase_main(rmats, device, rehearse: bool):
                  f"dtype {res.colors.dtype}")
         if device.type == "cuda":
             exact_launch_counts(name, res)
-            if ff1 - ff0 != n_chunks:
-                fail(f"{name}: firstfit launched {ff1 - ff0} times, expected "
-                     f"n_chunks = {n_chunks}")
+            if c["firstfit"] != n_chunks:
+                fail(f"{name}: firstfit launched {c['firstfit']} times, "
+                     f"expected n_chunks = {n_chunks}")
             # the RMATs' rows (W 44, 512) take the staged pass, the meshes'
             # (W 8, 14) the direct design
             route = "vec16" if name.startswith("rmat") else "direct"
             if per_design["firstfit"] != {route: n_chunks}:
                 fail(f"{name}: firstfit launched {per_design['firstfit']} "
                      f"per design, expected {{'{route}': {n_chunks}}}")
-            if dr1 - dr0 != n_chunks * res.n_rounds:
-                fail(f"{name}: detect_recolor launched {dr1 - dr0} times, "
-                     f"expected n_chunks*n_rounds = "
-                     f"{n_chunks * res.n_rounds}")
+            if c["detect_recolor"] != n_chunks * res.n_rounds:
+                fail(f"{name}: detect_recolor launched "
+                     f"{c['detect_recolor']} times, expected "
+                     f"n_chunks*n_rounds = {n_chunks * res.n_rounds}")
         fb = obs.metrics.counters_matching("kernels.fallback")
         if fb:
             fail(f"{name}: kernels.fallback counters are not empty: {fb}")
@@ -977,26 +1114,148 @@ def phase_main(rmats, device, rehearse: bool):
                "conflicts": res.total_conflicts, "retries": res.retries,
                "final_C": res.final_C, "generate_ms": round(gen_s * 1e3, 1),
                "e2e_cold_ms": round(e2e_ms, 2), **split,
-               "firstfit_launches": ff1 - ff0,
-               "detect_recolor_launches": dr1 - dr0,
+               "firstfit_launches": c["firstfit"],
+               "detect_recolor_launches": c["detect_recolor"],
                "launches_per_design": per_design}
         log("main", json.dumps(row))
         rows.append(row)
+        # ---- phase 5f: the paper's Table 1 on this graph ----
+        t1_rows += table1_graph(name, g, row, device, table1, kept_cat)
         # kept for phase 5b / 6: the meshes and the uniform and the skewed
         # RMAT (the last one is the largest ELL table of the run)
         if not name.startswith("rmat_g"):
             kept[name] = (g, res)
         del g
-    # ... and read just after
-    counts = launch_counts()
     if device.type == "cuda":
         for k in ("firstfit", "detect_recolor"):
-            if counts[k] < 1:
+            if main.counts[k] < 1:
                 fail(f"the main path never launched the {k} kernel")
         for k in ("twohop_detect_recolor", "flash_attention", "ell_spmm"):
-            if counts[k]:
+            if main.counts[k]:
                 fail(f"the main path launched the {k} kernel")
-    return rows, kept, counts
+        if main.detect["launches"]:
+            fail("the main path launched the detect-only form of B2")
+        if table1.detect["launches"] < 1:
+            fail("the Table 1 path never launched the detect-only form")
+    return rows, kept, main, t1_rows, table1, kept_cat
+
+
+# GM's serial repair is the reference's Python loop: it runs on the meshes
+# and the uniform RMAT only (RMAT-B's defect count is far larger)
+GM_GRAPHS = ("mesh2d", "bmw3_2", "pwtk", "rmat_er")
+
+
+def table1_graph(name, g, rsoc_row, device, path: Path, kept_cat) -> list:
+    """Phase 5f on one graph: one traced ``api.color(g, algorithm=...)``
+    call each of CAT (every graph), GM (``GM_GRAPHS``) and JP (every
+    graph), counts zeroed before each call and read after.  Launches,
+    checked exactly: CAT first fit ``n_chunks`` (round 0), ``detect_recolor``
+    ``n_chunks`` a round (phase A after round 0) and ``1 + n_rounds``
+    detect-only launches (phase B); GM first fit ``n_chunks`` and one
+    detect-only launch; JP no launch and no dispatch at all.  A run that
+    doubled its cap is checked for at least its last attempt's launches (its
+    earlier attempts' rounds are not in the result).  Each result must be
+    proper and ``kernels.fallback`` empty.  CAT's results on the meshes and
+    the uniform RMAT are kept for phase 5b."""
+    from repro_torch import api, obs
+    from repro_torch.core.coloring import is_proper
+    n_chunks = api.ColoringSpec().n_chunks
+    route = "vec16" if name.startswith("rmat") else "direct"
+    other = "direct" if route == "vec16" else "vec16"
+    rows = []
+    algos = ["cat"] + (["gm"] if name.startswith(GM_GRAPHS) else []) + ["jp"]
+    for algo in algos:
+        obs.metrics.reset()
+        if device.type == "cuda":
+            sync(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+        (res, split), c, des, det = path.run(
+            lambda: traced_split(g, device, f"{name} {algo}",
+                                 algorithm=algo))
+        what = f"{name} {algo}"
+        if not is_proper(g, res.colors) or res.colors.dtype != np.int32 \
+                or res.colors.shape != (g.n_vertices,):
+            fail(f"{what}: not a proper coloring of shape (n,) int32")
+        r = res.n_rounds
+        want = dict.fromkeys(c, 0)
+        want_det = {"launches": 0, route: 0, other: 0}
+        if algo == "cat":
+            want.update(firstfit=n_chunks, detect_recolor=n_chunks * r)
+            want_det.update(launches=1 + r, **{route: 1 + r})
+        elif algo == "gm":
+            want.update(firstfit=n_chunks)
+            want_det.update(launches=1, **{route: 1})
+        if device.type == "cuda":
+            got_d = {k: des[k][route] for k in ("firstfit", "detect_recolor")}
+            want_d = {k: want[k] for k in got_d}
+            exact = (c == want and det == want_det and got_d == want_d)
+            at_least = all(c[k] >= want[k] for k in c) and \
+                det["launches"] >= want_det["launches"]
+            if not (exact if res.retries == 0 else at_least):
+                fail(f"{what}: launches {c} (on {route}: {got_d}), detect "
+                     f"only {det}; expected {want}, detect only {want_det}")
+        fb = obs.metrics.counters_matching("kernels.fallback")
+        if fb:
+            fail(f"{what}: kernels.fallback counters are not empty: {fb}")
+        row = {"graph": name, "algorithm": algo, "n": g.n_vertices,
+               "n_colors": res.n_colors, "n_rounds": r,
+               "gather_passes": res.gather_passes,
+               "conflicts": res.total_conflicts, "retries": res.retries,
+               "final_C": res.final_C, **split,
+               "launches": {k: v for k, v in c.items() if v},
+               "detect_only_launches": det["launches"]}
+        if algo == "cat":
+            row["cat_over_rsoc_solve"] = round(
+                split["solve_ms"] / rsoc_row["solve_ms"], 4)
+            row["rsoc_solve_ms"] = rsoc_row["solve_ms"]
+            row["rsoc_n_rounds"] = rsoc_row["n_rounds"]
+            if not name.startswith(("rmat_g", "rmat_b")):
+                kept_cat[name] = (g, res)
+        if algo == "gm":
+            rep = next(p for p in res.trace.phases
+                       if p.name == "serial_repair")
+            row["serial_repair_ms"] = round(rep.wall_s * 1e3, 2)
+            row["defects"] = rep.meta["n_defects"]
+        if algo == "jp":
+            disp = obs.metrics.total_matching("kernels.dispatch")
+            if disp:
+                fail(f"{what}: JP dispatched {disp} kernel calls")
+            row["snapshot_mb"] = round(g.n_vertices * res.final_C / 2 ** 20,
+                                       1)
+            if device.type == "cuda":
+                row["peak_mem_mb"] = round(
+                    (torch.cuda.max_memory_allocated(device) - base)
+                    / 2 ** 20, 1)
+        log("table1", json.dumps(row))
+        rows.append(row)
+    obs.metrics.reset()
+    return rows
+
+
+def table1_summary(main_rows, t1_rows, d2_rows) -> list:
+    """The paper's Table 1 on the card, one row a graph: RSOC (phase 5's
+    traced call), CAT (phase 5f), ``rsoc_compact`` (phase 5c's, where it
+    ran); ``solve_ms``, rounds, ``gather_passes``, conflicts, colours, and
+    CAT's ``solve_ms`` over RSOC's."""
+    keys = ("solve_ms", "prepare_ms", "e2e_traced_ms", "n_rounds",
+            "gather_passes", "conflicts", "n_colors")
+    out = []
+    for m in main_rows:
+        name = m["graph"]
+        cat = next(r for r in t1_rows
+                   if r["graph"] == name and r["algorithm"] == "cat")
+        comp = next((r for r in d2_rows if r["graph"] == name
+                     and r["run"] == "rsoc_compact"), None)
+        rsoc = {k: m[k] for k in keys if k in m}
+        rsoc["gather_passes"] = 1 + m["n_rounds"]
+        row = {"graph": name, "rsoc": rsoc,
+               "cat": {k: cat[k] for k in keys},
+               "rsoc_compact": ({k: comp[k] for k in keys if k in comp}
+                                if comp else None),
+               "cat_over_rsoc_solve": cat["cat_over_rsoc_solve"]}
+        out.append(row)
+    return out
 
 
 def exact_launch_counts(what: str, res):
@@ -1023,6 +1282,15 @@ def launch_counters() -> dict:
 
 def launch_counts() -> dict:
     return {k: w.launches for k, w in launch_counters().items()}
+
+
+def detect_only_counts() -> dict:
+    """Launches of B2's detect-only form since the counts were zeroed, in
+    all and per design (``detect_recolor.launches_detect[_<design>]``)."""
+    dr = launch_counters()["detect_recolor"]
+    return {"launches": dr.launches_detect,
+            **{d: getattr(dr, f"launches_detect_{d}")
+               for d in DESIGNS["detect_recolor"]}}
 
 
 def sm90_ptxas(build_log: str, lib) -> list:
@@ -1140,13 +1408,18 @@ def ptxas_summary(build_log: str) -> dict:
 
 
 def zero_counts():
-    """Every wrapper's count to 0, the per-design counts too."""
+    """Every wrapper's count to 0, the per-design counts and B2's
+    detect-only counts too."""
     wrappers = launch_counters()
     for w in wrappers.values():
         w.launches = 0
     for k, designs in DESIGNS.items():
         for d in designs:
             setattr(wrappers[k], f"launches_{d}", 0)
+    dr = wrappers["detect_recolor"]
+    dr.launches_detect = 0
+    for d in DESIGNS["detect_recolor"]:
+        setattr(dr, f"launches_detect_{d}", 0)
 
 
 def design_counts() -> dict:
@@ -1352,7 +1625,8 @@ def phase_distance2(kept, bip, device, rehearse: bool, pool):
                "directed_edges": g.n_edges, "max_degree": g.max_degree,
                "n_colors": res.n_colors, "n_rounds": res.n_rounds,
                "conflicts": res.total_conflicts, "retries": res.retries,
-               "final_C": res.final_C, "e2e_cold_ms": round(e2e_ms, 2),
+               "final_C": res.final_C, "gather_passes": res.gather_passes,
+               "e2e_cold_ms": round(e2e_ms, 2),
                **split, "launches": d, "launches_per_design": per_design,
                "check": check}
         if what == "partial":
@@ -1881,6 +2155,8 @@ def phase_times(device, kept, kept_compact, cmp: Cmp, launch: bool):
                      "bound_ms": bound(dr_bytes)})
         for r in rows[-2:]:
             log("times", json.dumps(r))
+        rows += time_detect_only(name, prob, colors, C, has_ovf, cmp, device,
+                                 launch)
         if name.startswith("rmat_b"):
             ctx_c = PassContext.for_problem(prob, n_chunks=spec.n_chunks,
                                             C=kept_compact[name][1].final_C)
@@ -1892,6 +2168,94 @@ def phase_times(device, kept, kept_compact, cmp: Cmp, launch: bool):
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return rows
+
+
+PLAIN_BLOCK_ROWS = 2 ** 18   # rows per block of the full-width plain passes
+
+
+def time_detect_only(name, prob, colors, C: int, has_ovf: bool, cmp: Cmp,
+                     device, launch: bool) -> list:
+    """B2's detect-only form at the shape CAT's and GM's detect pass
+    launches it: every row of the table (``row_start`` 0, R = n_pad), U =
+    every valid row (round 0's detect pass), the overflow-edge conflicts as
+    ``extra_defect``, on the colours after a whole round 0.  Beside it the
+    full B2 pass at the same shape (U = valid, the snapshot words as
+    ``forb0``).  Each against its plain version, run in blocks of
+    ``PLAIN_BLOCK_ROWS`` rows (rows are independent: the same function,
+    and a full-width plain gather of RMAT-B's table would not fit).
+
+    Bound (bytes, PR 12 run C's rule, ``gather_bytes``): the ELL row of
+    each valid row, each distinct colour once (the rows' own included) and
+    each priority the defect test needs once, the U / valid (and
+    extra_defect) masks, and the 1-byte output; the full pass adds the
+    forb0 words of its working rows and 5 more output bytes a row."""
+    from repro_torch.core import bitset, coloring
+    from repro_torch.kernels import ops, ref
+    n_pad = prob.n_pad
+    ell, pri = prob.ell, prob.pri
+    W = ell.shape[1]
+    valid = torch.arange(n_pad, device=device) < prob.n
+    xd = f0 = None
+    if has_ovf:
+        xd = coloring._ovf_conflict(prob.ovf_src, prob.ovf_dst, colors, pri,
+                                    n_pad)
+        f0 = coloring._snapshot_coo(prob.ovf_src, prob.ovf_dst, colors,
+                                    n_pad, C, "bitset")
+    kb = "cuda" if launch else "torch"
+    kw = dict(extra_defect=xd, valid=valid)
+
+    def blocks(fn):
+        outs = [fn(lo, min(lo + PLAIN_BLOCK_ROWS, n_pad))
+                for lo in range(0, n_pad, PLAIN_BLOCK_ROWS)]
+        return [torch.cat(x) for x in zip(*outs)]
+
+    def sl(t, lo, hi):
+        return None if t is None else t[lo:hi]
+
+    det = lambda: ops.detect_recolor(ell, colors, pri, valid, 0, C,
+                                     backend=kb, detect_only=True, **kw)
+    det_plain = lambda: blocks(lambda lo, hi: [ref.detect_recolor_ref(
+        ell[lo:hi], colors, pri, lo, valid[lo:hi], C, detect_only=True,
+        extra_defect=sl(xd, lo, hi), valid=valid[lo:hi])])
+    full = lambda: ops.detect_recolor(ell, colors, pri, valid, 0, C,
+                                      backend=kb, forb0=f0, **kw)
+    full_plain = lambda: blocks(lambda lo, hi: ref.detect_recolor_ref(
+        ell[lo:hi], colors, pri, lo, valid[lo:hi], C, forb0=sl(f0, lo, hi),
+        extra_defect=sl(xd, lo, hi), valid=valid[lo:hi]))
+    label = f"{name} full width R{n_pad} W{W} C{C}"
+    cmp.check(DETECT_ONLY, label, [det()], det_plain(), ("recolored",))
+    cmp.check("detect_recolor", label, full(), full_plain(),
+              ("newc", "recolored", "ovf"))
+    vids = torch.arange(n_pad, device=device)
+    test = valid & (colors >= 0)
+    nbytes, live = gather_bytes(ell, colors, vids, valid, test, own=True)
+    n_valid = int(valid.sum())
+    det_bytes = nbytes + n_pad * (2 + (1 if has_ovf else 0)) + n_pad
+    full_bytes = (nbytes + n_pad * (2 + (1 if has_ovf else 0))
+                  + (n_valid * bitset.n_words(C) * 4 if has_ovf else 0)
+                  + n_pad * 6)
+    reps = 5
+    before = detect_only_counts()
+    row = {"kernel": DETECT_ONLY, "graph": name, "R": n_pad, "W": W,
+           "n": n_pad, "C": C, "live_slots": live, "bytes": det_bytes,
+           "ms": device_ms(det, device, reps),
+           "call_ms": time_ms(det, device, reps),
+           "design": None, "plain_ms": time_ms(det_plain, device, 1, 3),
+           "bound_ms": det_bytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes",
+           "full_pass_bytes": full_bytes,
+           "full_pass": timed("detect_recolor", full, device, reps, launch),
+           "full_pass_bound_ms": full_bytes / HBM_BYTES_PER_S * 1e3}
+    if launch:
+        after = detect_only_counts()
+        rose = [d for d in DESIGNS["detect_recolor"] if after[d] != before[d]]
+        if len(rose) != 1 or after["launches"] == before["launches"]:
+            fail(f"{label}: the detect-only calls launched the designs "
+                 f"{rose}, not exactly one ({before} -> {after})")
+        row["design"] = rose[0]
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    log("times", json.dumps(row))
+    return [row]
 
 
 def phase_times_twohop(device, kept_d2, cmp: Cmp, launch: bool):
@@ -2178,7 +2542,7 @@ def wait_checks(checks: dict) -> list:
 
 
 def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
-                 cmp: Cmp) -> list:
+                 cmp: Cmp, t1_path: Path) -> list:
     """The ``kernels`` entries: per coloring kernel, the chunk of the
     largest table its path ran (RMAT-B for the distance-1 kernels, RMAT-ER
     for the two-hop kernel); the attention kernel at the serving prefill's
@@ -2193,13 +2557,16 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
     ``device`` (calls queued behind a device sleep, ``device_ms``) for
     every kernel; ``call_ms`` is the back-to-back call time (``time_ms``),
     host side included.  ``design`` and ``source`` name the design that
-    served the row's shape and its file."""
+    served the row's shape and its file.  B2's entry holds its detect-only
+    form under ``detect_only``: its launches on the Table 1 path (5f), its
+    cases, and its times at the full-width shape of RMAT-B's detect pass
+    beside the full B2 pass at that shape."""
     csrc = "src/repro_torch/kernels/csrc/"
     largest = {"firstfit": list(kept)[-1], "detect_recolor": list(kept)[-1],
                "twohop_detect_recolor": next(k for k in kept
                                              if k.startswith("rmat_er"))}
     row_of = {r["kernel"]: r for r in time_rows
-              if r["graph"] == largest[r["kernel"]]}
+              if r["graph"] == largest.get(r["kernel"])}
     meta = {"firstfit": ("src/repro/kernels/firstfit.py:48", "main"),
             "detect_recolor": ("src/repro/kernels/detect_recolor.py:54",
                                "main"),
@@ -2236,6 +2603,23 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
             "launches_per_path": {p: c[name] for p, c in paths.items()},
             "shape": {k: r[k] for k in ("graph", "R", "W", "n", "C")},
             "cases_checked": len(cmp.cases[name])})
+    r = next(x for x in time_rows if x["kernel"] == DETECT_ONLY
+             and x["graph"] == largest["detect_recolor"])
+    next(k for k in kernels if k["name"] == "detect_recolor")[
+        "detect_only"] = {
+        "source": csrc + source["detect_recolor", r["design"]],
+        "path": "table1", "launches": t1_path.detect["launches"],
+        "launches_per_design": {d: v for d, v in t1_path.detect.items()
+                                if d != "launches" and v},
+        "design": r["design"], "max_abs_err": cmp.max_err[DETECT_ONLY],
+        "ms": r["ms"], "ms_method": "device", "call_ms": r["call_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "library_ms_why": "no single PyTorch call computes it",
+        "full_pass_ms": r["full_pass"]["ms"],
+        "full_pass_bound_ms": r["full_pass_bound_ms"],
+        "shape": {k: r[k] for k in ("graph", "R", "W", "n", "C")},
+        "cases_checked": len(cmp.cases[DETECT_ONLY])}
     fa = next(r for r in model_rows if r.get("kernels_line"))
     sp = next(r for r in model_rows
               if r["kernel"] == "ell_spmm" and r["kernels_line"])
@@ -2366,20 +2750,30 @@ def main() -> int:
 
         # ---- phase 4: golden ----
         n_golden = phase_golden(device)
-        log("golden", f"{n_golden} runs (distance 1, 2, partial) equal "
-                      f"tests/torch_golden.json")
+        log("golden", f"{n_golden} runs (distance 1, 2, partial; cat, gm, "
+                      f"jp) equal tests/torch_golden.json")
 
         # ---- phase 5: main path ----
         if args.rmat_scale != 24:
             log("main", f"RMAT scale {args.rmat_scale}: {RMAT_SCALE_WHY}")
-        main_rows, kept, counts = phase_main(rmats, device, args.rehearse)
-        # every path zeroes the counts before it runs: a path's launches per
-        # design are the counts just after it
-        zeros = {k: dict.fromkeys(d, 0) for k, d in DESIGNS.items()}
-        designs = {"main": design_delta(zeros, design_counts(), counts,
+        # (with phase 5f, the paper's Table 1, on each graph in turn)
+        main_rows, kept, main_path, t1_rows, t1_path, kept_cat = phase_main(
+            rmats, device, args.rehearse)
+        # every path's calls run with the counts zeroed just before each and
+        # read just after (Path.run): a path's launches are its calls' sum
+        zeros = zero_designs()
+        counts = main_path.counts
+        designs = {"main": design_delta(zeros, main_path.designs, counts,
                                         "the main path")}
         log("main", json.dumps({"launches": counts,
                                 "launches_per_design": designs["main"]}))
+        counts_t1 = t1_path.counts
+        designs["table1"] = design_delta(zeros, t1_path.designs, counts_t1,
+                                         "the Table 1 path")
+        log("table1", json.dumps({
+            "launches": counts_t1,
+            "launches_per_design": designs["table1"],
+            "detect_only_launches": t1_path.detect}))
 
         # ---- phase 5c: distance-2, partial, compacted ----
         d2_rows, kept_d2, kept_compact, counts_d2, checks = phase_distance2(
@@ -2390,6 +2784,9 @@ def main() -> int:
         log("distance2", json.dumps({
             "launches": counts_d2,
             "launches_per_design": designs["distance2_compact"]}))
+        table1 = table1_summary(main_rows, t1_rows, d2_rows)
+        for row in table1:
+            log("table1", json.dumps(row))
 
         # ---- phase 5b: plain versions on the card ----
         done = phase_plain(device, kept)
@@ -2403,6 +2800,10 @@ def main() -> int:
                            algorithm="rsoc_compact")
         log("plain", f"rsoc_compact: kernel path == plain path on the card "
                      f"for {done}")
+        done = phase_plain(device, kept_cat, algorithm="cat")
+        log("plain", f"cat: kernel path == plain path on the card for "
+                     f"{done}")
+        del kept_cat
 
         # ---- phase 5d: serving qwen3-1.7b ----
         serve_row, counts_serve = phase_serve(device, args.rehearse)
@@ -2431,9 +2832,11 @@ def main() -> int:
             torch.cuda.synchronize()
         log("distance2", f"host oracles passed: {wait_checks(checks)}")
 
-    paths = {"main": counts, "distance2_compact": counts_d2,
+    paths = {"main": counts, "table1": counts_t1,
+             "distance2_compact": counts_d2,
              "serve": counts_serve, "aggregate": counts_agg}
-    kernels = kernels_line(kept, time_rows, model_rows, paths, designs, cmp)
+    kernels = kernels_line(kept, time_rows, model_rows, paths, designs, cmp,
+                           t1_path)
     if args.rehearse:
         log("kernels", json.dumps(kernels))
         log("rehearsal on the CPU finished; no kernel was built or launched")
@@ -2441,6 +2844,7 @@ def main() -> int:
 
     # ---- result lines ----
     print(json.dumps({"main_path": main_rows}), flush=True)
+    print(json.dumps({"table1": table1, "table1_runs": t1_rows}), flush=True)
     print(json.dumps({"distance2_path": d2_rows}), flush=True)
     print(json.dumps({"serve_path": serve_row}), flush=True)
     print(json.dumps({"aggregate_path": agg_row}), flush=True)

@@ -26,15 +26,19 @@ reference package's.
     res = api.color(g, distance=2, mode="partial", n_left=m) # Jacobian
                                                              # compression
     res = api.color(g, algorithm="rsoc_compact")             # compacted
+    res = api.color(g, algorithm="cat")                      # baselines:
+    res = api.color(g, algorithm="gm")                       # CAT, GM, JP
+    res = api.color(g, algorithm="jp")
 
 Engines live in a registry keyed by ``(algorithm, distance, mode, backend)``
 (``repro_torch.registry``); each engine module registers its own at import
 time.  This module imports the engine modules that are ported —
-``core/coloring.py`` with ``(rsoc, 1, static, local)``, ``core/frontier.py``
-with ``(rsoc_compact, 1, static, local)``, ``core/distance2.py`` with ``(rsoc,
-2, static, local)`` and ``(rsoc, 2, partial, local)`` — so
-``supported_specs()`` lists exactly what runs, and every other combo is
-rejected by ``ColoringSpec.validate`` with the nearest supported spec named.
+``core/coloring.py`` with ``(rsoc | cat | gm | jp, 1, static, local)``,
+``core/frontier.py`` with ``(rsoc_compact, 1, static, local)``,
+``core/distance2.py`` with ``(rsoc, 2, static, local)`` and ``(rsoc, 2,
+partial, local)`` — so ``supported_specs()`` lists exactly what runs, and
+every other combo is rejected by ``ColoringSpec.validate`` with the nearest
+supported spec named.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Parallel graph coloring: serial First-Fit and the paper's contribution
+"""Parallel graph coloring: serial First-Fit, Gebremedhin-Manne (GM),
+Catalyurek et al. (CAT), Jones-Plassmann (JP) and the paper's contribution
 RSOC — lockstep chunks on PyTorch, the chunk pass on hand-written CUDA kernels.
 
 Vocabulary (DESIGN.md §2, carried over from the reference package):
@@ -11,9 +12,15 @@ Vocabulary (DESIGN.md §2, carried over from the reference package):
     1/threads: chunk width n/n_chunks is the simulated thread count.
   * Vertices are randomly relabeled once (host-side) so a chunk is a random
     vertex sample — the paper shuffles RMAT vertex ids for the same reason.
+  * CAT round = phase A: chunked re-color of the defect set U (against colors
+    as of the previous detect, fresh within the pass); BARRIER; phase B:
+    separate detect pass -> new U; BARRIER.  Two neighbor-gather passes,
+    two materialization points per round.
   * RSOC round = ONE fused detect-and-recolor pass over U: a defect is
     repaired the moment it is seen, from the same gathered neighbor row
     ("freshest data", paper §3).  One gather pass, one materialization point.
+    Repairs land a round earlier than CAT's, so rounds and conflicts drop —
+    the paper's Figs. 3-6 mechanism.
   * Termination under lockstep (paper §5: SIMT livelock): conflicts are broken
     *asymmetrically* by a hashed random priority — of a conflicting edge only
     the lower-priority endpoint re-colors.  Every round the highest-priority
@@ -22,25 +29,25 @@ Vocabulary (DESIGN.md §2, carried over from the reference package):
 
 How the loops run here (DESIGN_TORCH.md): a pass is a Python loop over the
 chunks, and each chunk is ONE call into ``kernels.ops`` — on a CUDA device one
-launch of the ``firstfit`` (round 0) or ``detect_recolor`` (repair rounds)
-kernel — followed by the commit of the chunk's new colors.  The round loop
-is a host loop that reads one integer back per round (the work count that
-decides termination); counters, traces and the overflow flag stay on the
-device until the loop ends.
+launch of the ``firstfit`` (round 0) or ``detect_recolor`` (repair rounds,
+and CAT's phase A after round 0) kernel — followed by the commit of the
+chunk's new colors.  CAT's and GM's detect pass is one detect-only launch of
+``detect_recolor`` over every row.  The round loop is a host loop that reads
+one value back per round (what decides termination); counters, traces and
+the overflow flag stay on the device until the loop ends.  JP has no kernel
+under it in the reference either: its rounds are plain torch on the device.
 
 Graph encodings: ELL (n, width) padded neighbor table, with a COO
 side-channel for overflow edges of capped-width hubs (power-law graphs).
 Overflow forbidden sets are built from the pass-start snapshot, which
 preserves the termination argument (the stable neighbors' colors are always
 avoided).
-
-This module holds the RSOC part of the reference's ``core/coloring.py``; the
-CAT / GM / JP engines and the legacy ``color_*`` shims are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
+from collections.abc import Mapping
 from typing import Optional
 
 import numpy as np
@@ -48,7 +55,8 @@ import torch
 
 from repro_torch import obs, registry
 from repro_torch.core import bitset
-from repro_torch.core.context import PassContext, resolve_impl
+from repro_torch.core.context import (DEFAULT_FORBIDDEN_IMPL, PassContext,
+                                      resolve_impl)
 from repro_torch.graphs.csr import (CSRGraph, FILL, from_edges, to_edge_list,
                                     to_ell)
 from repro_torch.kernels import ops
@@ -355,17 +363,26 @@ def _forbidden_from_nbrc(nbrc, C):
 
 
 def _chunked_pass(ctx, ell, osrc, odst, pri, colors, U, force, *,
-                  detect: bool, valid=None):
+                  detect: bool, valid=None, sparse: bool = False):
     """One sequential sweep over n_chunks chunks; **updates ``colors`` in
     place** (the caller owns the tensor) and returns it.
 
-    detect=False (round 0)    : re-color every vertex in U | force, through
-                                the ``firstfit`` kernel.
+    detect=False (round 0, CAT phase A): re-color every vertex in U | force,
+                                through the ``firstfit`` kernel — or, with
+                                ``sparse``, through ``detect_recolor`` with
+                                U all false and ``force`` the work mask.
     detect=True  (RSOC fused) : re-color a vertex in U only if it is
                                 defective right now (fresh check), or forced,
                                 through the ``detect_recolor`` kernel.
     Each chunk is one call into ``kernels.ops`` — one kernel launch on a CUDA
     device — and the chunk's colors are committed after it.
+
+    ``sparse`` is for a work set that is a small part of the rows (CAT's
+    phase A after round 0 re-colors only the defect set): ``firstfit``
+    computes every row of its chunk, while ``detect_recolor`` skips the rows
+    that cannot work.  Forced rows take their mex, whatever their own color
+    (the mex never reads it), so both routes give the same colors, flags
+    and overflow bit for bit.
 
     With ``detect=True`` the forced rows must be uncolored (``colors < 0``,
     as ``_fused_repair`` builds them): such a row is never defective, which
@@ -398,6 +415,8 @@ def _chunked_pass(ctx, ell, osrc, odst, pri, colors, U, force, *,
             ovf_defect = _ovf_conflict(osrc, odst, colors, pri, n_pad)
     if not detect:
         work_all = valid_row & (U | force)
+        if sparse:
+            no_u = torch.zeros((n_pad,), dtype=torch.bool, device=device)
 
     recolored = torch.empty((n_pad,), dtype=torch.bool, device=device)
     ovf_rows = torch.empty((n_pad,), dtype=torch.bool, device=device)
@@ -410,6 +429,10 @@ def _chunked_pass(ctx, ell, osrc, odst, pri, colors, U, force, *,
                 extra_defect=(ovf_defect[lo:hi] if ovf_defect is not None
                               else None),
                 force=force[lo:hi], valid=valid_row[lo:hi])
+        elif sparse:
+            newc, rec, ovf_k = ops.detect_recolor(
+                ell[lo:hi], colors, pri, no_u[lo:hi], lo, C, impl=impl,
+                forb0=f0, force=work_all[lo:hi])
         else:
             mex, full = ops.firstfit(ell[lo:hi], colors, C, impl=impl,
                                      forb0=f0)
@@ -427,6 +450,24 @@ def _chunked_pass(ctx, ell, osrc, odst, pri, colors, U, force, *,
     else:
         n_def = torch.zeros((), dtype=torch.int32, device=device)
     return colors, recolored, n_def, ovf_rows.any()
+
+
+def _detect_pass(ctx, ell, osrc, odst, pri, colors, U):
+    """CAT phase B: standalone defect detection over U (a full gather pass).
+
+    ONE detect-only launch of the ``detect_recolor`` kernel over all
+    ``n_pad`` rows (``row_start=0``), as the reference's single full-width
+    gather: it reads the pass-start colors and commits nothing, so no chunk
+    waits for another.  Overflow-edge conflicts are OR-ed in
+    (``extra_defect``).  Returns the (n_pad,) bool ``defect & U & valid``.
+    """
+    n, n_pad, C, n_chunks, impl = ctx.unpack()
+    valid_row = torch.arange(n_pad, device=ell.device) < n
+    extra = (_ovf_conflict(osrc, odst, colors, pri, n_pad)
+             if osrc.shape[0] > 0 else None)
+    return ops.detect_recolor(ell, colors, pri, U, 0, C, impl=impl,
+                              extra_defect=extra, valid=valid_row,
+                              detect_only=True)
 
 
 # --------------------------------------------------------------------------
@@ -503,6 +544,78 @@ def _rsoc_repair_loop(ell, osrc, odst, pri, colors, U, ctx, max_rounds):
     caller's ``colors`` is left untouched: the loop works on a copy."""
     return _fused_repair(ctx, ell, osrc, odst, pri, colors.clone(), U,
                          max_rounds)
+
+
+def _cat_loop(ell, osrc, odst, pri, ctx, max_rounds):
+    """CAT's rounds.  A host loop that reads ONE value back per round
+    (``U.any()``, which decides termination); ``trace``, ``tot`` and ``ovf``
+    stay device tensors, ``n_rounds`` is a Python int.  Returns (colors[:n],
+    n_rounds, trace, total_conflicts, ovf)."""
+    n, n_pad, C, n_chunks, impl = ctx.unpack()
+    device = ell.device
+    colors = torch.full((n_pad,), -1, dtype=torch.int32, device=device)
+    valid = torch.arange(n_pad, device=device) < n
+    zeros = torch.zeros((n_pad,), dtype=torch.bool, device=device)
+
+    # round 0 phase A: color everything (chunked, fresh within pass)
+    colors, _, _, ovf = _chunked_pass(
+        ctx, ell, osrc, odst, pri, colors, zeros, valid, detect=False)
+    # round 0 phase B: detect                                   (pass 2)
+    U = _detect_pass(ctx, ell, osrc, odst, pri, colors, valid)
+    trace = torch.zeros((MAX_ROUNDS_TRACE,), dtype=torch.int32, device=device)
+    tot = torch.zeros((), dtype=torch.int32, device=device)
+    r = 0
+    while r < max_rounds and bool(U.any()):   # the one host read-back
+        n_def = U.sum(dtype=torch.int32)
+        trace[min(r, MAX_ROUNDS_TRACE - 1)] = n_def
+        # phase A: re-color the defect set                      (pass 1)
+        colors, _, _, ovf2 = _chunked_pass(
+            ctx, ell, osrc, odst, pri, colors, U, zeros, detect=False,
+            sparse=True)
+        # phase B: separate detect pass                         (pass 2)
+        U = _detect_pass(ctx, ell, osrc, odst, pri, colors, U)
+        r, tot, ovf = r + 1, tot + n_def, ovf | ovf2
+    return colors[:n], r, trace, tot, ovf
+
+
+def _gm_round0(ell, osrc, odst, pri, ctx):
+    """GM's speculative pass and its detect pass: (colors, defect, ovf)."""
+    n, n_pad, C, n_chunks, impl = ctx.unpack()
+    device = ell.device
+    colors0 = torch.full((n_pad,), -1, dtype=torch.int32, device=device)
+    valid = torch.arange(n_pad, device=device) < n
+    zeros = torch.zeros((n_pad,), dtype=torch.bool, device=device)
+    colors1, _, _, ovf = _chunked_pass(
+        ctx, ell, osrc, odst, pri, colors0, zeros, valid, detect=False)
+    defect = _detect_pass(ctx, ell, osrc, odst, pri, colors1, valid)
+    return colors1, defect, ovf
+
+
+def _jp_loop(src, dst, pri, n: int, C: int, max_rounds: int,
+             impl: str = DEFAULT_FORBIDDEN_IMPL):
+    """Jones-Plassmann rounds over the COO edge list, plain torch on the
+    tensors' device: the reference runs them in jnp with no Pallas kernel
+    under them, so this is their port (and they go through no ``ops``
+    dispatcher).  A host loop that reads ONE value back per round (whether
+    a vertex is still uncolored).  Returns (colors, n_rounds, ovf)."""
+    device = pri.device
+    colors = torch.full((n,), -1, dtype=torch.int32, device=device)
+    ovf = torch.zeros((), dtype=torch.bool, device=device)
+    neg = torch.full((), -1, dtype=torch.int32, device=device)
+    s, d = src.long(), dst.long()
+    r = 0
+    while r < max_rounds and bool((colors < 0).any()):
+        uncolored = colors < 0
+        nbr_pri = torch.where(uncolored[d], pri[d], neg)
+        best = torch.full((n,), -1, dtype=torch.int32,
+                          device=device).scatter_reduce_(
+            0, s, nbr_pri, "amax", include_self=True)
+        elig = uncolored & (pri > best)
+        forb = _snapshot_coo(src, dst, colors, n, C, impl)
+        mex, o = _mex_of(forb, C, impl)
+        colors = torch.where(elig, mex, colors)
+        r, ovf = r + 1, ovf | (o & elig).any()
+    return colors, r, ovf
 
 
 # --------------------------------------------------------------------------
@@ -624,3 +737,211 @@ def _rsoc_engine(g: CSRGraph, spec, *, device="cpu") -> ColoringResult:
                           gather_passes=1 + int(r),
                           final_C=final_C, retries=retries,
                           trace_truncated=truncated)
+
+
+@registry.register_engine("cat", distance=1, mode="static",
+                          replaces="color_cat")
+def _cat_engine(g: CSRGraph, spec, *, device="cpu") -> ColoringResult:
+    """Catalyurek et al. (paper Alg. 2): two-phase rounds."""
+    impl = resolve_impl(spec.forbidden_impl)
+    tracer = obs.current_tracer()
+    with obs.phase("prepare"):
+        prob = prepare(g, spec.seed, spec.n_chunks, spec.ell_cap, spec.C,
+                       spec.relabel, device=device)
+    (colors, r, trace, tot, _), final_C, retries = _run_with_retry(
+        _prob_runner(_cat_loop, prob, spec.n_chunks, spec.max_rounds, impl),
+        prob.C, engine="cat", max_retries=spec.max_cap_retries)
+    conf, truncated = _trim_trace(_to_numpy(trace), r)
+    # CAT's frontier IS its conflict count: a round re-colors exactly the
+    # defect set U detected by the previous phase B, so no extra device
+    # collection is needed (the traced and untraced loops are identical).
+    _report_frontier(tracer, conf, r)
+    colors = _unpermute(colors, prob.perm, prob.n)
+    return ColoringResult(colors=colors, n_rounds=int(r),
+                          conflicts_per_round=conf,
+                          total_conflicts=int(tot),
+                          n_colors=n_colors_used(colors),
+                          overflow=retries > 0,
+                          gather_passes=2 * (1 + int(r)),
+                          final_C=final_C, retries=retries,
+                          trace_truncated=truncated)
+
+
+@registry.register_engine("gm", distance=1, mode="static",
+                          replaces="color_gm")
+def _gm_engine(g: CSRGraph, spec, *, device="cpu") -> ColoringResult:
+    """Gebremedhin-Manne: speculate, detect, serial repair (one round —
+    ``spec.max_rounds`` is inert for this engine)."""
+    impl = resolve_impl(spec.forbidden_impl)
+    with obs.phase("prepare"):
+        prob = prepare(g, spec.seed, spec.n_chunks, spec.ell_cap, spec.C,
+                       spec.relabel, device=device)
+    ctx = PassContext.for_problem(prob, n_chunks=spec.n_chunks,
+                                  forbidden_impl=impl)
+    with obs.phase("solve", C=prob.C):
+        colors, defect, ovf = _block_until_ready(
+            _gm_round0(prob.ell, prob.ovf_src, prob.ovf_dst, prob.pri, ctx))
+    colors_np = _to_numpy(colors[:prob.n]).copy()
+    defect_np = _to_numpy(defect[:prob.n])
+    # serial repair in the *relabeled* space: rebuild neighbor lists from ELL
+    # plus the COO overflow side-channel (capped-width hub rows spill there —
+    # skipping it produced improper repairs on power-law graphs).
+    with obs.phase("serial_repair",
+                   n_defects=int(defect_np.sum())):
+        ell_np = _to_numpy(prob.ell)
+        osrc_np = _to_numpy(prob.ovf_src)
+        odst_np = _to_numpy(prob.ovf_dst)
+        order = np.argsort(osrc_np, kind="stable")
+        osrc_sorted, odst_sorted = osrc_np[order], odst_np[order]
+        for v in np.nonzero(defect_np)[0]:
+            nb = ell_np[v]
+            nb = nb[(nb >= 0) & (nb < prob.n)]
+            if len(osrc_sorted):
+                lo, hi = np.searchsorted(osrc_sorted, [v, v + 1])
+                nb = np.concatenate([nb, odst_sorted[lo:hi]])
+            nc = colors_np[nb]
+            used = set(int(x) for x in nc if x >= 0)
+            c = 0
+            while c in used:
+                c += 1
+            colors_np[v] = c
+    tot = int(defect_np.sum())
+    colors_out = _unpermute(colors_np, prob.perm, prob.n)
+    return ColoringResult(colors=colors_out, n_rounds=1,
+                          conflicts_per_round=np.array([tot]),
+                          total_conflicts=tot,
+                          n_colors=n_colors_used(colors_out),
+                          overflow=bool(ovf),
+                          gather_passes=2, final_C=prob.C, retries=0)
+
+
+@registry.register_engine("jp", distance=1, mode="static",
+                          replaces="color_jp")
+def _jp_engine(g: CSRGraph, spec, *, device="cpu") -> ColoringResult:
+    """Jones-Plassmann priority-MIS baseline (COO formulation; the ELL/chunk
+    fields of the spec — n_chunks, ell_cap, relabel — are inert here)."""
+    impl = resolve_impl(spec.forbidden_impl)
+    n = g.n_vertices
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)
+                                ).to(device)
+
+    with obs.phase("prepare"):
+        e = to_edge_list(g)
+        src, dst = dev(e[:, 0]), dev(e[:, 1])
+        pri = dev(np.random.default_rng(spec.seed).permutation(n))
+    (colors, r, _), Cv, retries = _run_with_retry(
+        lambda Cv: _jp_loop(src, dst, pri, n, Cv, spec.max_rounds, impl),
+        _pick_C(g, spec.C), engine="jp",
+        max_retries=spec.max_cap_retries)
+    colors = _to_numpy(colors)
+    if (colors < 0).any():
+        # never silent: a JP round bound that is too small would otherwise
+        # return a partial coloring with -1 entries (adversarial priority
+        # chains need one round per step)
+        raise RuntimeError(
+            f"JP left {int((colors < 0).sum())} vertices uncolored after "
+            f"max_rounds={spec.max_rounds}; raise ColoringSpec.max_rounds "
+            f"(JP needs one round per step of its longest decreasing "
+            f"priority path)")
+    return ColoringResult(colors=colors, n_rounds=int(r),
+                          conflicts_per_round=np.zeros(1),
+                          total_conflicts=0,
+                          n_colors=n_colors_used(colors),
+                          overflow=retries > 0,
+                          gather_passes=int(r),
+                          final_C=Cv, retries=retries)
+
+
+# --------------------------------------------------------------------------
+# legacy entry points: thin deprecation shims over repro_torch.api.color
+# --------------------------------------------------------------------------
+
+def color_rsoc(g: CSRGraph, seed: int = 0, C: Optional[int] = None,
+               n_chunks: int = 16, max_rounds: int = 1000,
+               ell_cap: int = 512, relabel: bool = True,
+               forbidden_impl: Optional[str] = None, *,
+               device=None) -> ColoringResult:
+    """Deprecated: use ``repro_torch.api.color(g, algorithm="rsoc", ...)``.
+    ``device`` as for ``api.color``."""
+    return registry.legacy_entry(
+        "color_rsoc", "algorithm='rsoc'", g, algorithm="rsoc", seed=seed,
+        C=C, n_chunks=n_chunks, max_rounds=max_rounds, ell_cap=ell_cap,
+        relabel=relabel, forbidden_impl=forbidden_impl, device=device)
+
+
+def color_cat(g: CSRGraph, seed: int = 0, C: Optional[int] = None,
+              n_chunks: int = 16, max_rounds: int = 1000,
+              ell_cap: int = 512, relabel: bool = True,
+              forbidden_impl: Optional[str] = None, *,
+              device=None) -> ColoringResult:
+    """Deprecated: use ``repro_torch.api.color(g, algorithm="cat", ...)``.
+    ``device`` as for ``api.color``."""
+    return registry.legacy_entry(
+        "color_cat", "algorithm='cat'", g, algorithm="cat", seed=seed,
+        C=C, n_chunks=n_chunks, max_rounds=max_rounds, ell_cap=ell_cap,
+        relabel=relabel, forbidden_impl=forbidden_impl, device=device)
+
+
+def color_gm(g: CSRGraph, seed: int = 0, C: Optional[int] = None,
+             n_chunks: int = 16, ell_cap: int = 512,
+             relabel: bool = True,
+             forbidden_impl: Optional[str] = None, *,
+             device=None) -> ColoringResult:
+    """Deprecated: use ``repro_torch.api.color(g, algorithm="gm", ...)``.
+    ``device`` as for ``api.color``."""
+    return registry.legacy_entry(
+        "color_gm", "algorithm='gm'", g, algorithm="gm", seed=seed,
+        C=C, n_chunks=n_chunks, ell_cap=ell_cap, relabel=relabel,
+        forbidden_impl=forbidden_impl, device=device)
+
+
+def color_jp(g: CSRGraph, seed: int = 0, C: Optional[int] = None,
+             max_rounds: int = 10000,
+             forbidden_impl: Optional[str] = None, *,
+             device=None) -> ColoringResult:
+    """Deprecated: use ``repro_torch.api.color(g, algorithm="jp", ...)``.
+    ``device`` as for ``api.color``."""
+    return registry.legacy_entry(
+        "color_jp", "algorithm='jp'", g, algorithm="jp", seed=seed, C=C,
+        max_rounds=max_rounds, forbidden_impl=forbidden_impl, device=device)
+
+
+class _AlgorithmsView(Mapping):
+    """``ALGORITHMS`` as a live registry view (DESIGN.md §11).
+
+    Keys are the algorithm names registered for the classic combo
+    (distance=1, mode="static", backend="local"); values are callables
+    ``fn(g, **overrides) -> ColoringResult`` that route through
+    ``repro_torch.api.color`` — the supported bulk interface, so unlike the
+    ``color_*`` shims it does not emit deprecation warnings.  ``overrides``
+    are spec fields and ``api.color``'s ``device``.
+    """
+
+    def _names(self) -> list[str]:
+        from repro_torch import api
+        return api.algorithms()   # the (1, "static", "local") slice
+
+    def __getitem__(self, name: str):
+        if name not in self._names():
+            raise KeyError(name)
+
+        def run(g, **overrides):
+            from repro_torch import api
+            return api.color(g, algorithm=name, **overrides)
+
+        run.__name__ = f"color_via_registry[{name}]"
+        return run
+
+    def __iter__(self):
+        return iter(self._names())
+
+    def __len__(self) -> int:
+        return len(self._names())
+
+    def __repr__(self) -> str:
+        return f"ALGORITHMS({', '.join(self._names())})"
+
+
+ALGORITHMS = _AlgorithmsView()

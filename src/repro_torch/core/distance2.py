@@ -55,18 +55,12 @@ def color_distance_d(g: CSRGraph, d: int = 2, algorithm: str = "rsoc", *,
                      device=None, **kwargs
                      ) -> tuple[col.ColoringResult, CSRGraph]:
     """Color G^d by materializing the power graph (oracle path), with the
-    registered distance-1 static engine ``algorithm``.  ``device`` as for
-    ``api.color``."""
-    if not registry.has_engine(algorithm, 1, "static", "local"):
-        ported = sorted({k[0] for k in registry.engine_keys()
-                         if k[1:] == (1, "static", "local")})
-        raise ValueError(
-            f"algorithm {algorithm!r} is not ported to repro_torch yet; "
-            f"distance-1 static engines here: {ported}")
-    from repro_torch import api   # call-time import: api imports this module
+    distance-1 static engine ``col.ALGORITHMS[algorithm]`` (an unknown name
+    raises ``KeyError``).  ``device`` as for ``api.color``."""
     gd = power_graph(g, d)
-    res = api.color(gd, algorithm=algorithm, device=device, **kwargs)
-    return dataclasses.replace(res, distance=d), gd
+    fn = col.ALGORITHMS[algorithm]
+    res = dataclasses.replace(fn(gd, device=device, **kwargs), distance=d)
+    return res, gd
 
 
 def is_distance_d_proper(g: CSRGraph, colors: np.ndarray, d: int) -> bool:

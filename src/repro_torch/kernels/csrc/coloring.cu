@@ -59,6 +59,9 @@
 //    vertex row_ids[r] (clamped to [0, n-1]): it reads that vertex's colour,
 //    priority and row of the full ELL table; forb0, extra_defect and the
 //    per-row flags stay indexed by r.
+//  * Detect only (DETECT, out_c null: CAT's separate detect pass): the
+//    defect test alone — no forbidden words, no mex — and recolored the one
+//    output, the same flags as the full pass's.
 //
 // Bit conventions (equal to core/bitset.py): bit (c & 31) of word (c >> 5) is
 // colour c; bits for colours >= C are pre-forbidden; colours outside [0, C)
@@ -89,9 +92,10 @@ pass_body(const int* __restrict__ ell,             // (R, W) or (>= n, W)
           const uint8_t* __restrict__ force,       // (R,)      or null
           const uint8_t* __restrict__ valid,       // (R,)      or null
           const int* __restrict__ row_ids,         // (R,)      or null
-          int* __restrict__ out_c,                 // (R,) mex / new colour
+          int* __restrict__ out_c,                 // (R,) mex / new colour,
+                                                   //   or null: detect only
           uint8_t* __restrict__ out_rec,           // (R,)      DETECT
-          uint8_t* __restrict__ out_ovf,           // (R,)
+          uint8_t* __restrict__ out_ovf,           // (R,) or null with out_c
           int R, int W, int n, int C, int nW, int row_start) {
   const long long gtid =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
@@ -110,6 +114,8 @@ pass_body(const int* __restrict__ ell,             // (R, W) or (>= n, W)
     ell_row = ell + vid * W;
   }
 
+  // detect only: the defect test, and recolored the one output
+  const bool only = DETECT && out_c == nullptr;
   int c_r = -1, p_r = -1;
   if constexpr (DETECT) {
     c_r = colors[vid];
@@ -120,9 +126,11 @@ pass_body(const int* __restrict__ ell,             // (R, W) or (>= n, W)
                           (U[row] != 0 || (force != nullptr && force[row] != 0));
     if (!may_work) {
       if (lane == 0) {
-        out_c[row] = c_r;
+        if (!only) {
+          out_c[row] = c_r;
+          out_ovf[row] = 0;
+        }
         out_rec[row] = 0;
-        out_ovf[row] = 0;
       }
       return;
     }
@@ -148,8 +156,9 @@ pass_body(const int* __restrict__ ell,             // (R, W) or (>= n, W)
       if constexpr (DETECT) {
         if (wb == 0 && c == c_r && c_r >= 0 && pri[idx] > p_r) defect = true;
       }
-      coloring::or_colour<NW>(w, c, C, wb);
+      if (!only) coloring::or_colour<NW>(w, c, C, wb);
     }
+    if (only) break;                         // uniform: the group's flag
     mex = coloring::window_mex<G, NW>(w, mask, wb);
   }
   const bool ovf = mex < 0;
@@ -167,9 +176,11 @@ pass_body(const int* __restrict__ ell,             // (R, W) or (>= n, W)
     if (force != nullptr && force[row] != 0) work = true;
     if (valid != nullptr && valid[row] == 0) work = false;
     if (lane == 0) {
-      out_c[row] = work ? mex : c_r;
+      if (!only) {
+        out_c[row] = work ? mex : c_r;
+        out_ovf[row] = (ovf && work) ? 1 : 0;
+      }
       out_rec[row] = work ? 1 : 0;
-      out_ovf[row] = (ovf && work) ? 1 : 0;
     }
   }
 }

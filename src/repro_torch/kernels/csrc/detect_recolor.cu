@@ -11,6 +11,10 @@
 // forb0 (R, nW) words are OR-ed into the first words of each window,
 // extra_defect (R,) into the defect flags.
 //
+// Detect only (newc and ovf null): CAT's separate detect pass.  The defect
+// test alone — no forbidden words, no mex — writing only recolored, the
+// same flags as the full pass's recolored; forb0 is not read.
+//
 // What bounds it.  At the main path's hardest chunk (RMAT-B, 262144 x 512,
 // 97 % FILL) the pass must stream the whole tile once — 537 MB, nearly all
 // of its bytes bound — and gather a few colours per row from L2.  A
@@ -57,14 +61,16 @@ cudaError_t detect_recolor_direct(
 // their (R, W) tile.  row_ids given: ell is the full table (>= n rows) and
 // row_start is unused.  lanes: 1 2 4 8 16 32; window: forbidden words a
 // window (2, 8 or 16 for "direct", 1..16 for "vec16"); design: 0 "vec16"
-// (W % 4 == 0, ell 16-B aligned), 1 "direct".
+// (W % 4 == 0, ell 16-B aligned), 1 "direct".  newc and ovf both null:
+// detect only (recolored is the one output).
 extern "C" int coloring_detect_recolor(
     const void* ell, const void* colors, const void* pri, const void* U,
     const void* forb0, const void* extra_defect, const void* force,
     const void* valid, const void* row_ids, void* newc, void* recolored,
     void* ovf, int R, int W, int n, int C, int row_start, int lanes,
     int window, int design, void* stream) {
-  if (R < 1 || W < 1 || n < 1 || C < 1 ||
+  if (R < 1 || W < 1 || n < 1 || C < 1 || recolored == nullptr ||
+      (newc == nullptr) != (ovf == nullptr) ||
       (row_ids == nullptr &&
        (row_start < 0 || static_cast<long long>(row_start) + R > n)) ||
       design < 0 || design > 1 ||

@@ -22,6 +22,9 @@
 //    costs R / (T * G) such steps a group.  With U null (first fit) every
 //    row works and nothing is read for the scan: no flag, no colour of the
 //    row's own (R may exceed n there, and row r is no vertex).
+//  * Detect only (HOPS 1, out_c null: CAT's separate detect pass).  The
+//    defect test alone: no forbidden words, no mex, and only `recolored`
+//    is written — the same flags as the full pass's `recolored`.
 //  * Issue every copy before using any.  HOPS 1 copies the row's W ids
 //    (the tile is one contiguous span; with row_ids one row of the full
 //    table); HOPS 2 first packs the row's live ids into shared memory with
@@ -85,9 +88,10 @@ struct Args {
   const uint8_t* force;         // (R,) or null
   const uint8_t* valid;         // (R,) or null
   const int* row_ids;           // (R,) or null
-  int* out_c;                   // (R,)
+  int* out_c;                   // (R,), or null: detect only (HOPS 1;
+                                //   out_ovf null too)
   uint8_t* out_rec;             // (R,), or null with U null
-  uint8_t* out_ovf;             // (R,)
+  uint8_t* out_ovf;             // (R,), or null with out_c null
   int R, W, n, C, nW, row_start, window;
   bool detect;                  // false: round 0, no defect test
 };
@@ -169,6 +173,8 @@ pass(const Args a) {
   const unsigned below = (1u << lane) - 1u;
   const int W = a.W, n = a.n, C = a.C, nW = a.nW, NWw = a.window;
   const int ids_warp = HOPS == 2 ? kGroups * ((W + 3) & ~3) : 0;
+  // detect only: the defect test, and recolored the one output
+  const bool only = HOPS == 1 && a.out_c == nullptr;
   int* const wbase = smem + (threadIdx.x >> 5) * (kStages * (kStageInts +
                                                              ids_warp) +
                                                   kGroups * kMaxWindow);
@@ -210,9 +216,11 @@ pass(const Args a) {
         const bool forced = a.force != nullptr && a.force[r] != 0;
         w = (a.valid == nullptr || a.valid[r] != 0) && (in_u || forced);
         if (!w) {
-          a.out_c[r] = c;
+          if (!only) {
+            a.out_c[r] = c;
+            a.out_ovf[r] = 0;
+          }
           a.out_rec[r] = 0;
-          a.out_ovf[r] = 0;
         }
         s_vid = static_cast<int>(v);
         s_c = c;
@@ -315,19 +323,24 @@ pass(const Args a) {
     bool defect = false;
     int mex = -1;
     for (int wb = 0; wb < nW && mex < 0; wb += NWw) {
-      for (int k = lane; k < NWw; k += G) {
-        unsigned x = tail_word(wb + k, C);
-        if (a.forb0 != nullptr && wb + k < nW)
-          x |= static_cast<unsigned>(a.forb0[row * nW + wb + k]);
-        words[k] = x;
+      if (!only) {
+        for (int k = lane; k < NWw; k += G) {
+          unsigned x = tail_word(wb + k, C);
+          if (a.forb0 != nullptr && wb + k < nW)
+            x |= static_cast<unsigned>(a.forb0[row * nW + wb + k]);
+          words[k] = x;
+        }
       }
       __syncwarp(mask);
       const bool probe = test && wb == 0;
-      const int lo = wb * 32, span = min(C - lo, NWw * 32);
+      // detect only: span 0 folds no colour into the (unused) words
+      const int lo = wb * 32, span = only ? 0 : min(C - lo, NWw * 32);
       if constexpr (HOPS == 2)                       // hop 1: the live ids
         gather(ids0 + buf * ids_warp, items, -1, lo, span, probe, c_r, p_r,
                defect);
-      for (int b = 0; b < nbat; ++b) {
+      // detect only: a row that is not tested reads nothing (uniform in
+      // the group: c_r and bits are the group's)
+      for (int b = 0; b < (only && !probe ? 0 : nbat); ++b) {
         if (b > 0 || (wb > 0 && nbat > 1)) {
           __syncwarp(mask);            // every lane is done with the stage
           issue(b, row, vid, items, buf);
@@ -340,6 +353,7 @@ pass(const Args a) {
                defect);
       }
       __syncwarp(mask);
+      if (only) break;
       for (int k = 0; k < NWw; ++k) {
         const unsigned x = words[k];
         if (x != 0xFFFFFFFFu) {
@@ -355,9 +369,11 @@ pass(const Args a) {
     if (a.extra_defect != nullptr && a.extra_defect[row] != 0) defect = true;
     const bool work = forced || (in_u && (a.detect ? defect : true));
     if (lane == 0) {
-      a.out_c[row] = work ? mex : c_r;
+      if (!only) {
+        a.out_c[row] = work ? mex : c_r;
+        a.out_ovf[row] = (ovf && work) ? 1 : 0;
+      }
       if (a.out_rec != nullptr) a.out_rec[row] = work ? 1 : 0;
-      a.out_ovf[row] = (ovf && work) ? 1 : 0;
     }
   };
 

@@ -41,10 +41,21 @@ meshes on an H100.  The rule (``design``) is first fit's, in
 The kernel writes ``newc`` and never ``colors``: every row of a launch sees
 the pre-launch colours whatever the block order; the caller commits.
 
+``detect_only=True`` is CAT's separate detect pass (phase B,
+``core/coloring._detect_pass``) on the same kernel: the defect test alone,
+with the forbidden set, the mex and the ``newc`` / ``ovf`` writes switched
+off (null output pointers).  It returns the ``(R,)`` flags that the full
+pass returns as ``recolored`` — ``valid & ((U & (defect | extra_defect)) |
+force)`` — and takes no ``forb0``.  Its bytes bound drops the 5 output bytes
+of ``newc`` / ``ovf`` a row; it reads what the full pass reads minus
+``forb0``.
+
 ``detect_recolor`` launches the kernel for CUDA tensors and takes the plain
 version for CPU tensors — for those only: on a CUDA tensor it launches or
-raises.  ``detect_recolor.launches`` counts the launches,
-``launches_vec16`` / ``launches_direct`` those of each design.
+raises.  ``detect_recolor.launches`` counts the launches of the full pass,
+``launches_vec16`` / ``launches_direct`` those of each design;
+``launches_detect`` (and ``launches_detect_vec16`` / ``_direct``) count the
+detect-only launches, which the first three do not.
 """
 from __future__ import annotations
 
@@ -64,10 +75,17 @@ from repro_torch.kernels.firstfit import (  # noqa: F401
 from repro_torch.kernels import ref
 
 
+def check_detect_only(forb0) -> None:
+    """``detect_only`` computes no forbidden set: it takes no ``forb0``."""
+    if forb0 is not None:
+        raise ValueError("detect_only computes no forbidden set: forb0 must "
+                         "be None")
+
+
 def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
                    forb0=None, extra_defect=None, force=None, valid=None, *,
                    row_ids=None, lanes: Optional[int] = None,
-                   window: Optional[int] = None):
+                   window: Optional[int] = None, detect_only: bool = False):
     """Fused RSOC pass for rows [row_start, row_start + R), or for the
     vertices ``row_ids``.
 
@@ -75,10 +93,12 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
     full (>= n, W) table instead, and ``row_start`` unused; colors, pri (n,)
     int32; U_rows (R,) bool; optional forb0 (R, n_words(C)) int32 and
     extra_defect / force / valid (R,) bool.  Returns (new row colors (R,)
-    int32, recolored (R,) bool, overflow (R,) bool).  ``lanes`` /
-    ``window`` override the launch shape (the result does not depend on
-    them).
+    int32, recolored (R,) bool, overflow (R,) bool); with ``detect_only``
+    the recolored flags alone (no ``forb0``).  ``lanes`` / ``window``
+    override the launch shape (the result does not depend on them).
     """
+    if detect_only:
+        check_detect_only(forb0)
     lanes_given = lanes is not None
     if row_ids is None:
         R, W, n, lanes, window = check_common(ell, colors, C, forb0, lanes,
@@ -108,15 +128,17 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
         return ref.detect_recolor_ref(
             ell, colors, pri, row_start, U_rows, C, forb0=forb0,
             extra_defect=extra_defect, force=force, valid=valid,
-            row_ids=row_ids)
+            row_ids=row_ids, detect_only=detect_only)
     aligned = ell.data_ptr() % 16 == 0
     route = design(W, aligned)
     if not lanes_given:
         lanes = default_lanes(W, aligned)
     lib = _build.library()
-    newc = torch.empty((R,), dtype=torch.int32, device=device)
     rec = torch.empty((R,), dtype=torch.bool, device=device)
-    ovf = torch.empty((R,), dtype=torch.bool, device=device)
+    newc = ovf = None                    # detect only: null output pointers
+    if not detect_only:
+        newc = torch.empty((R,), dtype=torch.int32, device=device)
+        ovf = torch.empty((R,), dtype=torch.bool, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.coloring_detect_recolor(
@@ -124,6 +146,10 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
             ptr(extra_defect), ptr(force), ptr(valid), ptr(row_ids),
             ptr(newc), ptr(rec), ptr(ovf), R, W, n, int(C), row_start, lanes,
             window, DESIGNS.index(route), stream)
+    if detect_only:
+        check_launch(f"detect_recolor ({route}, detect only)", err)
+        count_launch(detect_recolor, route, "launches_detect")
+        return rec
     check_launch(f"detect_recolor ({route})", err)
     count_launch(detect_recolor, route)
     return newc, rec, ovf
@@ -132,3 +158,6 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
 detect_recolor.launches = 0
 detect_recolor.launches_vec16 = 0
 detect_recolor.launches_direct = 0
+detect_recolor.launches_detect = 0
+detect_recolor.launches_detect_vec16 = 0
+detect_recolor.launches_detect_direct = 0

@@ -166,11 +166,12 @@ def check_launch(name: str, err: int) -> None:
                            f"(cudaError {err})")
 
 
-def count_launch(wrapper, route: str) -> None:
-    """One launch of ``wrapper``'s kernel, on the design ``route``."""
-    wrapper.launches += 1
-    setattr(wrapper, f"launches_{route}",
-            getattr(wrapper, f"launches_{route}") + 1)
+def count_launch(wrapper, route: str, counter: str = "launches") -> None:
+    """One launch of ``wrapper``'s kernel, on the design ``route``: in
+    ``wrapper.<counter>`` and ``wrapper.<counter>_<route>``."""
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+    setattr(wrapper, f"{counter}_{route}",
+            getattr(wrapper, f"{counter}_{route}") + 1)
 
 
 def firstfit(ell, colors, C: int, forb0=None, *, lanes: Optional[int] = None,

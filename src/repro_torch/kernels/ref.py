@@ -23,7 +23,9 @@ the defect flags, ``force`` / ``valid`` (R,) bool so that ``work = valid &
 ELL table instead of ``row_start + r`` of a tile — the compacted-frontier
 passes.  ``twohop_ref`` also takes ``detect=False`` (round 0: ``work = valid
 & (U | force)``, no priority read).  With all of them absent the outputs are
-the reference's.
+the reference's.  ``detect_recolor_ref`` also takes ``detect_only=True``
+(CAT's separate detect pass): it returns the ``recolored`` flags alone and
+computes no forbidden set and no mex.
 """
 from __future__ import annotations
 
@@ -126,12 +128,14 @@ def _work(U_rows, defect, force, valid):
 
 def detect_recolor_ref(ell, colors, pri, row_start: int, U_rows, C: int,
                        impl: str = "bitset", forb0=None, extra_defect=None,
-                       force=None, valid=None, row_ids=None):
+                       force=None, valid=None, row_ids=None,
+                       detect_only: bool = False):
     """For rows [row_start, row_start+R) — or, with ``row_ids``, vertices
     ``row_ids`` of the full table ``ell`` — if in U and defective (same color
     as a higher-priority neighbor), re-color with first-fit; else keep.
 
-    returns (new row colors (R,), recolored (R,) bool, overflow (R,) bool)
+    returns (new row colors (R,), recolored (R,) bool, overflow (R,) bool);
+    with ``detect_only`` the recolored flags alone (R,) bool
     """
     R = ell.shape[0] if row_ids is None else row_ids.shape[0]
     vid = _row_ids(row_ids, row_start, R, colors.shape[0], ell.device)
@@ -145,6 +149,8 @@ def detect_recolor_ref(ell, colors, pri, row_start: int, U_rows, C: int,
               & (nbrp > p_r[:, None])).any(dim=1)
     if extra_defect is not None:
         defect = defect | extra_defect
+    if detect_only:
+        return _work(U_rows, defect, force, valid)
     mex, ovf = _forbidden_mex(nbrc, C, impl, forb0)
     return bitset.apply_recolor(_work(U_rows, defect, force, valid), mex, ovf,
                                 c_r)

@@ -4,10 +4,11 @@
 
 The file ties the port's output on a GPU (``chip_smoke.py`` reads it there,
 where JAX is not used) to the reference package's.  Per run of ``runs()`` —
-``paper_suite("tiny")`` x seeds 0-2 with the default spec and with
-``distance=2``, and two bipartite graphs x seeds 0-2 with ``distance=2,
-mode="partial"`` — it holds the integer result fields of ``repro.api.color``
-and a SHA-256 of ``colors.tobytes()`` (int32).  ``tests/test_torch_golden.py``
+``paper_suite("tiny")`` x seeds 0-2 with the default spec, with
+``distance=2`` and with ``algorithm=`` each of the paper's baselines
+``cat``, ``gm`` and ``jp``, and two bipartite graphs x seeds 0-2 with
+``distance=2, mode="partial"`` — it holds the integer result fields of
+``repro.api.color`` and a SHA-256 of ``colors.tobytes()`` (int32).  ``tests/test_torch_golden.py``
 fails when the file is stale.
 """
 import hashlib
@@ -30,6 +31,7 @@ def entry(res) -> dict:
 
 
 N_LEFT = 80      # left side of the bipartite graphs (mode="partial")
+BASELINES = ("cat", "gm", "jp")   # the distance-1 engines beside RSOC
 
 
 def runs(gen):
@@ -39,6 +41,9 @@ def runs(gen):
         for seed in SEEDS:
             yield f"{name}/seed={seed}", g, dict(seed=seed)
             yield f"d2/{name}/seed={seed}", g, dict(seed=seed, distance=2)
+            for algo in BASELINES:
+                yield (f"{algo}/{name}/seed={seed}", g,
+                       dict(seed=seed, algorithm=algo))
     bipartite = {"bipartite_random": gen.bipartite_random(N_LEFT, 50, 3.0,
                                                           seed=7),
                  "bipartite_banded": gen.bipartite_banded(N_LEFT, 50)}
@@ -58,7 +63,8 @@ def main() -> None:
     from repro.graphs import generators
     doc = {"generated_by": "tests/make_torch_golden.py (repro.api.color, "
                            "paper_suite('tiny') x seeds 0-2 at distance 1 "
-                           "and 2, bipartite partial x seeds 0-2)",
+                           "and 2 and with cat / gm / jp, bipartite partial "
+                           "x seeds 0-2)",
            "results": compute(api.color, generators)}
     with open(PATH, "w") as f:
         json.dump(doc, f, indent=1, sort_keys=True)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro import api as japi
+from repro import registry as jregistry
 from repro.core import coloring as jcol
 from repro.core.context import PassContext as JPassContext
 from repro.graphs.generators import paper_suite as j_paper_suite
@@ -218,19 +219,40 @@ def test_externally_seeded_repair_loop(name, ell_cap):
     assert int(tout[1]) >= 2 and int(tout[3]) > 0
 
 
-@pytest.mark.parametrize("kw", [dict(algorithm="cat"), dict(algorithm="gm"),
-                                dict(mode="incremental"),
-                                dict(backend="distributed"),
-                                dict(algorithm="jp")],
-                         ids=lambda kw: "-".join(map(str, kw.values())))
-def test_unsupported_specs_name_the_ported_engine(kw):
+# combos the port does not run (CAT, GM and JP themselves are ported: their
+# cases now ask for a distance, mode or backend they lack); the ids are the
+# cases' ids from before those engines were ported
+_UNSUPPORTED = [
+    (dict(algorithm="cat", distance=2), ("rsoc", 2, "static", "local")),
+    (dict(algorithm="gm", mode="partial", n_left=3),
+     ("rsoc", 2, "partial", "local")),
+    (dict(mode="incremental"), ("rsoc", 1, "static", "local")),
+    (dict(backend="distributed"), ("rsoc", 1, "static", "local")),
+    (dict(algorithm="jp", backend="distributed"),
+     ("jp", 1, "static", "local"))]
+
+
+@pytest.mark.parametrize("kw,near", _UNSUPPORTED,
+                         ids=["cat", "gm", "incremental", "distributed",
+                              "jp"])
+def test_unsupported_specs_name_the_ported_engine(kw, near):
     with pytest.raises(ValueError) as e:
         tapi.ColoringSpec(**kw).validate()
-    key = (kw.get("algorithm", "rsoc"), 1, kw.get("mode", "static"),
-           kw.get("backend", "local"))
-    assert tregistry.nearest_key(key) == ("rsoc", 1, "static", "local")
-    assert ("nearest supported spec: algorithm='rsoc', distance=1, "
-            "mode='static', backend='local'") in str(e.value)
+    key = (kw.get("algorithm", "rsoc"), kw.get("distance", 1),
+           kw.get("mode", "static"), kw.get("backend", "local"))
+    assert not tregistry.has_engine(*key)
+    assert tregistry.nearest_key(key) == near
+    assert ("nearest supported spec: " + tregistry.format_key(near)) \
+        in str(e.value)
+    if not jregistry.has_engine(*key) and \
+            tregistry.has_engine(*jregistry.nearest_key(key)):
+        # a combo neither package runs, whose nearest spec in the reference
+        # the port runs too: both name it
+        assert jregistry.nearest_key(key) == near
+        with pytest.raises(ValueError) as je:
+            japi.ColoringSpec(**kw).validate()
+        assert str(e.value) == str(je.value).replace("repro.api",
+                                                     "repro_torch.api")
     with pytest.raises(ValueError):
         tapi.color(T_SUITE["mesh2d"], device="cpu", **kw)
 
@@ -242,19 +264,22 @@ def test_spec_and_surface_parity():
     assert tapi.ColoringSpec(seed=3, C=64).spec_key() == \
         japi.ColoringSpec(seed=3, C=64).spec_key()
     assert "device" not in tapi.SPEC_FIELDS
-    ported = [("rsoc", 1, "static", "local"), ("rsoc", 2, "partial", "local"),
+    ported = [("cat", 1, "static", "local"), ("gm", 1, "static", "local"),
+              ("jp", 1, "static", "local"),
+              ("rsoc", 1, "static", "local"), ("rsoc", 2, "partial", "local"),
               ("rsoc", 2, "static", "local"),
               ("rsoc_compact", 1, "static", "local")]
     key = lambda r: (r["algorithm"], r["distance"], r["mode"], r["backend"])
     assert [key(r) for r in tapi.supported_specs()] == ported
-    assert tapi.algorithms() == ["rsoc", "rsoc_compact"]
+    assert tapi.algorithms() == japi.algorithms() == \
+        ["cat", "gm", "jp", "rsoc", "rsoc_compact"]
     assert tapi.algorithms(distance=2) == ["rsoc"]
     assert tapi.algorithms(distance=2, mode="partial") == ["rsoc"]
     rows = [r for r in japi.supported_specs() if key(r) in ported]
     assert rows == tapi.supported_specs()
     assert {r["replaces"] for r in rows} == {
         "color_rsoc", "color_rsoc_compact", "color_distance2",
-        "color_bipartite_partial"}
+        "color_bipartite_partial", "color_cat", "color_gm", "color_jp"}
     for bad in (dict(n_chunks=0), dict(C=0), dict(max_rounds=0),
                 dict(forbidden_impl="sparse"), dict(mode="nope"),
                 dict(n_left=3)):

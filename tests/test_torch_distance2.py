@@ -286,8 +286,17 @@ def test_oracles_and_materialized_path():
     bad[0] = bad[e]
     assert not td2.is_distance_d_proper(g_t, bad, 2)
     assert not jd2.is_distance_d_proper(g_j, bad, 2)
-    with pytest.raises(ValueError, match="'gm' is not ported"):
-        td2.color_distance_d(g_t, 2, algorithm="gm", device="cpu")
+    # another distance-1 engine through ALGORITHMS, as the reference's
+    jr_gm, _ = jd2.color_distance_d(g_j, 2, algorithm="gm", seed=1)
+    tr_gm, _ = td2.color_distance_d(g_t, 2, algorithm="gm", seed=1,
+                                    device="cpu")
+    assert_results_equal(jr_gm, tr_gm)
+    assert td2.is_distance_d_proper(g_t, tr_gm.colors, 2)
+    with pytest.raises(KeyError) as je:
+        jd2.color_distance_d(g_j, 2, algorithm="luby")
+    with pytest.raises(KeyError) as te:
+        td2.color_distance_d(g_t, 2, algorithm="luby", device="cpu")
+    assert str(te.value) == str(je.value)
     for name in sorted(J_BIP):
         want = jd2.bipartite_partial_oracle(J_BIP[name], 80)
         got = td2.bipartite_partial_oracle(T_BIP[name], 80)

@@ -40,6 +40,8 @@ def test_golden_file_covers_the_suite():
     assert sorted(GOLDEN) == KEYS == sorted(T_RUNS)
     assert sum(k.startswith("d2/") for k in KEYS) == 18
     assert sum(k.startswith("partial/") for k in KEYS) == 6
+    for algo in make_torch_golden.BASELINES:
+        assert sum(k.startswith(f"{algo}/") for k in KEYS) == 18
     for entry in GOLDEN.values():
         assert sorted(entry) == sorted(make_torch_golden.FIELDS
                                        + ("colors_sha256",))
@@ -47,7 +49,8 @@ def test_golden_file_covers_the_suite():
 
 
 # ids as "<graph>-<seed>" for the distance-1 entries (their ids since the
-# file began), "d2-<graph>-<seed>" and "partial-<graph>-<seed>" for the rest
+# file began), "d2-<graph>-<seed>", "partial-<graph>-<seed>" and
+# "<cat|gm|jp>-<graph>-<seed>" for the rest
 @pytest.mark.parametrize(
     "key", KEYS, ids=lambda k: k.replace("/seed=", "-").replace("/", "-"))
 def test_golden_equals_reference_and_port(key):

@@ -64,7 +64,8 @@ def test_every_module_is_found():
     for m in ("repro_torch.api", "repro_torch.registry",
               "repro_torch.core.bitset", "repro_torch.core.coloring",
               "repro_torch.core.context", "repro_torch.core.distance2",
-              "repro_torch.core.frontier", "repro_torch.graphs.csr",
+              "repro_torch.core.frontier", "repro_torch.core.schedule",
+              "repro_torch.graphs.csr",
               "repro_torch.graphs.generators", "repro_torch.kernels._build",
               "repro_torch.kernels.firstfit",
               "repro_torch.kernels.detect_recolor",
