@@ -24,12 +24,17 @@ ends the run with a non-zero exit code:
               staged designs (phase_kernels_staged); B4 at its edges (d
               1-300, W 1-44, max over non-finite features); B2's
               detect-only form on both designs and CAT's phase A route
-              (phase_kernels_detect_only)
+              (phase_kernels_detect_only); B2's slot-stride form on both
+              designs (phase_kernels_slots: S 1-32 slots, W 12-516, C
+              4-256), each launch bit-equal to its plain version and to
+              one launch a slot
   4. golden   paper_suite("tiny") x seeds 0-2 at distance 1 and 2 and with
               algorithm cat / gm / jp, and two bipartite graphs
               (mode="partial"), through repro_torch.api.color on the card
               against tests/torch_golden.json (made by the JAX reference
-              package)
+              package); the file's incremental streams (each tiny graph,
+              10 batches of recolor_incremental) and its megabatched
+              service run (8 tenants, 2 steps), entry for entry
   5. main     repro_torch.api.color(g), default spec, on the paper's graph
               classes at real size; launch counters zeroed before, read
               after, launches per design logged per graph (B1: vec16 on the
@@ -44,6 +49,16 @@ ends the run with a non-zero exit code:
               B1 n_chunks, detect-only 1; JP: nothing, no dispatch); after
               5c, the paper's Table 1: RSOC (5), CAT (5f), rsoc_compact (5c)
               solve_ms, rounds, gather passes, conflicts, colours
+  5g. incr.   on RMAT-G and RMAT-B while they are in memory:
+              api.color(g, mode="incremental", seed=1), then 10 batches of
+              0.1 % of the undirected edges and one of 1 % (half random
+              inserts, half deletes of current edges) through
+              recolor_incremental, each traced (apply / repair ms), counts
+              zeroed before and read after (B2 n_chunks a gather pass),
+              proper on the card over ELL and overflow edges, gather passes
+              held against 5's from-scratch run; the same stream from the
+              same start state with kernel.fallback armed, field-equal at
+              every batch
   5c. d2      api.color(g, distance=2) on the meshes and RMAT-ER,
               mode="partial" on a 2^20 x 2^20 Jacobian pattern,
               algorithm="rsoc_compact" on the meshes and RMAT-B; counters
@@ -62,6 +77,13 @@ ends the run with a non-zero exit code:
   5e. agg     ops.ell_aggregate on RMAT-ER's ELL table with d=100 features,
               float32 and bfloat16, sum / mean / max, against the plain
               version; counters zeroed before, read after
+  5h. service two ColoringServices, megabatch=True and False, with 32
+              tenants of erdos_renyi(65536, 8.0) (one slot class,
+              bench_service.py's knobs), 4 steps of 4 batches (256
+              inserts, 128 deletes) a tenant: bit-identical per tenant, no
+              rollback, quarantine, degrade, escape or fallback; step p50 /
+              p99 ms of both; B2's slot-stride launches against the looped
+              path's (n_chunks a gather pass)
   (5, 5c: each row's prepare_ms + solve_ms must not pass e2e_traced_ms,
   the wall time of the call they split, by more than SPLIT_SLACK)
   6. times    per-kernel device time (device_ms; the back-to-back call time
@@ -78,7 +100,9 @@ ends the run with a non-zero exit code:
               extra_defect on RMAT-B; twohop with row_ids on RMAT-ER),
               kernels against plain versions on the same inputs; B2's
               detect-only form at the full width CAT's detect pass
-              launches it, beside the full B2 pass at that shape
+              launches it, beside the full B2 pass at that shape; B2's
+              slot-stride form at 5h's chunk (phase_times_slots), beside
+              one launch a tenant of the one-table form at the same rows
 
 The last line of the standard output is the result object; the line before
 it the card's name and power limit; before that one JSON object per kernel.
@@ -153,6 +177,8 @@ KERNELS = COLORING_KERNELS + ("flash_attention", "ell_spmm")
 # B2's detect-only form (CAT's and GM's detect pass): its comparisons are
 # collected apart from the full pass's
 DETECT_ONLY = "detect_recolor detect_only"
+# B2's slot-stride form (the megabatched repair's pass): collected apart too
+SLOT_STRIDE = "detect_recolor slot_stride"
 
 
 class Cmp:
@@ -161,9 +187,9 @@ class Cmp:
     tolerance, compared in float32)."""
 
     def __init__(self):
-        self.max_err = {k: 0 for k in KERNELS + (DETECT_ONLY,)}
+        self.max_err = {k: 0 for k in KERNELS + (DETECT_ONLY, SLOT_STRIDE)}
         self.max_row_err = {}
-        self.cases = {k: [] for k in KERNELS + (DETECT_ONLY,)}
+        self.cases = {k: [] for k in KERNELS + (DETECT_ONLY, SLOT_STRIDE)}
 
     def close(self, kernel, label, got, want, rtol, atol):
         if got.dtype != want.dtype or got.shape != want.shape:
@@ -307,6 +333,7 @@ def phase_kernels(device, launch: bool) -> Cmp:
         torch.cuda.synchronize()
     phase_kernels_rows(device, launch, cmp)
     phase_kernels_detect_only(device, launch, cmp)
+    phase_kernels_slots(device, launch, cmp)
     phase_kernels_twohop(device, launch, cmp)
     phase_kernels_staged(device, launch, cmp)
     phase_kernels_attention(device, launch, cmp)
@@ -434,6 +461,112 @@ def phase_kernels_detect_only(device, launch: bool, cmp: Cmp):
                           force=work), names)
             if C == 4 and not bool(got[2].any()):
                 fail(f"phase A route W{W} C4: no row overflowed")
+    if launch:
+        torch.cuda.synchronize()
+
+
+SLOT_S = (1, 2, 5, 32)            # slots a launch of B2's slot-stride form
+SLOT_W = (12, 16, 44, 516)        # 516: RMAT-B's 512 + the 4 slack slots
+SLOT_C = (4, 32, 256)
+
+
+def slot_case(rng, S, W, C, n_pad, device):
+    """Stacked tables of S slots (n_pad rows each; ELL ids local, a few
+    past the slot to test the clamp) and one launch's rows: every slot but
+    the last takes part with a ragged live count (slot 0 none: an empty
+    frontier), the last is frozen (no rows).  Returns (tables, per-slot
+    (slot, ids, flags), the launch's flat inputs)."""
+    from repro_torch.core import bitset
+    ell = packed_ell(rng, S * n_pad, W, n_pad,
+                     rng.integers(0, W + 1, size=S * n_pad))
+    ell[(rng.random(ell.shape) < 0.01) & (ell >= 0)] = n_pad + 7
+    top = C if C == 4 else max(C // 2, 1)
+    colors = rng.integers(0, top, size=S * n_pad).astype(np.int32)
+    if C > 4:
+        colors[rng.random(S * n_pad) < 0.1] = -1
+    pri = np.concatenate([rng.permutation(n_pad) for _ in range(S)]).astype(
+        np.int32)
+    tables = [dev(a, device) for a in (ell, colors, pri)]
+    cs = 64
+    parts = []
+    for s in range(max(S - 1, 1)):
+        m = 0 if (s == 0 and S > 2) else int(rng.integers(1, cs + 1))
+        ids = np.full(cs, n_pad, np.int64)                # dead: clamped
+        ids[:m] = rng.permutation(n_pad)[:m]
+        live = np.arange(cs) < m
+        flags = {"U": live & (rng.random(cs) < 0.8),
+                 "force": live & (rng.random(cs) < 0.2),
+                 "extra_defect": rng.random(cs) < 0.2}
+        parts.append((s, ids, live, flags))
+    dense = (rng.random((len(parts) * cs, C)) < 0.2).astype(np.uint8)
+    forb0 = bitset.pack_dense(dev(dense, device), C).contiguous()
+    return tables, parts, forb0, cs
+
+
+def phase_kernels_slots(device, launch: bool, cmp: Cmp):
+    """B2's slot-stride form (the megabatched repair's pass) on both
+    designs: S in ``SLOT_S``, W in ``SLOT_W``, C in ``SLOT_C``, ragged live
+    counts per slot, an empty frontier and a frozen slot; each launch
+    bit-equal to its plain version AND to one launch a slot of the
+    one-table form over that slot's own tables, and counted once in
+    ``launches_slots_<design>`` (never in ``launches``)."""
+    from repro_torch.kernels import detect_recolor as dr_mod, ops
+    dr = dr_mod.detect_recolor
+    kb = "cuda" if launch else "torch"
+    names = ("newc", "recolored", "ovf")
+    n_pad = 512
+    for S in SLOT_S:
+        for W in SLOT_W:
+            route = dr_mod.design(W)
+            for C in SLOT_C:
+                rng = np.random.default_rng(S * 1000 + W * 10 + C)
+                (ell, colors, pri), parts, forb0, cs = slot_case(
+                    rng, S, W, C, n_pad, device)
+                rows = np.concatenate([
+                    s * n_pad + np.minimum(ids, n_pad - 1)
+                    for s, ids, _, _ in parts]).astype(np.int32)
+                flat = {k: dev(np.concatenate([f[k] for *_, f in parts]),
+                               device) for k in parts[0][3]}
+                valid = dev(np.concatenate([lv for _, _, lv, _ in parts]),
+                            device)
+                kw = dict(forb0=forb0, extra_defect=flat["extra_defect"],
+                          force=flat["force"], valid=valid)
+                before = (dr.launches, dr.launches_slots,
+                          getattr(dr, f"launches_slots_{route}"))
+                got = ops.detect_recolor(ell, colors, pri, flat["U"], 0, C,
+                                         backend=kb, row_ids=dev(rows,
+                                                                 device),
+                                         slot_rows=n_pad, **kw)
+                after = (dr.launches, dr.launches_slots,
+                         getattr(dr, f"launches_slots_{route}"))
+                if launch and after != (before[0], before[1] + 1,
+                                        before[2] + 1):
+                    fail(f"slot stride S{S} W{W}: counts {before} -> "
+                         f"{after}, expected one launch_slots on {route}")
+                label = f"slot stride S{S} W{W} ({route}) C{C}"
+                want = ops.detect_recolor(ell, colors, pri, flat["U"], 0, C,
+                                          backend="torch",
+                                          row_ids=dev(rows, device),
+                                          slot_rows=n_pad, **kw)
+                cmp.check(SLOT_STRIDE, label, got, want, names)
+                # one launch a slot, today's form, on the slot's own tables
+                each = [[], [], []]
+                for j, (s, ids, live, f) in enumerate(parts):
+                    lo, hi = s * n_pad, (s + 1) * n_pad
+                    one = ops.detect_recolor(
+                        ell[lo:hi], colors[lo:hi], pri[lo:hi],
+                        dev(f["U"], device), 0, C, backend=kb,
+                        forb0=forb0[j * cs:(j + 1) * cs],
+                        extra_defect=dev(f["extra_defect"], device),
+                        force=dev(f["force"], device), valid=dev(live, device),
+                        row_ids=dev(np.minimum(ids, n_pad - 1).astype(
+                            np.int32), device))
+                    for acc, o in zip(each, one):
+                        acc.append(o)
+                cmp.check(SLOT_STRIDE, label + " == per-slot launches", got,
+                          [torch.cat(a) for a in each], names)
+                if C == 4 and not bool(got[2].any()):
+                    fail(f"{label}: no row overflowed at C=4")
     if launch:
         torch.cuda.synchronize()
 
@@ -919,6 +1052,38 @@ def phase_golden(device) -> int:
     return n
 
 
+def phase_golden_dynamic(device) -> tuple:
+    """The file's dynamic sections on the card: each ``paper_suite("tiny")``
+    graph's incremental stream (``api.color(mode="incremental")``, then
+    ``recolor_incremental`` a batch) and the megabatched service run, entry
+    for entry.  Returns (batches, service tenant-steps) checked."""
+    from repro_torch import api
+    from repro_torch.dynamic import ColoringService, recolor_incremental
+    from repro_torch.graphs import generators
+    gm = golden_module()
+    with open(gm.PATH) as f:
+        doc = json.load(f)
+    n_inc = 0
+    for name, g in generators.paper_suite("tiny").items():
+        got = gm.incremental_stream(
+            lambda g_, **kw: api.color(g_, device=device, **kw),
+            recolor_incremental, g)
+        for i, (a, b) in enumerate(zip(got, doc["incremental"][name])):
+            if a != b:
+                fail(f"golden incremental {name} batch {i}: got {a}, file "
+                     f"has {b}")
+        if len(got) != len(doc["incremental"][name]):
+            fail(f"golden incremental {name}: {len(got)} batches")
+        n_inc += len(got)
+    got = gm.service_entries(
+        ColoringService(megabatch=True, device=device, **gm.SVC_OPTS),
+        generators)
+    if got != doc["service"]:
+        fail(f"golden service run differs from the file: {got} vs "
+             f"{doc['service']}")
+    return n_inc, sum(len(s) for s in got)
+
+
 # --------------------------------------------------------------------------
 # phase 5: the main path at real size
 # --------------------------------------------------------------------------
@@ -944,11 +1109,18 @@ def assert_same_result(a, b, what: str):
 
 
 def make_rmat(kind: str, scale: int):
-    """Worker-process body: one RMAT, returned as plain arrays."""
+    """Worker-process body: one RMAT, returned as plain arrays, and for the
+    ``INC_GRAPHS`` phase 5g's update stream (``make_batches``, made here so
+    that its host work overlaps the phases before 5g) with its seconds."""
     from repro_torch.graphs import generators as gen
     t = time.perf_counter()
     g = getattr(gen, kind)(scale, edge_factor=8)
-    return g.indptr, g.indices, g.n_vertices, time.perf_counter() - t
+    secs = time.perf_counter() - t
+    stream = None
+    if kind in INC_GRAPHS:
+        t = time.perf_counter()
+        stream = make_batches(g, INC_FRACS) + (time.perf_counter() - t,)
+    return g.indptr, g.indices, g.n_vertices, secs, stream
 
 
 def start_rmats(pool, scale: int) -> dict:
@@ -961,7 +1133,7 @@ def start_rmats(pool, scale: int) -> dict:
 
 def build_graphs(rmats: dict, rehearse: bool):
     """name -> zero-argument constructor returning (graph, generate
-    seconds), in running order."""
+    seconds, phase 5g's stream or None), in running order."""
     from repro_torch.graphs import generators as gen
     from repro_torch.graphs.csr import CSRGraph
 
@@ -969,13 +1141,14 @@ def build_graphs(rmats: dict, rehearse: bool):
         def make():
             t = time.perf_counter()
             g = fn()
-            return g, time.perf_counter() - t
+            return g, time.perf_counter() - t, None
         return make
 
     def waited(fut):
         def make():
-            indptr, indices, n, secs = fut.get()
-            return CSRGraph(indptr=indptr, indices=indices, n_vertices=n), secs
+            indptr, indices, n, secs, stream = fut.get()
+            return (CSRGraph(indptr=indptr, indices=indices, n_vertices=n),
+                    secs, stream)
         return make
 
     if rehearse:
@@ -1036,6 +1209,7 @@ class Path:
         self.counts = dict.fromkeys(launch_counters(), 0)
         self.designs = {k: dict.fromkeys(d, 0) for k, d in DESIGNS.items()}
         self.detect = dict.fromkeys(detect_only_counts(), 0)
+        self.slots = dict.fromkeys(slot_counts(), 0)
 
     def run(self, fn):
         """``fn()`` between zeroed and read counts; returns (its result,
@@ -1043,6 +1217,8 @@ class Path:
         zero_counts()
         out = fn()
         c, d, x = launch_counts(), design_counts(), detect_only_counts()
+        for k, v in slot_counts().items():
+            self.slots[k] += v
         for k, v in c.items():
             self.counts[k] += v
         for k, per in d.items():
@@ -1059,14 +1235,15 @@ def zero_designs() -> dict:
 
 def phase_main(rmats, device, rehearse: bool):
     """Phase 5 (RSOC, the main path) and, on each graph while it is still
-    in memory, phase 5f (the paper's Table 1: ``table1_graph``)."""
+    in memory, phase 5f (the paper's Table 1: ``table1_graph``) and, on
+    the ``INC_GRAPHS``, phase 5g (``phase_incremental``)."""
     from repro_torch import api, obs
     from repro_torch.core.coloring import is_proper
     n_chunks = api.ColoringSpec().n_chunks
-    rows, kept, t1_rows, kept_cat = [], {}, [], {}
-    main, table1 = Path(), Path()
+    rows, kept, t1_rows, kept_cat, inc_rows = [], {}, [], {}, []
+    main, table1, incremental = Path(), Path(), Path()
     for name, make in build_graphs(rmats, rehearse).items():
-        g, gen_s = make()
+        g, gen_s, stream = make()
         obs.metrics.reset()
 
         # run 1: the default call, cold (includes host-side prepare)
@@ -1121,6 +1298,10 @@ def phase_main(rmats, device, rehearse: bool):
         rows.append(row)
         # ---- phase 5f: the paper's Table 1 on this graph ----
         t1_rows += table1_graph(name, g, row, device, table1, kept_cat)
+        # ---- phase 5g: incremental recoloring on this graph ----
+        if name.startswith(INC_GRAPHS):
+            inc_rows += phase_incremental(name, g, stream, row, device,
+                                          incremental)
         # kept for phase 5b / 6: the meshes and the uniform and the skewed
         # RMAT (the last one is the largest ELL table of the run)
         if not name.startswith("rmat_g"):
@@ -1133,11 +1314,14 @@ def phase_main(rmats, device, rehearse: bool):
         for k in ("twohop_detect_recolor", "flash_attention", "ell_spmm"):
             if main.counts[k]:
                 fail(f"the main path launched the {k} kernel")
-        if main.detect["launches"]:
-            fail("the main path launched the detect-only form of B2")
+        if main.detect["launches"] or main.slots["launches"]:
+            fail("the main path launched the detect-only or the slot-stride "
+                 "form of B2")
         if table1.detect["launches"] < 1:
             fail("the Table 1 path never launched the detect-only form")
-    return rows, kept, main, t1_rows, table1, kept_cat
+    if device.type == "cuda" and not incremental.counts["detect_recolor"]:
+        fail("the incremental path never launched the detect_recolor kernel")
+    return rows, kept, main, t1_rows, table1, kept_cat, inc_rows, incremental
 
 
 # GM's serial repair is the reference's Python loop: it runs on the meshes
@@ -1258,6 +1442,344 @@ def table1_summary(main_rows, t1_rows, d2_rows) -> list:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 5g: incremental recoloring at real size
+# --------------------------------------------------------------------------
+
+# the stream of bench_incremental.py's sizes: ten batches of 0.1 % of the
+# undirected edges, then one of 1 %
+INC_FRACS = (0.001,) * 10 + (0.01,)
+INC_GRAPHS = ("rmat_g", "rmat_b")      # bench_incremental.py's graphs
+PROPER_BLOCK = 2 ** 17                 # rows a block of the on-card check
+
+
+def undirected_keys(g) -> np.ndarray:
+    """Sorted int64 keys ``u << 32 | v`` (u < v) of a CSR graph's edges
+    (already sorted and unique when the rows are, as ``from_edges`` writes
+    them)."""
+    src = np.repeat(np.arange(g.n_vertices, dtype=np.int64),
+                    np.diff(g.indptr))
+    dst = np.asarray(g.indices, np.int64)
+    keep = src < dst
+    keys = (src[keep] << 32) | dst[keep]
+    if len(keys) > 1 and not bool((keys[1:] > keys[:-1]).all()):
+        keys = np.unique(keys)
+    return keys
+
+
+def make_batches(g, fracs, seed: int = 0):
+    """``bench_incremental._make_batch`` for each fraction, from one
+    ``np.random.default_rng(seed)``: k/2 random inserts and k/2 deletes
+    drawn from the current undirected edge set, k = max(2, m * frac).  The
+    set is kept on the host as a sorted key array, updated by each batch
+    (the benchmark decodes it from the state instead: the same set)."""
+    rng = np.random.default_rng(seed)
+    und = undirected_keys(g)
+    m0 = len(und)
+    out = []
+    for frac in fracs:
+        k = max(2, int(len(und) * frac))
+        ins = rng.integers(0, g.n_vertices, size=(k - k // 2, 2))
+        ins = ins[ins[:, 0] != ins[:, 1]]
+        pick = rng.choice(len(und), size=min(k // 2, len(und)),
+                          replace=False)
+        dels = np.stack([und[pick] >> 32, und[pick] & 0xFFFFFFFF], axis=1)
+        und = np.delete(und, pick)
+        new = np.unique((np.minimum(ins[:, 0], ins[:, 1]).astype(np.int64)
+                         << 32) | np.maximum(ins[:, 0], ins[:, 1]))
+        at = np.searchsorted(und, new)
+        have = (at < len(und)) & (und[np.minimum(at, len(und) - 1)] == new)
+        new = new[~have]
+        und = np.insert(und, np.searchsorted(und, new), new)
+        out.append((ins, dels, k))
+    return out, m0
+
+
+def conflicts_on_card(st) -> int:
+    """Edges of a dynamic state whose endpoints share a colour, counted on
+    the card over the ELL slots and the live overflow entries; -1 if a
+    vertex is uncoloured."""
+    c = st.colors_dev
+    if bool((c[:st.n] < 0).any()):
+        return -1
+    bad = torch.zeros((), dtype=torch.int64, device=c.device)
+    for lo in range(0, st.n, PROPER_BLOCK):
+        hi = min(lo + PROPER_BLOCK, st.n)
+        e = st.ell[lo:hi]
+        bad += ((e >= 0) & (c[e.clamp(min=0).long()] == c[lo:hi, None])).sum()
+    s_, d_ = st.ovf_src, st.ovf_dst
+    live = (s_ >= 0) & (d_ >= 0)
+    bad += (live & (c[s_.clamp(min=0).long()]
+                    == c[d_.clamp(min=0).long()])).sum()
+    return int(bad)
+
+
+def fingerprint(st) -> list:
+    """A position-sensitive checksum of each tensor of a dynamic state,
+    taken on the card in blocks: per field, the sums of x and of x * (1 +
+    i mod 65521) over its flat int64 view (i the flat position).  Any
+    write that changes a value changes one of them but with odds about
+    2**-64."""
+    from repro_torch.dynamic.incremental import TENSOR_FIELDS
+    out = []
+    for f in TENSOR_FIELDS:
+        flat = getattr(st, f).reshape(-1)
+        a = torch.zeros((), dtype=torch.int64, device=flat.device)
+        b = torch.zeros_like(a)
+        for lo in range(0, flat.numel(), FINGERPRINT_BLOCK):
+            x = flat[lo:lo + FINGERPRINT_BLOCK].long()
+            i = torch.arange(lo, lo + x.numel(), device=flat.device)
+            a += x.sum()
+            b += (x * (i % 65521 + 1)).sum()
+        out.append((f, int(a), int(b)))
+    return out
+
+
+FINGERPRINT_BLOCK = 2 ** 25           # elements a block of ``fingerprint``
+
+
+def state_fields(st) -> dict:
+    """What a 5g batch is compared on: the summary and the five tensors."""
+    from repro_torch.dynamic.incremental import TENSOR_FIELDS
+    return {"summary": st.summary(),
+            **{f: getattr(st, f) for f in TENSOR_FIELDS}}
+
+
+def phase_incremental(name, g, stream, scratch_row, device,
+                      path: Path) -> list:
+    """Phase 5g on one graph: ``api.color(g, mode="incremental", seed=1)``,
+    then the ``INC_FRACS`` stream through ``recolor_incremental``, each
+    batch traced (its ``apply`` and ``solve`` phases: the waves and the
+    repair, each waited for) with the counts zeroed before and read after
+    (B2 exactly ``n_chunks`` a gather pass, B1 none), proper on the card;
+    and the same stream from the same start state with ``kernel.fallback``
+    armed (the plain versions on the card), field-equal and colour-equal at
+    every batch.  Each batch's gather passes are held against phase 5's
+    from-scratch ``n_rounds + 1``.  ``stream`` is ``make_batches``' output
+    and its seconds, made in the graph's generator process."""
+    from repro_torch import api, obs
+    from repro_torch.dynamic import recolor_incremental
+    from repro_torch.resilience import faults
+    n_chunks = api.ColoringSpec().n_chunks
+    batches, m, batch_s = stream
+
+    def start():
+        sync(device)
+        t = time.perf_counter()
+        r = api.color(g, mode="incremental", seed=1, device=device)
+        sync(device)
+        return r, (time.perf_counter() - t) * 1e3
+
+    (res, e2e_ms), c, _, _ = path.run(start)
+    st0 = res.state
+    if device.type == "cuda":
+        exact_launch_counts(f"{name} incremental start", res)
+        if (c["firstfit"], c["detect_recolor"]) != (
+                n_chunks, n_chunks * st0.last_rounds):
+            fail(f"{name} incremental start: launches {c}")
+    scratch_passes = scratch_row["n_rounds"] + 1
+    log("incremental", json.dumps({
+        "graph": name, "n": g.n_vertices, "undirected_edges": m,
+        "W": int(st0.ell.shape[1]), "ovf_cap": int(st0.ovf_src.shape[0]),
+        "frontier_cap": st0.frontier_cap, "start_e2e_ms": round(e2e_ms, 2),
+        "start": st0.summary(), "batches_made_s": round(batch_s, 2)}))
+    rows = []
+    st, st_f = st0, st0
+    fp0 = fingerprint(st0)
+    for i, (ins, dels, k) in enumerate(batches):
+        def one():
+            with obs.run_tracer() as tr:
+                sync(device)
+                t = time.perf_counter()
+                out = recolor_incremental(st, ins, dels)
+                sync(device)
+                wall = (time.perf_counter() - t) * 1e3
+            return (out, tr.phase_wall_s("apply") * 1e3,
+                    tr.phase_wall_s("solve") * 1e3, wall)
+
+        (st, apply_ms, repair_ms, wall_ms), c, des, _ = path.run(one)
+        per_design = design_delta(zero_designs(), des, c,
+                                  f"{name} batch {i}")
+        passes = st.last_gather_passes
+        if device.type == "cuda":
+            if st.retries != st0.retries:
+                fail(f"{name} batch {i}: a cap-doubling retry; its launch "
+                     f"counts cannot be checked exactly")
+            if (c["firstfit"], c["detect_recolor"]) != (0, n_chunks * passes):
+                fail(f"{name} batch {i}: launches {c}, expected B2 "
+                     f"n_chunks x {passes} gather passes")
+        bad = conflicts_on_card(st)
+        if bad:
+            fail(f"{name} batch {i}: {bad} conflicting edges on the card")
+        with faults.inject("kernel.fallback"):
+            st_f = recolor_incremental(st_f, ins, dels)
+        a, b = state_fields(st), state_fields(st_f)
+        for f in a:
+            same = (torch.equal(a[f], b[f]) if isinstance(a[f], torch.Tensor)
+                    else a[f] == b[f])
+            if not same:
+                fail(f"{name} batch {i}: kernel path and plain path differ "
+                     f"in {f}")
+        if passes > scratch_passes:
+            fail(f"{name} batch {i}: {passes} gather passes, more than the "
+                 f"from-scratch run's {scratch_passes}")
+        row = {"graph": name, "batch": i, "frac": INC_FRACS[i], "edges": k,
+               "inserts": len(ins), "deletes": len(dels),
+               "apply_ms": round(apply_ms, 3), "repair_ms": round(repair_ms, 3),
+               "wall_ms": round(wall_ms, 3), "rounds": st.last_rounds,
+               "gather_passes": passes, "scratch_passes": scratch_passes,
+               "conflicts": st.last_conflicts, "colours": st.n_colors,
+               "final_C": st.C, "ovf_grows": st.ovf_grows,
+               "ovf_load": st.summary()["ovf_load"], "proper": True,
+               "b2_launches": per_design.get("detect_recolor", {}),
+               "plain_path_equal": True}
+        log("incremental", json.dumps(row))
+        rows.append(row)
+    # the start state was never written (copy-on-write): the plain replay
+    # began from it
+    if fingerprint(st0) != fp0:
+        fail(f"{name}: the start state changed under the stream")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 5h: the megabatched multi-tenant service
+# --------------------------------------------------------------------------
+
+# one slot class of bench_service.py's knobs at a real tenant size: ER
+# graphs of 65536 vertices, mean degree 8; ell_cap below their max degree
+# and ovf_cap above their largest spill, so every tenant has the same shape
+SVC_TENANTS, SVC_N, SVC_DEG = 32, 65536, 8.0
+SVC_OPTS = dict(seed=0, n_chunks=16, ell_cap=12, C=32, ovf_cap=32768,
+                delta_cap=1024, frontier_frac=0.5)
+SVC_STEPS, SVC_BATCHES, SVC_INS, SVC_DEL = 4, 4, 256, 128
+
+
+def service_streams(T: int, n: int, seed: int = 0):
+    """``[step][tenant]`` lists of ``SVC_BATCHES`` (inserts, deletes)
+    batches: ``SVC_INS`` random inserts (self-loops dropped) and
+    ``SVC_DEL`` random deletes (mostly absent edges, as in
+    bench_service.py)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(SVC_STEPS):
+        per_t = []
+        for _t in range(T):
+            q = []
+            for _b in range(SVC_BATCHES):
+                ins = rng.integers(0, n, (SVC_INS, 2))
+                ins = ins[ins[:, 0] != ins[:, 1]]
+                q.append((ins, rng.integers(0, n, (SVC_DEL, 2))))
+            per_t.append(q)
+        out.append(per_t)
+    return out
+
+
+def phase_service(device, rehearse: bool):
+    """Phase 5h: two ``ColoringService``s, ``megabatch=True`` and
+    ``megabatch=False``, with the same ``SVC_TENANTS`` tenants (one slot
+    class), stepped ``SVC_STEPS`` times through the same streams, the two
+    interleaved step by step; counts zeroed before each step and read
+    after.  Per tenant the two must be bit-identical (colours, version,
+    summary), with no rollback, quarantine, degrade, escape, solo drain or
+    kernel fallback.  Returns (row, the megabatched service's states, the
+    counts of each path)."""
+    from repro_torch import obs
+    from repro_torch.dynamic import ColoringService, slot_key
+    from repro_torch.graphs import generators as gen
+    T, n = (4, 2048) if rehearse else (SVC_TENANTS, SVC_N)
+    opts = dict(SVC_OPTS, ovf_cap=2048) if rehearse else SVC_OPTS
+    svcs = {m: ColoringService(megabatch=m, device=device, **opts)
+            for m in (True, False)}
+    t = time.perf_counter()
+    graphs = [gen.erdos_renyi(n, SVC_DEG, seed=i) for i in range(T)]
+    for i, g in enumerate(graphs):
+        for svc in svcs.values():
+            svc.add_graph(f"g{i}", g)
+    add_s = time.perf_counter() - t
+    keys = {slot_key(svc.snapshot(f"g{i}")) for svc in svcs.values()
+            for i in range(T)}
+    if len(keys) != 1:
+        fail(f"service: the tenants fall in {len(keys)} slot classes")
+    passes0 = {i: svcs[False].snapshot(f"g{i}").total_gather_passes
+               for i in range(T)}
+    obs.metrics.reset()
+    paths = {m: Path() for m in svcs}
+    step_ms = {m: [] for m in svcs}
+    for per_t in service_streams(T, n):
+        for i, q in enumerate(per_t):
+            for ins, dels in q:
+                for svc in svcs.values():
+                    svc.submit(f"g{i}", inserts=ins, deletes=dels)
+        for m, svc in svcs.items():
+            def step():
+                t = time.perf_counter()
+                svc.step()                 # waits for the device inside
+                return (time.perf_counter() - t) * 1e3
+            ms, _, _, _ = paths[m].run(step)
+            step_ms[m].append(ms)
+    for i in range(T):
+        a, b = svcs[True], svcs[False]
+        nm = f"g{i}"
+        if not np.array_equal(a.colors(nm), b.colors(nm)) \
+                or a.version(nm) != b.version(nm) \
+                or a.stats(nm) != b.stats(nm):
+            fail(f"service {nm}: megabatched {a.stats(nm)} != looped "
+                 f"{b.stats(nm)}")
+        if a.version(nm) != SVC_STEPS * SVC_BATCHES:
+            fail(f"service {nm}: version {a.version(nm)}")
+        st = a.snapshot(nm)
+        bad = conflicts_on_card(st)
+        if bad:
+            fail(f"service {nm}: {bad} conflicting edges on the card")
+    outcomes = obs.metrics.counters_matching("service.mega")
+    trouble = {k: v for k, v in obs.metrics.snapshot().get(
+        "counters", {}).items()
+        if k.startswith(("resilience.", "kernels.fallback")) and v}
+    if trouble:
+        fail(f"service: rollback / quarantine / degrade / fallback counts "
+             f"{trouble}")
+    for o in ("escaped", "solo", "group_fail"):
+        if outcomes.get(f"service.mega{{outcome={o}}}", 0):
+            fail(f"service: {outcomes}: an escape, solo drain or group "
+                 f"failure (none is expected at these knobs)")
+    loop_passes = sum(svcs[False].snapshot(f"g{i}").total_gather_passes
+                      - passes0[i] for i in range(T))
+    n_chunks = opts["n_chunks"]
+    mc, lc = paths[True], paths[False]
+    if device.type == "cuda":
+        if mc.counts["detect_recolor"] or mc.counts["firstfit"] \
+                or not mc.slots["launches"]:
+            fail(f"service, megabatched: launches {mc.counts}, slot stride "
+                 f"{mc.slots}")
+        if lc.slots["launches"] or lc.counts["detect_recolor"] != \
+                n_chunks * loop_passes:
+            fail(f"service, looped: B2 {lc.counts['detect_recolor']} "
+                 f"launches for {loop_passes} gather passes, slot stride "
+                 f"{lc.slots}")
+
+    def pct(xs, q):
+        return round(float(np.percentile(xs, q)), 3)
+
+    row = {"tenants": T, "n": n, "mean_degree": SVC_DEG, **opts,
+           "steps": SVC_STEPS, "batches_per_step": SVC_BATCHES,
+           "inserts": SVC_INS, "deletes": SVC_DEL,
+           "add_graphs_s": round(add_s, 2),
+           "mega_step_ms": [round(x, 3) for x in step_ms[True]],
+           "loop_step_ms": [round(x, 3) for x in step_ms[False]],
+           "mega_p50_ms": pct(step_ms[True], 50),
+           "mega_p99_ms": pct(step_ms[True], 99),
+           "loop_p50_ms": pct(step_ms[False], 50),
+           "loop_p99_ms": pct(step_ms[False], 99),
+           "mega_slot_stride_launches": mc.slots,
+           "loop_b2_launches": lc.counts["detect_recolor"],
+           "loop_gather_passes": loop_passes,
+           "outcomes": outcomes, "identical": True, "proper": True}
+    log("service", json.dumps(row))
+    return row, [svcs[True].snapshot(f"g{i}") for i in range(T)], \
+        {"service_mega": mc.counts, "service_loop": lc.counts}, mc
+
+
 def exact_launch_counts(what: str, res):
     """The launch checks are exact for one cap attempt: a run that doubled
     its cap ran earlier attempts whose round counts the result does not
@@ -1290,6 +1812,15 @@ def detect_only_counts() -> dict:
     dr = launch_counters()["detect_recolor"]
     return {"launches": dr.launches_detect,
             **{d: getattr(dr, f"launches_detect_{d}")
+               for d in DESIGNS["detect_recolor"]}}
+
+
+def slot_counts() -> dict:
+    """Launches of B2's slot-stride form since the counts were zeroed, in
+    all and per design (``detect_recolor.launches_slots[_<design>]``)."""
+    dr = launch_counters()["detect_recolor"]
+    return {"launches": dr.launches_slots,
+            **{d: getattr(dr, f"launches_slots_{d}")
                for d in DESIGNS["detect_recolor"]}}
 
 
@@ -1417,9 +1948,10 @@ def zero_counts():
         for d in designs:
             setattr(wrappers[k], f"launches_{d}", 0)
     dr = wrappers["detect_recolor"]
-    dr.launches_detect = 0
-    for d in DESIGNS["detect_recolor"]:
-        setattr(dr, f"launches_detect_{d}", 0)
+    for form in ("detect", "slots"):
+        setattr(dr, f"launches_{form}", 0)
+        for d in DESIGNS["detect_recolor"]:
+            setattr(dr, f"launches_{form}_{d}", 0)
 
 
 def design_counts() -> dict:
@@ -2170,6 +2702,113 @@ def phase_times(device, kept, kept_compact, cmp: Cmp, launch: bool):
     return rows
 
 
+def phase_times_slots(device, states, cmp: Cmp, launch: bool) -> dict:
+    """B2's slot-stride form at phase 5h's chunk shape: the stacked tables
+    of 5h's megabatched tenants after their last step, each tenant's
+    frontier the endpoints of one batch of 5h's size (``SVC_INS`` +
+    ``SVC_DEL`` random pairs, compacted into its ``frontier_cap`` buffer),
+    its overflow snapshot as the pass builds it.  Timed: chunk 0 (every
+    live row) as ONE slot-stride launch and, at the same rows, as one
+    launch of the one-table form a tenant; the plain version; an all-dead
+    chunk.  Bound: bytes over 3.35 TB/s (``gather_bytes`` on the rows'
+    global neighbour ids; every row's id, U and force flags and 6 output
+    bytes; the forb0 words and ``extra_defect`` flag of the rows that can
+    work, ``U | force``, alone: a dead row reads neither)."""
+    from repro_torch.core import frontier
+    from repro_torch.kernels import detect_recolor as dr_mod, ops
+    from repro_torch.kernels.firstfit import n_words
+    st0 = states[0]
+    S, n_pad, W, C = len(states), st0.n_pad, int(st0.ell.shape[1]), st0.C
+    cap, nc = st0.frontier_cap, st0.n_chunks
+    cs = cap // nc
+    ell = torch.stack([x.ell for x in states]).reshape(S * n_pad, W)
+    colors = torch.stack([x.colors_dev for x in states]).reshape(-1)
+    pri = torch.stack([x.pri for x in states]).reshape(-1)
+    osrc = torch.stack([x.ovf_src for x in states])
+    odst = torch.stack([x.ovf_dst for x in states])
+    rng = np.random.default_rng(1)
+    U = torch.zeros((S, n_pad), dtype=torch.bool, device=device)
+    for j in range(S):
+        ends = rng.integers(0, st0.n, 2 * (SVC_INS + SVC_DEL))
+        U[j, dev(ends, device)] = True
+    idx = frontier._compact_rows(U, cap, n_pad)
+    slots = torch.arange(S, device=device)
+    valid = idx < n_pad
+    gid = slots[:, None] * n_pad + idx.clamp(max=n_pad - 1)
+    force = valid & (colors[gid] < 0)
+    snap, extra = frontier._slot_snapshot(C, n_pad, osrc, odst, pri, colors,
+                                          slots, idx)
+    nW = n_words(C)
+    if snap is None:
+        snap = torch.zeros((S * cap, nW), dtype=torch.int32, device=device)
+        extra = torch.zeros((S * cap,), dtype=torch.bool, device=device)
+    lay = lambda t: frontier._slot_layout(t, nc)        # noqa: E731
+    rows_k = lay(gid.to(torch.int32))
+    valid_k, force_k = lay(valid), lay(force)
+    snap_k = lay(snap.reshape(S, cap, nW))
+    extra_k = lay(extra.reshape(S, cap))
+
+    def slot_call(k, backend="auto"):
+        return ops.detect_recolor(ell, colors, pri, valid_k[k], 0, C,
+                                  backend=backend, forb0=snap_k[k],
+                                  extra_defect=extra_k[k], force=force_k[k],
+                                  row_ids=rows_k[k], slot_rows=n_pad)
+
+    # one launch of the one-table form a tenant, at the same rows: the
+    # arguments made once, so that the timed calls are the launches alone
+    each_args = []
+    for j in range(S):
+        lo, hi, r0 = j * n_pad, (j + 1) * n_pad, j * cap
+        each_args.append((
+            (ell[lo:hi], colors[lo:hi], pri[lo:hi],
+             valid[j, :cs].contiguous(), 0, C),
+            dict(forb0=snap[r0:r0 + cs], extra_defect=extra[r0:r0 + cs],
+                 force=force[j, :cs].contiguous(),
+                 row_ids=idx[j, :cs].clamp(max=n_pad - 1).to(torch.int32))))
+
+    def per_slot():
+        return [ops.detect_recolor(*a, **kw) for a, kw in each_args]
+
+    names = ("newc", "recolored", "ovf")
+    got = slot_call(0)
+    cmp.check(SLOT_STRIDE, f"5h chunk S{S} R{S * cs} W{W} C{C}", got,
+              slot_call(0, "torch"), names)
+    cmp.check(SLOT_STRIDE, f"5h chunk S{S} R{S * cs} W{W} C{C} == per-slot "
+              f"launches", got, [torch.cat(x) for x in zip(*per_slot())],
+              names)
+    reps = 50
+    ms = device_ms(lambda: slot_call(0), device, reps)
+    call_ms = time_ms(lambda: slot_call(0), device, reps)
+    each_ms = device_ms(per_slot, device, 5)
+    each_call_ms = time_ms(per_slot, device, 5)
+    dead_ms = device_ms(lambda: slot_call(1), device, reps)
+    plain_ms = time_ms(lambda: slot_call(0, "torch"), device, 3, rounds=3)
+    # the bound, on this chunk's data
+    r = rows_k[0].long()
+    e = ell[r]
+    base = (r - r % n_pad)[:, None]
+    e_glob = torch.where(e >= 0, base + e.clamp(max=n_pad - 1), -1)
+    work = valid_k[0] | force_k[0]
+    c_r = colors[r]
+    test = valid_k[0] & ~force_k[0] & (c_r >= 0)
+    nbytes, live = gather_bytes(e_glob, colors, r, work, test, own=True)
+    R, may = r.numel(), int(work.sum())
+    nbytes += R * (4 + 1 + 1 + 6) + may * (4 * nW + 1)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"kernel": SLOT_STRIDE, "graph": f"5h: {S} tenants",
+           "design": dr_mod.design(W), "S": S, "R": R, "W": W,
+           "n": S * n_pad, "C": C, "live_rows": int(valid_k[0].sum()),
+           "live_slots": live, "ms": round(ms, 6),
+           "call_ms": round(call_ms, 6),
+           "per_slot_launches_ms": round(each_ms, 6),
+           "per_slot_launches_call_ms": round(each_call_ms, 6),
+           "dead_chunk_ms": round(dead_ms, 6),
+           "plain_ms": round(plain_ms, 4), "bound_ms": round(bound_ms, 6),
+           "bound_by": "bytes", "bytes": nbytes}
+    log("times", json.dumps(row))
+    return row
+
+
 PLAIN_BLOCK_ROWS = 2 ** 18   # rows per block of the full-width plain passes
 
 
@@ -2542,7 +3181,8 @@ def wait_checks(checks: dict) -> list:
 
 
 def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
-                 cmp: Cmp, t1_path: Path) -> list:
+                 cmp: Cmp, t1_path: Path, slot_row: dict,
+                 slot_path: Path) -> list:
     """The ``kernels`` entries: per coloring kernel, the chunk of the
     largest table its path ran (RMAT-B for the distance-1 kernels, RMAT-ER
     for the two-hop kernel); the attention kernel at the serving prefill's
@@ -2560,7 +3200,9 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
     served the row's shape and its file.  B2's entry holds its detect-only
     form under ``detect_only``: its launches on the Table 1 path (5f), its
     cases, and its times at the full-width shape of RMAT-B's detect pass
-    beside the full B2 pass at that shape."""
+    beside the full B2 pass at that shape; and its slot-stride form under
+    ``slot_stride``: its launches on the megabatched service's path (5h),
+    its cases, and its times at 5h's chunk beside one launch a tenant."""
     csrc = "src/repro_torch/kernels/csrc/"
     largest = {"firstfit": list(kept)[-1], "detect_recolor": list(kept)[-1],
                "twohop_detect_recolor": next(k for k in kept
@@ -2620,6 +3262,21 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
         "full_pass_bound_ms": r["full_pass_bound_ms"],
         "shape": {k: r[k] for k in ("graph", "R", "W", "n", "C")},
         "cases_checked": len(cmp.cases[DETECT_ONLY])}
+    r = slot_row
+    next(k for k in kernels if k["name"] == "detect_recolor")[
+        "slot_stride"] = {
+        "source": csrc + source["detect_recolor", r["design"]],
+        "path": "service_mega", "launches": slot_path.slots["launches"],
+        "launches_per_design": {d: v for d, v in slot_path.slots.items()
+                                if d != "launches" and v},
+        "design": r["design"], "max_abs_err": cmp.max_err[SLOT_STRIDE],
+        "ms": r["ms"], "ms_method": "device", "call_ms": r["call_ms"],
+        "per_slot_launches_ms": r["per_slot_launches_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "library_ms_why": "no single PyTorch call computes it",
+        "shape": {k: r[k] for k in ("graph", "S", "R", "W", "n", "C")},
+        "cases_checked": len(cmp.cases[SLOT_STRIDE])}
     fa = next(r for r in model_rows if r.get("kernels_line"))
     sp = next(r for r in model_rows
               if r["kernel"] == "ell_spmm" and r["kernels_line"])
@@ -2752,13 +3409,16 @@ def main() -> int:
         n_golden = phase_golden(device)
         log("golden", f"{n_golden} runs (distance 1, 2, partial; cat, gm, "
                       f"jp) equal tests/torch_golden.json")
+        n_inc, n_svc = phase_golden_dynamic(device)
+        log("golden", f"{n_inc} incremental batches and {n_svc} service "
+                      f"tenant-steps equal tests/torch_golden.json")
 
         # ---- phase 5: main path ----
         if args.rmat_scale != 24:
             log("main", f"RMAT scale {args.rmat_scale}: {RMAT_SCALE_WHY}")
         # (with phase 5f, the paper's Table 1, on each graph in turn)
-        main_rows, kept, main_path, t1_rows, t1_path, kept_cat = phase_main(
-            rmats, device, args.rehearse)
+        (main_rows, kept, main_path, t1_rows, t1_path, kept_cat, inc_rows,
+         inc_path) = phase_main(rmats, device, args.rehearse)
         # every path's calls run with the counts zeroed just before each and
         # read just after (Path.run): a path's launches are its calls' sum
         zeros = zero_designs()
@@ -2774,6 +3434,12 @@ def main() -> int:
             "launches": counts_t1,
             "launches_per_design": designs["table1"],
             "detect_only_launches": t1_path.detect}))
+        designs["incremental"] = design_delta(zeros, inc_path.designs,
+                                              inc_path.counts,
+                                              "the incremental path")
+        log("incremental", json.dumps({
+            "launches": inc_path.counts,
+            "launches_per_design": designs["incremental"]}))
 
         # ---- phase 5c: distance-2, partial, compacted ----
         d2_rows, kept_d2, kept_compact, counts_d2, checks = phase_distance2(
@@ -2822,7 +3488,15 @@ def main() -> int:
                                             counts_agg, "the aggregation path")
         log("aggregate", json.dumps({"launches": counts_agg}))
 
+        # ---- phase 5h: the megabatched multi-tenant service ----
+        svc_row, svc_states, counts_svc, svc_path = phase_service(
+            device, args.rehearse)
+        log("service", json.dumps({"launches": counts_svc,
+                                   "slot_stride_launches": svc_path.slots}))
+
         # ---- phase 6: kernel times ----
+        slot_row = phase_times_slots(device, svc_states, cmp, launch)
+        del svc_states
         model_rows = phase_times_models(device, ell, feats, cmp, launch,
                                         args.rehearse)
         del ell, feats
@@ -2833,10 +3507,11 @@ def main() -> int:
         log("distance2", f"host oracles passed: {wait_checks(checks)}")
 
     paths = {"main": counts, "table1": counts_t1,
+             "incremental": inc_path.counts,
              "distance2_compact": counts_d2,
-             "serve": counts_serve, "aggregate": counts_agg}
+             "serve": counts_serve, "aggregate": counts_agg, **counts_svc}
     kernels = kernels_line(kept, time_rows, model_rows, paths, designs, cmp,
-                           t1_path)
+                           t1_path, slot_row, svc_path)
     if args.rehearse:
         log("kernels", json.dumps(kernels))
         log("rehearsal on the CPU finished; no kernel was built or launched")
@@ -2845,10 +3520,13 @@ def main() -> int:
     # ---- result lines ----
     print(json.dumps({"main_path": main_rows}), flush=True)
     print(json.dumps({"table1": table1, "table1_runs": t1_rows}), flush=True)
+    print(json.dumps({"incremental_path": inc_rows}), flush=True)
+    print(json.dumps({"service_path": svc_row}), flush=True)
     print(json.dumps({"distance2_path": d2_rows}), flush=True)
     print(json.dumps({"serve_path": serve_row}), flush=True)
     print(json.dumps({"aggregate_path": agg_row}), flush=True)
-    print(json.dumps({"kernel_times": time_rows + model_rows}), flush=True)
+    print(json.dumps({"kernel_times": time_rows + model_rows + [slot_row]}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,8 @@ reference package's.
     res = api.color(g, algorithm="cat")                      # baselines:
     res = api.color(g, algorithm="gm")                       # CAT, GM, JP
     res = api.color(g, algorithm="jp")
+    res = api.color(g, mode="incremental")                   # mutable:
+    st = dynamic.recolor_incremental(res.state, ins, dels)   # res.state
 
 Engines live in a registry keyed by ``(algorithm, distance, mode, backend)``
 (``repro_torch.registry``); each engine module registers its own at import
@@ -36,7 +38,8 @@ time.  This module imports the engine modules that are ported —
 ``core/coloring.py`` with ``(rsoc | cat | gm | jp, 1, static, local)``,
 ``core/frontier.py`` with ``(rsoc_compact, 1, static, local)``,
 ``core/distance2.py`` with ``(rsoc, 2, static, local)`` and ``(rsoc, 2,
-partial, local)`` — so ``supported_specs()`` lists exactly what runs, and
+partial, local)``, ``dynamic/incremental.py`` with ``(rsoc, 1,
+incremental, local)`` — so ``supported_specs()`` lists exactly what runs, and
 every other combo is rejected by ``ColoringSpec.validate`` with the nearest
 supported spec named.
 """
@@ -58,6 +61,7 @@ from repro_torch.core.coloring import ColoringResult
 from repro_torch.core import coloring as _coloring        # noqa: F401
 from repro_torch.core import distance2 as _distance2      # noqa: F401
 from repro_torch.core import frontier as _frontier        # noqa: F401
+from repro_torch.dynamic import incremental as _incremental  # noqa: F401
 
 MODES = ("static", "incremental", "partial")
 BACKENDS = ("local", "distributed")

@@ -154,7 +154,7 @@ def _d2_chunked_pass(ctx, ell, pri, rows_mask, colors, U, force, *,
 
 def _d2_compact_pass(ctx, ell, pri, colors, idx, idx_valid, count: int):
     """Two-hop fused pass over a compacted frontier-index buffer (the
-    distance-2 mirror of ``frontier._compact_pass``); **updates ``colors``
+    distance-2 mirror of ``frontier._slot_pass``); **updates ``colors``
     in place**.  Gathers only the ≤ cap frontier rows, so repair rounds pay
     cap·W² instead of n·W².  Each chunk is one ``ops.twohop`` call with
     ``row_ids`` (U = live, force = live & uncolored); the defect count

@@ -28,8 +28,15 @@ commit of the chunk's live slots.  The round loop is a host loop that reads
 two integers back per round, together: the work count that decides
 termination and the next |U|, which picks the small or the big pass.
 
-Not ported here: ``_mega_compact_repair`` / ``_repair_mega_loop`` (the
-megabatch queue, ROADMAP A3).
+The megabatched repair (``_mega_compact_repair`` / ``_repair_mega_loop``,
+DESIGN.md §13) repairs a whole slot class of same-shape tenants at once.
+The reference ``vmap``s the scalar loop over a leading slot axis; here the
+slot axis is explicit: each slot keeps its own loop state (rounds, last
+work count, defects, escape flag) on the host, a slot whose loop has ended
+is *frozen* — its rows take no further pass and its counters stop, as
+JAX's ``while_loop`` batching rule freezes a finished instance — and chunk
+k of a round is ONE launch of ``detect_recolor``'s slot-stride form over
+chunk k of every running slot (DESIGN_TORCH.md §15).
 """
 from __future__ import annotations
 
@@ -69,77 +76,18 @@ def _commit_live(colors, recolored, ids, newc, rec, lo: int, count: int):
         recolored[live_ids] = rec[:m]
 
 
-def _compact_pass(ctx, ell, osrc, odst, pri, colors, idx, idx_valid,
-                  count: int):
-    """Fused detect-and-recolor over a compacted row-index buffer; **updates
-    ``colors`` in place**.
-
-    ``idx`` holds the (≤ cap) row ids of the current frontier, dead slots
-    hold n_pad; ``count`` (a host int) is the number of live slots, which
-    are the first ones.  A row is re-colored when it is defective *right
-    now* — or still uncolored (incremental seeds).  Each chunk is one
-    ``ops.detect_recolor`` call with ``row_ids`` (U = live, force = live &
-    uncolored).  The defect count is read off the kernel as ``recolored &
-    ~force``: a forced row is uncolored, and an uncolored row is never
-    defective (neither through ELL nor through overflow edges).
-    Returns (colors, recolored_mask, n_defects, cap_overflowed).
-    """
-    n, n_pad_s, C, n_chunks, impl = ctx.unpack()
-    cap = idx.shape[0]
-    cs = cap // n_chunks
-    n_pad = colors.shape[0]
-    device = colors.device
-    has_ovf = osrc.shape[0] > 0
-    ids_c = idx.clamp(0, n_pad - 1)
-    # a slot's colour cannot change before its own chunk (ids are unique),
-    # so the pass-start colours decide which slots are forced
-    force = idx_valid & (colors[ids_c.long()] < 0)
-    snap = ovf_defect = None
-    if has_ovf:
-        # pass-start overflow snapshots built *frontier-local*: an inverse
-        # index maps each overflow edge to its compacted slot (or nowhere),
-        # so the tables are (cap, C)/(cap,), not (n_pad, C).  The scatter
-        # lands in a transient dense table; only the packed words are kept.
-        inv = torch.full((n_pad + 1,), -1, dtype=torch.int32, device=device)
-        inv[idx.long()] = torch.arange(cap, dtype=torch.int32, device=device)
-        olive = (osrc >= 0) & (odst >= 0)
-        neg = torch.full((), -1, dtype=torch.int32, device=device)
-        pos = torch.where(olive, inv[osrc.clamp(0, n_pad).long()], neg)
-        s = osrc.clamp(0, n_pad - 1).long()
-        d = odst.clamp(0, n_pad - 1).long()
-        nbr_c = colors[d]
-        ok = (pos >= 0) & (nbr_c >= 0) & (nbr_c < C)
-        dense = torch.zeros((cap, C), dtype=torch.uint8, device=device)
-        dense[pos[ok].long(), nbr_c[ok].long()] = 1
-        snap = bitset.pack_dense(dense, C)
-        conf = ((pos >= 0) & (colors[s] == nbr_c) & (nbr_c >= 0)
-                & (pri[d] > pri[s]))
-        ovf_defect = torch.zeros((cap,), dtype=torch.bool, device=device)
-        ovf_defect[pos[conf].long()] = True
-
-    recolored = torch.zeros((n_pad,), dtype=torch.bool, device=device)
-    rec_slots = torch.empty((cap,), dtype=torch.bool, device=device)
-    ovf_slots = torch.empty((cap,), dtype=torch.bool, device=device)
-    for k in range(n_chunks):
-        lo, hi = k * cs, (k + 1) * cs
-        newc, rec, o = ops.detect_recolor(
-            ell, colors, pri, idx_valid[lo:hi], 0, C, impl=impl,
-            forb0=snap[lo:hi] if has_ovf else None,
-            extra_defect=ovf_defect[lo:hi] if has_ovf else None,
-            force=force[lo:hi], row_ids=ids_c[lo:hi])
-        # commit after the launch (fresh colours for the next chunk)
-        _commit_live(colors, recolored, ids_c[lo:hi], newc, rec, lo, count)
-        rec_slots[lo:hi] = rec
-        ovf_slots[lo:hi] = o
-    n_def = (rec_slots & ~force).sum(dtype=torch.int32)
-    return colors, recolored, n_def, ovf_slots.any()
-
-
 def _d1_passes(ctx, ell, osrc, odst, pri):
-    """The distance-1 (pass_small, pass_big) pair for ``_compact_repair``."""
+    """The distance-1 (pass_small, pass_big) pair for ``_compact_repair``.
+    The small pass is ``_slot_pass``'s one-slot case on the one-table form
+    of ``detect_recolor`` (``slot_rows`` 0); ``idx_valid`` and ``count``
+    are implied by ``idx`` there."""
+    slot0 = torch.zeros((1,), dtype=torch.int64, device=ell.device)
+
     def pass_small(colors, idx, idx_valid, count):
-        return _compact_pass(ctx, ell, osrc, odst, pri, colors,
-                             idx, idx_valid, count)
+        recolored, n_def, ovf = _slot_pass(ctx, ell, osrc[None], odst[None],
+                                           pri, colors, slot0,
+                                           idx[None].long(), 0)
+        return colors, recolored[0], n_def[0], ovf[0]
 
     def pass_big(colors, U, force):
         return col._chunked_pass(ctx, ell, osrc, odst, pri, colors,
@@ -226,6 +174,229 @@ def _repair_compact_loop(ell, osrc, odst, pri, colors, U, ctx, cap,
     pass_small, pass_big = _d1_passes(ctx, ell, osrc, odst, pri)
     return _compact_repair(ctx, cap, pass_small, pass_big, colors.clone(), U,
                            max_rounds)
+
+
+def _compact_rows(U, cap: int, n_pad: int):
+    """Per row of U (L, n_pad), its ids in ascending order in a (cap,)
+    int64 buffer, dead slots holding n_pad: ``_compact`` for every slot at
+    once (ids past the first ``cap`` are dropped)."""
+    L = U.shape[0]
+    out = torch.full((L, cap + 1), n_pad, dtype=torch.int64,
+                     device=U.device)
+    rank = U.cumsum(1) - 1
+    col_ = torch.where(U & (rank < cap), rank, cap)    # column cap: a sink
+    out.scatter_(1, col_, torch.arange(n_pad, device=U.device).expand(L,
+                                                                      n_pad))
+    return out[:, :cap]
+
+
+def _slot_layout(t, n_chunks: int):
+    """(L, cap, ...) per-slot frontier tensor -> (n_chunks, L * cs, ...):
+    row k holds chunk k of every slot, slot after slot — the rows of the
+    pass's k-th launch."""
+    L, cap = t.shape[:2]
+    cs = cap // n_chunks
+    tail = t.shape[2:]
+    return t.reshape((L, n_chunks, cs) + tail).transpose(0, 1).reshape(
+        (n_chunks, L * cs) + tail).contiguous()
+
+
+def _unslot_layout(t, L: int):
+    """Inverse of ``_slot_layout``: (n_chunks, L * cs, ...) -> (L, cap,
+    ...)."""
+    n_chunks, rows = t.shape[:2]
+    cs = rows // L
+    tail = t.shape[2:]
+    return t.reshape((n_chunks, L, cs) + tail).transpose(0, 1).reshape(
+        (L, n_chunks * cs) + tail)
+
+
+def _slot_snapshot(C, n_pad, osrc, odst, pri, colors, slots, idx):
+    """The pass-start overflow snapshots of the slots ``slots`` (L,) int64,
+    built *frontier-local* per slot and stacked: (forb0 (L*cap,
+    n_words(C)) int32, overflow-edge conflicts (L*cap,) bool), row
+    ``j*cap + i`` for slot j's frontier slot i; (None, None) without an
+    overflow buffer.  ``colors`` and ``pri`` are the S slots' flat
+    (S*n_pad,) tables, ``osrc`` / ``odst`` (S, ocap).  An inverse index
+    maps each overflow edge to its compacted slot (or nowhere), so the
+    tables are (L*cap, C) / (L*cap,), not (n_pad, C); only the entries
+    that land are scattered, into a transient dense table of which only
+    the packed words are kept."""
+    S, ocap = osrc.shape
+    if ocap == 0:
+        return None, None
+    L, cap = idx.shape
+    device = colors.device
+    col_s, pri_s = colors.view(S, n_pad), pri.view(S, n_pad)
+    if L < S:                 # the slots that sit out are left alone
+        osrc, odst = osrc[slots], odst[slots]
+        col_s, pri_s = col_s[slots], pri_s[slots]
+    # each slot's inverse index: frontier position of each of its rows
+    inv = torch.full((L, n_pad + 1), -1, dtype=torch.int32, device=device)
+    inv.scatter_(1, idx, torch.arange(L * cap, dtype=torch.int32,
+                                      device=device).view(L, cap))
+    olive = (osrc >= 0) & (odst >= 0)
+    pos = torch.where(olive, inv.gather(1, osrc.clamp(0, n_pad).long()), -1)
+    s = osrc.clamp(0, n_pad - 1).long()
+    d = odst.clamp(0, n_pad - 1).long()
+    nbr_c = col_s.gather(1, d)
+    hit = ((pos >= 0) & (nbr_c >= 0) & (nbr_c < C)).nonzero(as_tuple=True)
+    dense = torch.zeros((L * cap, C), dtype=torch.uint8, device=device)
+    dense[pos[hit].long(), nbr_c[hit].long()] = 1
+    snap = bitset.pack_dense(dense, C)
+    conf = ((pos >= 0) & (col_s.gather(1, s) == nbr_c) & (nbr_c >= 0)
+            & (pri_s.gather(1, d) > pri_s.gather(1, s)))
+    ovf_defect = torch.zeros((L * cap,), dtype=torch.bool, device=device)
+    ovf_defect[pos[conf].long()] = True
+    return snap, ovf_defect
+
+
+def _slot_pass(ctx, ell, osrc, odst, pri, colors, slots, idx,
+               slot_rows: int):
+    """Fused detect-and-recolor over the compacted frontiers of the slots
+    ``slots`` (L,) int64; **updates ``colors`` in place**.
+
+    ``ell`` (S*n_pad, W), ``pri`` and ``colors`` (S*n_pad,) are S slots'
+    stacked tables flattened, ``osrc`` / ``odst`` (S, ocap) their overflow
+    buffers, ``idx`` (L, cap) int64 the frontiers of the slots passed, in
+    ascending order with dead slots holding n_pad.  A row is re-colored
+    when it is defective *right now* — or still uncolored (incremental
+    seeds): U = live, force = live & uncolored, decided on the pass-start
+    colours (ids are unique, so a slot's colour cannot change before its
+    own chunk).  The overflow snapshot is built frontier-local per slot
+    (``_slot_snapshot``).  Chunk k is ONE ``ops.detect_recolor`` call with
+    ``row_ids`` over chunk k of every slot passed — the slot-stride form
+    (``slot_rows`` = n_pad) for a megabatch, the one-table form
+    (``slot_rows`` 0, S = 1) for one tenant — whose live rows are committed
+    before chunk k + 1 (fresh colours).  The defect count is read off the
+    kernel as ``recolored & ~force``: a forced row is uncolored, and an
+    uncolored row is never defective (neither through ELL nor through
+    overflow edges).  Returns (recolored (L, n_pad) bool, n_defects (L,),
+    cap_overflowed (L,)).
+    """
+    n, n_pad, C, n_chunks, impl = ctx.unpack()
+    L, cap = idx.shape
+    device = colors.device
+    valid = idx < n_pad
+    gid = slots[:, None] * n_pad + idx.clamp(max=n_pad - 1)  # global rows
+    force = valid & (colors[gid] < 0)
+    snap, ovf_defect = _slot_snapshot(C, n_pad, osrc, odst, pri, colors,
+                                      slots, idx)
+    if snap is not None:
+        snap = _slot_layout(snap.reshape(L, cap, -1), n_chunks)
+        ovf_defect = _slot_layout(ovf_defect.view(L, cap), n_chunks)
+    gid_k = _slot_layout(gid, n_chunks)
+    rows = _slot_layout(gid.to(torch.int32), n_chunks)
+    valid_k = _slot_layout(valid, n_chunks)
+    force_k = _slot_layout(force, n_chunks)
+    rec_k, ovf_k = [], []
+    for k in range(n_chunks):
+        newc, rec, o = ops.detect_recolor(
+            ell, colors, pri, valid_k[k], 0, C, impl=impl,
+            forb0=snap[k] if snap is not None else None,
+            extra_defect=ovf_defect[k] if ovf_defect is not None else None,
+            force=force_k[k], row_ids=rows[k], slot_rows=slot_rows)
+        # commit the chunk as the change of each row: a row that does not
+        # work, dead ones included, returns the colour it read at its id,
+        # so it adds 0 there — and a dead row's clamped id may be a live
+        # row's of its slot (a plain scatter of both would race)
+        colors.index_add_(0, gid_k[k], newc - colors[gid_k[k]])
+        rec_k.append(rec)
+        ovf_k.append(o)
+    rec = _unslot_layout(torch.stack(rec_k), L)
+    recolored = torch.zeros((L, n_pad + 1), dtype=torch.bool, device=device)
+    recolored.scatter_(1, idx, rec)           # dead slots: column n_pad
+    n_def = (rec & ~force).sum(dim=1, dtype=torch.int32)
+    return (recolored[:, :n_pad], n_def,
+            _unslot_layout(torch.stack(ovf_k), L).any(dim=1))
+
+
+def _mega_compact_repair(ctx, cap, pass_small, colors, U, max_rounds,
+                         esc0):
+    """Megabatched compacted repair (DESIGN.md §13) over an explicit slot
+    axis; **updates ``colors`` (S, n_pad) in place**.
+
+    Per slot, the semantics of ``_compact_repair``'s small branch
+    (``U_{r+1} = recolored_r``, forced uncolored seeds keep the loop alive,
+    terminates on a zero-defect pass), with each slot's loop state (rounds,
+    last work count, defects, escape flag) its own.  A slot whose loop has
+    ended is **frozen**: its rows take no further pass and its counters
+    stop — what JAX's ``while_loop`` batching rule does to a finished
+    instance of the reference's ``vmap``, and what makes every slot's
+    result bit-identical to its scalar loop.  There is no full-width
+    fallback and no cap doubling: a frontier past ``cap`` or a mex past the
+    colour cap raises the slot's escape flag and freezes it, and the host
+    redoes that slot through the per-tenant path (its colours are discarded
+    by contract).  ``esc0`` (S,) marks slots escaped before this repair:
+    they run zero rounds.
+
+    ``pass_small(colors, slots, idx)`` is one compacted pass of the running
+    slots (``_slot_pass``).  Each round reads back, in one
+    transfer, what the loop needs: each running slot's defects, forced
+    seeds, overflow flag and next frontier size.  Returns (colors, n_rounds
+    (S,), total_defects (S,), escape (S,)), host numpy arrays but colors.
+    """
+    S, n_pad = U.shape
+    device = colors.device
+    r = np.zeros((S,), np.int64)
+    tot = np.zeros((S,), np.int64)
+    esc = np.array(esc0, dtype=bool).reshape(S).copy()
+    last = np.where(esc, 0, 1)
+    counts = U.sum(dim=1).tolist()
+    flat = colors.view(-1)
+    while True:
+        run = [s for s in range(S) if last[s] > 0 and r[s] < max_rounds]
+        if not run:
+            break
+        live = []
+        for s in run:
+            if counts[s] > cap:       # frontier overflow: the host redoes it
+                esc[s], last[s] = True, 0
+                r[s] += 1
+            else:
+                live.append(s)
+        if not live:
+            continue
+        slots = torch.tensor(live, dtype=torch.int64, device=device)
+        Ul = U[slots]
+        n_forced = (Ul & (colors[slots] < 0)).sum(dim=1, dtype=torch.int32)
+        recolored, n_def, ovf = pass_small(flat, slots,
+                                           _compact_rows(Ul, cap, n_pad))
+        U[slots] = recolored
+        back = torch.stack([n_def, n_forced, ovf.to(torch.int32),
+                            recolored.sum(dim=1, dtype=torch.int32)]).tolist()
+        for j, s in enumerate(live):
+            d, f, o, c = (back[0][j], back[1][j], back[2][j], back[3][j])
+            r[s] += 1
+            tot[s] += d
+            esc[s] |= bool(o)         # colour-cap overflow: the host redoes it
+            # forced seeds are speculative: same liveness rule as the
+            # scalar loop
+            last[s] = 0 if esc[s] else d + f
+            counts[s] = c
+    return colors, r, tot, esc
+
+
+def _repair_mega_loop(ell, osrc, odst, pri, colors, U, esc0, ctx, cap,
+                      max_rounds):
+    """Megabatched externally-seeded repair: every operand carries a leading
+    slot axis — ell (S, n_pad, W), osrc / odst (S, ocap), pri / colors
+    (S, n_pad), U (S, n_pad) bool, esc0 (S,) bool — and each chunk of a
+    round is one slot-stride launch for every running slot.  Per-slot
+    ``(colors, n_rounds, total_defects, escape)``; a raised escape flag
+    means that slot must be redone per-tenant, and its colours are
+    garbage.  The caller's ``colors`` and ``U`` are left untouched (the
+    loop works on copies)."""
+    S, n_pad, W = ell.shape
+    ell_f = ell.reshape(S * n_pad, W)
+    pri_f = pri.reshape(S * n_pad)
+
+    def pass_small(colors_f, slots, idx):
+        return _slot_pass(ctx, ell_f, osrc, odst, pri_f, colors_f, slots,
+                          idx, n_pad)
+
+    return _mega_compact_repair(ctx, cap, pass_small, colors.clone(),
+                                U.clone(), max_rounds, esc0)
 
 
 @registry.register_engine("rsoc_compact", distance=1, mode="static",

@@ -38,8 +38,8 @@ SIGNATURES = {
     # ell colors forb0 mex ovf | R W n C lanes window design | stream
     "coloring_firstfit": [_P] * 5 + [_I] * 7 + [_P],
     # ell colors pri U forb0 extra_defect force valid row_ids newc recolored
-    # ovf | R W n C row_start lanes window design | stream
-    "coloring_detect_recolor": [_P] * 12 + [_I] * 8 + [_P],
+    # ovf | R W n C row_start lanes window design slot_rows | stream
+    "coloring_detect_recolor": [_P] * 12 + [_I] * 9 + [_P],
     # ell_rows ell_all colors pri U force valid row_ids newc recolored ovf |
     # R W n n_all C row_start detect lanes window design | stream
     "coloring_twohop_detect_recolor": [_P] * 11 + [_I] * 10 + [_P],

@@ -59,6 +59,11 @@
 //    vertex row_ids[r] (clamped to [0, n-1]): it reads that vertex's colour,
 //    priority and row of the full ELL table; forb0, extra_defect and the
 //    per-row flags stay indexed by r.
+//  * Slot stride (DETECT with row_ids, slot_rows > 0; the megabatched
+//    repair): the tables are S slots' stacked tables of slot_rows rows, the
+//    row ids global, a row's ELL ids local to its slot; neighbour j is read
+//    at the row's slot's first row + min(j, slot_rows - 1).  slot_rows 0 is
+//    the one-table pass.
 //  * Detect only (DETECT, out_c null: CAT's separate detect pass): the
 //    defect test alone — no forbidden words, no mex — and recolored the one
 //    output, the same flags as the full pass's.
@@ -96,7 +101,8 @@ pass_body(const int* __restrict__ ell,             // (R, W) or (>= n, W)
                                                    //   or null: detect only
           uint8_t* __restrict__ out_rec,           // (R,)      DETECT
           uint8_t* __restrict__ out_ovf,           // (R,) or null with out_c
-          int R, int W, int n, int C, int nW, int row_start) {
+          int R, int W, int n, int C, int nW, int row_start,
+          int slot_rows) {                         // > 0: slot stride
   const long long gtid =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long row = gtid / G;
@@ -113,6 +119,10 @@ pass_body(const int* __restrict__ ell,             // (R, W) or (>= n, W)
     vid = min(max(row_ids[row], 0), n - 1);
     ell_row = ell + vid * W;
   }
+  // neighbour j is read at base + min(j, lim - 1): the one table (base 0,
+  // lim n), or in the slot-stride form the row's own slot's rows
+  const long long base = slot_rows > 0 ? vid - vid % slot_rows : 0;
+  const int lim = slot_rows > 0 ? slot_rows : n;
 
   // detect only: the defect test, and recolored the one output
   const bool only = DETECT && out_c == nullptr;
@@ -151,7 +161,7 @@ pass_body(const int* __restrict__ ell,             // (R, W) or (>= n, W)
     for (int j = lane; j < W; j += G) {
       int idx = ell_row[j];
       if (idx < 0) continue;                 // FILL: colour -1, priority -1
-      idx = min(idx, n - 1);
+      idx = static_cast<int>(base + min(idx, lim - 1));
       const int c = colors[idx];
       if constexpr (DETECT) {
         if (wb == 0 && c == c_r && c_r >= 0 && pri[idx] > p_r) defect = true;
@@ -193,10 +203,10 @@ pass_body(const int* __restrict__ ell,             // (R, W) or (>= n, W)
       const uint8_t* __restrict__ force, const uint8_t* __restrict__ valid,  \
       const int* __restrict__ row_ids, int* __restrict__ out_c,              \
       uint8_t* __restrict__ out_rec, uint8_t* __restrict__ out_ovf, int R,   \
-      int W, int n, int C, int nW, int row_start
+      int W, int n, int C, int nW, int row_start, int slot_rows
 #define PASS_ARGS                                                            \
   ell, colors, pri, U, forb0, extra_defect, force, valid, row_ids, out_c,    \
-      out_rec, out_ovf, R, W, n, C, nW, row_start
+      out_rec, out_ovf, R, W, n, C, nW, row_start, slot_rows
 
 // The two kernels of pass_body.  First fit's names a minimum of one block
 // an SM: ptxas then keeps every variant's words in registers (left to its
@@ -222,7 +232,7 @@ cudaError_t launch(int lanes, int window, const int* ell, const int* colors,
                    const uint8_t* extra_defect, const uint8_t* force,
                    const uint8_t* valid, const int* row_ids, int* out_c,
                    uint8_t* out_rec, uint8_t* out_ovf, int R, int W, int n,
-                   int C, int row_start, cudaStream_t stream) {
+                   int C, int row_start, int slot_rows, cudaStream_t stream) {
   const int nW = (C + 31) / 32;
   return coloring::pick_shape(lanes, window, [&](auto g, auto nw) {
     constexpr int G = decltype(g)::value;
@@ -233,11 +243,11 @@ cudaError_t launch(int lanes, int window, const int* ell, const int* colors,
     if constexpr (DETECT)
       detect_kernel<G, NW><<<grid, kThreads, 0, stream>>>(
           ell, colors, pri, U, forb0, extra_defect, force, valid, row_ids,
-          out_c, out_rec, out_ovf, R, W, n, C, nW, row_start);
+          out_c, out_rec, out_ovf, R, W, n, C, nW, row_start, slot_rows);
     else
       firstfit_kernel<G, NW><<<grid, kThreads, 0, stream>>>(
           ell, colors, pri, U, forb0, extra_defect, force, valid, row_ids,
-          out_c, out_rec, out_ovf, R, W, n, C, nW, row_start);
+          out_c, out_rec, out_ovf, R, W, n, C, nW, row_start, 0);
     return cudaGetLastError();
   });
 }
@@ -271,7 +281,7 @@ extern "C" int coloring_firstfit(const void* ell, const void* colors,
       static_cast<const int*>(colors), nullptr, nullptr,
       static_cast<const int*>(forb0), nullptr, nullptr, nullptr, nullptr,
       static_cast<int*>(mex), nullptr, static_cast<uint8_t*>(ovf), R, W, n, C,
-      0, static_cast<cudaStream_t>(stream)));
+      0, 0, static_cast<cudaStream_t>(stream)));
 }
 
 // row_ids null: rows [row_start, row_start + R) of the colour vector, ell
@@ -284,7 +294,7 @@ cudaError_t detect_recolor_direct(
     const void* forb0, const void* extra_defect, const void* force,
     const void* valid, const void* row_ids, void* newc, void* recolored,
     void* ovf, int R, int W, int n, int C, int row_start, int lanes,
-    int window, void* stream) {
+    int window, int slot_rows, void* stream) {
   return launch<true>(
       lanes, window, static_cast<const int*>(ell),
       static_cast<const int*>(colors), static_cast<const int*>(pri),
@@ -293,6 +303,6 @@ cudaError_t detect_recolor_direct(
       static_cast<const uint8_t*>(force), static_cast<const uint8_t*>(valid),
       static_cast<const int*>(row_ids), static_cast<int*>(newc),
       static_cast<uint8_t*>(recolored), static_cast<uint8_t*>(ovf), R, W, n,
-      C, row_start, static_cast<cudaStream_t>(stream));
+      C, row_start, slot_rows, static_cast<cudaStream_t>(stream));
 }
 }  // namespace coloring

@@ -54,7 +54,7 @@ cudaError_t detect_recolor_direct(
     const void* forb0, const void* extra_defect, const void* force,
     const void* valid, const void* row_ids, void* newc, void* recolored,
     void* ovf, int R, int W, int n, int C, int row_start, int lanes,
-    int window, void* stream);
+    int window, int slot_rows, void* stream);
 }  // namespace coloring
 
 // row_ids null: rows [row_start, row_start + R) of the colour vector, ell
@@ -62,15 +62,20 @@ cudaError_t detect_recolor_direct(
 // row_start is unused.  lanes: 1 2 4 8 16 32; window: forbidden words a
 // window (2, 8 or 16 for "direct", 1..16 for "vec16"); design: 0 "vec16"
 // (W % 4 == 0, ell 16-B aligned), 1 "direct".  newc and ovf both null:
-// detect only (recolored is the one output).
+// detect only (recolored is the one output).  slot_rows > 0 (row_ids
+// given, n a multiple of it): the slot-stride form — ell, colors and pri
+// are S = n / slot_rows slots' stacked tables, row_ids global ids
+// s * slot_rows + v, and a row reads its neighbours in its own slot
+// (staged_pass.cuh); 0: the one-table pass.
 extern "C" int coloring_detect_recolor(
     const void* ell, const void* colors, const void* pri, const void* U,
     const void* forb0, const void* extra_defect, const void* force,
     const void* valid, const void* row_ids, void* newc, void* recolored,
     void* ovf, int R, int W, int n, int C, int row_start, int lanes,
-    int window, int design, void* stream) {
+    int window, int design, int slot_rows, void* stream) {
   if (R < 1 || W < 1 || n < 1 || C < 1 || recolored == nullptr ||
-      (newc == nullptr) != (ovf == nullptr) ||
+      (newc == nullptr) != (ovf == nullptr) || slot_rows < 0 ||
+      (slot_rows > 0 && (row_ids == nullptr || n % slot_rows != 0)) ||
       (row_ids == nullptr &&
        (row_start < 0 || static_cast<long long>(row_start) + R > n)) ||
       design < 0 || design > 1 ||
@@ -80,7 +85,8 @@ extern "C" int coloring_detect_recolor(
   if (design == 1)
     return static_cast<int>(coloring::detect_recolor_direct(
         ell, colors, pri, U, forb0, extra_defect, force, valid, row_ids, newc,
-        recolored, ovf, R, W, n, C, row_start, lanes, window, stream));
+        recolored, ovf, R, W, n, C, row_start, lanes, window, slot_rows,
+        stream));
   coloring::staged::Args a{};
   const int* e = static_cast<const int*>(ell);
   a.ell_rows = row_ids == nullptr ? e : nullptr;
@@ -103,6 +109,7 @@ extern "C" int coloring_detect_recolor(
   a.nW = (C + 31) / 32;
   a.row_start = row_start;
   a.window = window;
+  a.slot_rows = slot_rows;
   a.detect = true;
   return static_cast<int>(coloring::staged::launch<4, 1>(
       lanes, a, static_cast<cudaStream_t>(stream)));

@@ -54,6 +54,13 @@
 // The result goes to newc (R,), never into colors: every row of a launch
 // sees the pre-launch colours whatever the block order; the caller commits.
 // Ids are clamped to [0, n-1], FILL (< 0) slots are dead, any R, W, C >= 1.
+//
+// Slot stride (HOPS 1 with row_ids, slot_rows > 0): the tables are S slots'
+// stacked tables of slot_rows rows each (n = S * slot_rows), the row ids
+// global; a row's ELL ids stay local to its slot, and neighbour id j is read
+// at base + min(j, slot_rows - 1), base the first row of the row's slot.
+// One launch then computes what S launches over the slots' own tables do.
+// slot_rows 0 is the one-table pass (base 0, ids clamped to n - 1).
 #pragma once
 
 #include <algorithm>
@@ -93,6 +100,8 @@ struct Args {
   uint8_t* out_rec;             // (R,), or null with U null
   uint8_t* out_ovf;             // (R,), or null with out_c null
   int R, W, n, C, nW, row_start, window;
+  int slot_rows;                // HOPS 1 with row_ids: > 0 for the
+                                //   slot-stride form (see below), else 0
   bool detect;                  // false: round 0, no defect test
 };
 
@@ -288,15 +297,18 @@ pass(const Args a) {
 
   // ---- OR the colours of src[0, len) into the window's words ----
   // the window is colours [lo, lo + span): word (c - lo) >> 5
+  // ids are read at base + min(id, lim - 1): base 0 and lim n, or, in the
+  // slot-stride form, the row's slot's first row and the slot's rows
   auto gather = [&](const int* src, int len, int self, int lo, int span,
-                    bool probe, int c_r, int p_r, bool& defect) {
+                    bool probe, int c_r, int p_r, bool& defect, int base,
+                    int lim) {
     for (int f0 = 0; f0 < len; f0 += kUnroll * G) {
       int s[kUnroll], c[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int f = f0 + u * G + lane;
         const int id = f < len ? src[f] : -1;
-        s[u] = (id < 0 || id == self) ? -1 : min(id, n - 1);
+        s[u] = (id < 0 || id == self) ? -1 : base + min(id, lim - 1);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
@@ -320,6 +332,9 @@ pass(const Args a) {
     const int p_r = test ? a.pri[vid] : -1;
     const int* st = stage0 + buf * kStageInts;
     const int nbat = (items + kb - 1) / kb;
+    // slot stride (HOPS 1): the row's neighbours lie in its own slot
+    const int base = a.slot_rows > 0 ? vid - vid % a.slot_rows : 0;
+    const int lim = a.slot_rows > 0 ? a.slot_rows : n;
     bool defect = false;
     int mex = -1;
     for (int wb = 0; wb < nW && mex < 0; wb += NWw) {
@@ -337,7 +352,7 @@ pass(const Args a) {
       const int lo = wb * 32, span = only ? 0 : min(C - lo, NWw * 32);
       if constexpr (HOPS == 2)                       // hop 1: the live ids
         gather(ids0 + buf * ids_warp, items, -1, lo, span, probe, c_r, p_r,
-               defect);
+               defect, 0, n);
       // detect only: a row that is not tested reads nothing (uniform in
       // the group: c_r and bits are the group's)
       for (int b = 0; b < (only && !probe ? 0 : nbat); ++b) {
@@ -350,7 +365,7 @@ pass(const Args a) {
         const int len = HOPS == 2 ? min(kb, items - b * kb) * W
                                   : min(kb, items - b * kb);
         gather(st, len, HOPS == 2 ? vid : -1, lo, span, probe, c_r, p_r,
-               defect);
+               defect, base, lim);
       }
       __syncwarp(mask);
       if (only) break;

@@ -15,7 +15,7 @@ forbidden words (the overflow-COO snapshot slice), ``extra_defect`` (R,) bool
 into the defect flags (overflow-edge conflicts), ``work = valid & ((U &
 defect) | force)``, and ``row_ids`` (R,) int32 makes row r the vertex
 ``row_ids[r]`` (clamped to [0, n-1]) of the full table ``ell`` — colour,
-priority and ELL row — for ``core/frontier._compact_pass``; ``forb0``,
+priority and ELL row — for ``core/frontier._slot_pass``; ``forb0``,
 ``extra_defect`` and the flags stay indexed by r.  With all of them absent
 the outputs are bit-identical to the reference's.
 
@@ -50,12 +50,25 @@ force)`` — and takes no ``forb0``.  Its bytes bound drops the 5 output bytes
 of ``newc`` / ``ovf`` a row; it reads what the full pass reads minus
 ``forb0``.
 
+``slot_rows > 0`` is the slot-stride form, the megabatched repair's pass
+(``core/frontier._repair_mega_loop``): ``ell``, ``colors`` and ``pri`` are
+the stacked tables of S = n / slot_rows slots, flattened to (S*slot_rows,
+...), and ``row_ids`` are global ids ``s*slot_rows + v``.  Row r reads its
+neighbour j at ``base + min(j, slot_rows - 1)``, base the first row of its
+slot: ELL ids stay local to their slot, and one launch over the rows of many
+slots computes what one launch a slot over that slot's own tables computes.
+``slot_rows = 0`` is the one-table pass, unchanged.  Its bytes bound is the
+one-table pass's: each working row reads its own row, colours and
+priorities.
+
 ``detect_recolor`` launches the kernel for CUDA tensors and takes the plain
 version for CPU tensors — for those only: on a CUDA tensor it launches or
-raises.  ``detect_recolor.launches`` counts the launches of the full pass,
-``launches_vec16`` / ``launches_direct`` those of each design;
-``launches_detect`` (and ``launches_detect_vec16`` / ``_direct``) count the
-detect-only launches, which the first three do not.
+raises.  ``detect_recolor.launches`` counts the launches of the full
+one-table pass, ``launches_vec16`` / ``launches_direct`` those of each
+design; ``launches_detect`` (and ``launches_detect_vec16`` / ``_direct``)
+count the detect-only launches and ``launches_slots`` (and
+``launches_slots_vec16`` / ``_direct``) those of the slot-stride form,
+which the first three do not.
 """
 from __future__ import annotations
 
@@ -82,10 +95,31 @@ def check_detect_only(forb0) -> None:
                          "be None")
 
 
+def check_slot_rows(slot_rows: int, row_ids, n: int,
+                    detect_only: bool) -> int:
+    """The slot-stride form needs ``row_ids`` and a table of whole slots,
+    and is a full pass; returns ``slot_rows`` as an int."""
+    slot_rows = int(slot_rows)
+    if slot_rows < 0:
+        raise ValueError(f"slot_rows must be >= 0 (got {slot_rows})")
+    if slot_rows:
+        if row_ids is None:
+            raise ValueError("slot_rows needs row_ids (global ids "
+                             "s*slot_rows + v)")
+        if n % slot_rows:
+            raise ValueError(f"slot_rows={slot_rows} must divide the "
+                             f"stacked tables' n={n}")
+        if detect_only:
+            raise ValueError("the slot-stride form is a full pass: "
+                             "detect_only must be False")
+    return slot_rows
+
+
 def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
                    forb0=None, extra_defect=None, force=None, valid=None, *,
                    row_ids=None, lanes: Optional[int] = None,
-                   window: Optional[int] = None, detect_only: bool = False):
+                   window: Optional[int] = None, detect_only: bool = False,
+                   slot_rows: int = 0):
     """Fused RSOC pass for rows [row_start, row_start + R), or for the
     vertices ``row_ids``.
 
@@ -94,8 +128,9 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
     int32; U_rows (R,) bool; optional forb0 (R, n_words(C)) int32 and
     extra_defect / force / valid (R,) bool.  Returns (new row colors (R,)
     int32, recolored (R,) bool, overflow (R,) bool); with ``detect_only``
-    the recolored flags alone (no ``forb0``).  ``lanes`` / ``window``
-    override the launch shape (the result does not depend on them).
+    the recolored flags alone (no ``forb0``).  ``slot_rows > 0``: the
+    slot-stride form (module docstring).  ``lanes`` / ``window`` override
+    the launch shape (the result does not depend on them).
     """
     if detect_only:
         check_detect_only(forb0)
@@ -124,11 +159,12 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
     if row_ids is None and (row_start < 0 or row_start + R > n):
         raise ValueError(f"rows [{row_start}, {row_start + R}) lie outside "
                          f"the (n={n},) color vector")
+    slot_rows = check_slot_rows(slot_rows, row_ids, n, detect_only)
     if device.type != "cuda":
         return ref.detect_recolor_ref(
             ell, colors, pri, row_start, U_rows, C, forb0=forb0,
             extra_defect=extra_defect, force=force, valid=valid,
-            row_ids=row_ids, detect_only=detect_only)
+            row_ids=row_ids, detect_only=detect_only, slot_rows=slot_rows)
     aligned = ell.data_ptr() % 16 == 0
     route = design(W, aligned)
     if not lanes_given:
@@ -145,11 +181,15 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
             ptr(ell), ptr(colors), ptr(pri), ptr(U_rows), ptr(forb0),
             ptr(extra_defect), ptr(force), ptr(valid), ptr(row_ids),
             ptr(newc), ptr(rec), ptr(ovf), R, W, n, int(C), row_start, lanes,
-            window, DESIGNS.index(route), stream)
+            window, DESIGNS.index(route), slot_rows, stream)
     if detect_only:
         check_launch(f"detect_recolor ({route}, detect only)", err)
         count_launch(detect_recolor, route, "launches_detect")
         return rec
+    if slot_rows:
+        check_launch(f"detect_recolor ({route}, slot stride)", err)
+        count_launch(detect_recolor, route, "launches_slots")
+        return newc, rec, ovf
     check_launch(f"detect_recolor ({route})", err)
     count_launch(detect_recolor, route)
     return newc, rec, ovf
@@ -161,3 +201,6 @@ detect_recolor.launches_direct = 0
 detect_recolor.launches_detect = 0
 detect_recolor.launches_detect_vec16 = 0
 detect_recolor.launches_detect_direct = 0
+detect_recolor.launches_slots = 0
+detect_recolor.launches_slots_vec16 = 0
+detect_recolor.launches_slots_direct = 0

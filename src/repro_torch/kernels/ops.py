@@ -80,23 +80,27 @@ def firstfit(ell, colors, C: int = 64, backend: str = "auto",
 def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int = 64,
                    backend: str = "auto", impl: str = "bitset", forb0=None,
                    extra_defect=None, force=None, valid=None, row_ids=None,
-                   detect_only: bool = False, **kw):
+                   detect_only: bool = False, slot_rows: int = 0, **kw):
     """RSOC's fused pass over rows [row_start, row_start + R) (or the
     vertices ``row_ids``): (newc, recolored, ovf).  ``detect_only=True``
-    (CAT's detect pass) returns the (R,) ``recolored`` flags alone."""
+    (CAT's detect pass) returns the (R,) ``recolored`` flags alone;
+    ``slot_rows > 0`` is the slot-stride form over stacked slots (the
+    megabatched repair)."""
     b = _forced_fallback("detect_recolor", _resolve(backend, ell))
     _dispatched("detect_recolor", b)
     if b == "torch":
         if detect_only:
             _dr_mod.check_detect_only(forb0)
+        slot_rows = _dr_mod.check_slot_rows(slot_rows, row_ids,
+                                            colors.shape[0], detect_only)
         return ref.detect_recolor_ref(
             ell, colors, pri, row_start, U_rows, C, impl=impl, forb0=forb0,
             extra_defect=extra_defect, force=force, valid=valid,
-            row_ids=row_ids, detect_only=detect_only)
+            row_ids=row_ids, detect_only=detect_only, slot_rows=slot_rows)
     return _dr_mod.detect_recolor(ell, colors, pri, U_rows, row_start, C,
                                   forb0, extra_defect, force, valid,
                                   row_ids=row_ids, detect_only=detect_only,
-                                  **kw)
+                                  slot_rows=slot_rows, **kw)
 
 
 def twohop(ell_rows, ell_all, colors, pri, U_rows, row_start: int,

@@ -14,7 +14,7 @@ corners agree bit-for-bit.
 
 Beyond the reference package's refs, they take the optional inputs that
 the engines' chunk passes need (``core/coloring._chunked_pass``,
-``core/frontier._compact_pass``, ``core/distance2._d2_*_pass``): ``forb0``
+``core/frontier._slot_pass``, ``core/distance2._d2_*_pass``): ``forb0``
 (R, n_words(C)) int32 packed words OR-ed into the forbidden set before the
 mex (the overflow-COO snapshot slice), ``extra_defect`` (R,) bool OR-ed into
 the defect flags, ``force`` / ``valid`` (R,) bool so that ``work = valid &
@@ -126,13 +126,23 @@ def _work(U_rows, defect, force, valid):
     return work
 
 
+def _slot_ids(ell, vid, slot_rows: int):
+    """The slot-stride form's global neighbour ids: each row's local ids
+    clamped to its slot and moved to the slot's first row (FILL stays
+    FILL)."""
+    base = (vid - vid % slot_rows)[:, None].to(ell.dtype)
+    return torch.where(ell >= 0, base + ell.clamp(max=slot_rows - 1), ell)
+
+
 def detect_recolor_ref(ell, colors, pri, row_start: int, U_rows, C: int,
                        impl: str = "bitset", forb0=None, extra_defect=None,
                        force=None, valid=None, row_ids=None,
-                       detect_only: bool = False):
+                       detect_only: bool = False, slot_rows: int = 0):
     """For rows [row_start, row_start+R) — or, with ``row_ids``, vertices
     ``row_ids`` of the full table ``ell`` — if in U and defective (same color
     as a higher-priority neighbor), re-color with first-fit; else keep.
+    ``slot_rows > 0`` (with ``row_ids``): the tables are stacked slots of
+    ``slot_rows`` rows and each row's neighbour ids are local to its slot.
 
     returns (new row colors (R,), recolored (R,) bool, overflow (R,) bool);
     with ``detect_only`` the recolored flags alone (R,) bool
@@ -141,6 +151,8 @@ def detect_recolor_ref(ell, colors, pri, row_start: int, U_rows, C: int,
     vid = _row_ids(row_ids, row_start, R, colors.shape[0], ell.device)
     if row_ids is not None:
         ell = ell[vid]
+        if slot_rows:
+            ell = _slot_ids(ell, vid, slot_rows)
     c_r = colors[vid]
     p_r = pri[vid]
     nbrc = _gather(ell, colors)

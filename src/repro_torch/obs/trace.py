@@ -144,6 +144,10 @@ class RunTracer:
                                        wall_s=time.perf_counter() - t0,
                                        meta=dict(meta)))
 
+    def phase_wall_s(self, name: str) -> float:
+        """Summed wall seconds of the phases called ``name`` so far."""
+        return sum(p.wall_s for p in self._phases if p.name == name)
+
     def set_frontier_trace(self, frontier, cap: Optional[int] = None) -> None:
         """Per-round |U| counts from the loop carry (engines that collect
         them under the static ``ctx.trace`` flag).  ``cap``: the compacted

@@ -220,13 +220,15 @@ def test_externally_seeded_repair_loop(name, ell_cap):
 
 
 # combos the port does not run (CAT, GM and JP themselves are ported: their
-# cases now ask for a distance, mode or backend they lack); the ids are the
+# cases now ask for a distance, mode or backend they lack; so is the local
+# incremental engine: its case asks for the sharded one); the ids are the
 # cases' ids from before those engines were ported
 _UNSUPPORTED = [
     (dict(algorithm="cat", distance=2), ("rsoc", 2, "static", "local")),
     (dict(algorithm="gm", mode="partial", n_left=3),
      ("rsoc", 2, "partial", "local")),
-    (dict(mode="incremental"), ("rsoc", 1, "static", "local")),
+    (dict(mode="incremental", backend="distributed"),
+     ("rsoc", 1, "incremental", "local")),
     (dict(backend="distributed"), ("rsoc", 1, "static", "local")),
     (dict(algorithm="jp", backend="distributed"),
      ("jp", 1, "static", "local"))]
@@ -266,6 +268,7 @@ def test_spec_and_surface_parity():
     assert "device" not in tapi.SPEC_FIELDS
     ported = [("cat", 1, "static", "local"), ("gm", 1, "static", "local"),
               ("jp", 1, "static", "local"),
+              ("rsoc", 1, "incremental", "local"),
               ("rsoc", 1, "static", "local"), ("rsoc", 2, "partial", "local"),
               ("rsoc", 2, "static", "local"),
               ("rsoc_compact", 1, "static", "local")]
@@ -279,7 +282,8 @@ def test_spec_and_surface_parity():
     assert rows == tapi.supported_specs()
     assert {r["replaces"] for r in rows} == {
         "color_rsoc", "color_rsoc_compact", "color_distance2",
-        "color_bipartite_partial", "color_cat", "color_gm", "color_jp"}
+        "color_bipartite_partial", "color_cat", "color_gm", "color_jp",
+        "dynamic_state"}
     for bad in (dict(n_chunks=0), dict(C=0), dict(max_rounds=0),
                 dict(forbidden_impl="sparse"), dict(mode="nope"),
                 dict(n_left=3)):

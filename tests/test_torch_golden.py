@@ -14,8 +14,12 @@ import pytest
 import torch
 
 from repro import api as japi
+from repro.dynamic import ColoringService as JService
+from repro.dynamic import recolor_incremental as j_recolor
 from repro.graphs import generators as j_generators
 from repro_torch import api as tapi
+from repro_torch.dynamic import ColoringService as TService
+from repro_torch.dynamic import recolor_incremental as t_recolor
 from repro_torch.graphs import generators as t_generators
 
 # one intra-op thread: the tensors here are tiny, and a pool of OpenMP
@@ -29,7 +33,10 @@ make_torch_golden = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(make_torch_golden)
 
 with open(make_torch_golden.PATH) as _f:
-    GOLDEN = json.load(_f)["results"]
+    _DOC = json.load(_f)
+GOLDEN = _DOC["results"]
+GOLDEN_INC = _DOC["incremental"]
+GOLDEN_SVC = _DOC["service"]
 
 J_RUNS = {key: (g, kw) for key, g, kw in make_torch_golden.runs(j_generators)}
 T_RUNS = {key: (g, kw) for key, g, kw in make_torch_golden.runs(t_generators)}
@@ -61,3 +68,35 @@ def test_golden_equals_reference_and_port(key):
     g, kw = T_RUNS[key]
     assert make_torch_golden.entry(
         tapi.color(g, device="cpu", **kw)) == want, "port"
+
+
+J_SUITE = j_generators.paper_suite("tiny")
+T_SUITE = t_generators.paper_suite("tiny")
+
+
+def test_golden_dynamic_sections_cover_the_suite():
+    assert sorted(GOLDEN_INC) == sorted(J_SUITE)
+    for rows in GOLDEN_INC.values():
+        assert len(rows) == make_torch_golden.STREAM_BATCHES
+        assert [r["version"] for r in rows] == list(range(1, 11))
+    assert len(GOLDEN_SVC) == make_torch_golden.SVC_STEPS
+    assert all(len(s) == make_torch_golden.SVC_TENANTS for s in GOLDEN_SVC)
+
+
+@pytest.mark.parametrize("name", sorted(J_SUITE))
+def test_golden_incremental_equals_reference_and_port(name):
+    want = GOLDEN_INC[name]
+    assert make_torch_golden.incremental_stream(
+        japi.color, j_recolor, J_SUITE[name]) == want, "reference package"
+    port = lambda g, **kw: tapi.color(g, device="cpu", **kw)  # noqa: E731
+    assert make_torch_golden.incremental_stream(
+        port, t_recolor, T_SUITE[name]) == want, "port"
+
+
+def test_golden_service_equals_reference_and_port():
+    assert make_torch_golden.service_entries(
+        JService(megabatch=True, **make_torch_golden.SVC_OPTS),
+        j_generators) == GOLDEN_SVC, "reference package"
+    assert make_torch_golden.service_entries(
+        TService(megabatch=True, device="cpu", **make_torch_golden.SVC_OPTS),
+        t_generators) == GOLDEN_SVC, "port"
