@@ -27,14 +27,21 @@ ends the run with a non-zero exit code:
               (phase_kernels_detect_only); B2's slot-stride form on both
               designs (phase_kernels_slots: S 1-32 slots, W 12-516, C
               4-256), each launch bit-equal to its plain version and to
-              one launch a slot
+              one launch a slot; B1 / B2 at phase 5i's shapes
+              (phase_kernels_shards: a shard's chunk at row_start = d *
+              n_loc + lo of a replicated table, the detect-only form over
+              a shard's rows, B2 with row_ids into a table with a ghost
+              tail)
   4. golden   paper_suite("tiny") x seeds 0-2 at distance 1 and 2 and with
               algorithm cat / gm / jp, and two bipartite graphs
               (mode="partial"), through repro_torch.api.color on the card
               against tests/torch_golden.json (made by the JAX reference
               package); the file's incremental streams (each tiny graph,
               10 batches of recolor_incremental) and its megabatched
-              service run (8 tenants, 2 steps), entry for entry
+              service run (8 tenants, 2 steps), entry for entry; its
+              distributed sections (rsoc / cat on meshes of 1 and 4 shards
+              x the tiny suite x seeds 0-2; mesh2d(24, 24)'s sharded
+              streams)
   5. main     repro_torch.api.color(g), default spec, on the paper's graph
               classes at real size; launch counters zeroed before, read
               after, launches per design logged per graph (B1: vec16 on the
@@ -59,6 +66,17 @@ ends the run with a non-zero exit code:
               held against 5's from-scratch run; the same stream from the
               same start state with kernel.fallback armed, field-equal at
               every batch
+  5i. dist.   on each graph of 5 while it is in memory, on a mesh of
+              DIST_D = 4 shards sharing the card: rsoc and cat with
+              backend="distributed" on the meshes and RMAT-ER (proper;
+              launches exact: RSOC B1 D x n_chunks, B2 D x n_chunks a
+              round; CAT B1 D x n_chunks a phase A, B2 detect-only D a
+              phase B; collectives = gather passes; the plain replay
+              field-equal); the sharded incremental engine on RMAT-G with
+              5g's batches (one shard field-equal to 5g's states, kept;
+              four shards proper, the plain replay field-equal, halo bytes
+              printed) and on mesh2d (halo bytes a round under n x 4);
+              the phase's seconds logged
   5c. d2      api.color(g, distance=2) on the meshes and RMAT-ER,
               mode="partial" on a 2^20 x 2^20 Jacobian pattern,
               algorithm="rsoc_compact" on the meshes and RMAT-B; counters
@@ -332,6 +350,7 @@ def phase_kernels(device, launch: bool) -> Cmp:
                           want_dr, names)
         torch.cuda.synchronize()
     phase_kernels_rows(device, launch, cmp)
+    phase_kernels_shards(device, launch, cmp)
     phase_kernels_detect_only(device, launch, cmp)
     phase_kernels_slots(device, launch, cmp)
     phase_kernels_twohop(device, launch, cmp)
@@ -373,6 +392,89 @@ def phase_kernels_rows(device, launch: bool, cmp: Cmp):
             cmp.check("detect_recolor",
                       f"R{R} W{W} n{n} C{C} +row_ids{'+' if keys else ''}"
                       f"{'+'.join(keys)}", got, want, names)
+
+
+def phase_kernels_shards(device, launch: bool, cmp: Cmp):
+    """B1 and B2 at the distributed engines' shapes (phase 5i), on both
+    designs: a shard's chunk of rows at ``row_start = d * n_loc + lo`` of a
+    replicated table longer than the rows, with the shard's validity (the
+    replicated pass), and B2's detect-only form over a whole shard (CAT's
+    detect); and B2 with ``row_ids`` into a shard's table with a ghost tail
+    (the sharded compacted repair: ELL of the local rows only, ids into
+    the whole table, live ids local rows, dead slots the table's length)."""
+    from repro_torch.kernels import ops, ref
+    kb = "cuda" if launch else "torch"
+    names = ("newc", "recolored", "ovf")
+    # replicated table: (D, n_loc, chunk rows, W, C)
+    for D, n_loc, cs, W, C in [(4, 4096, 1024, 8, 32), (4, 4096, 1024, 44, 64),
+                               (8, 2000, 500, 14, 32),
+                               (4, 2048, 512, 516, 256)]:
+        rng = np.random.default_rng(D * n_loc + W)
+        n_pad = D * n_loc
+        n = n_pad - 37                      # the last shard's tail is padding
+        ell_all = rand_ell(rng, n_pad, W, n)
+        ell_all[n:] = -1
+        colors = rng.integers(0, max(C // 2, 1), size=(n_pad,)).astype(
+            np.int32)
+        colors[rng.integers(0, n_pad, size=n_pad // 10)] = -1
+        colors[n:] = -1
+        colors = dev(colors, device)
+        pri = np.full((n_pad,), -1, np.int32)
+        pri[:n] = rng.permutation(n)
+        pri = dev(pri, device)
+        for d in (1, D - 1):
+            rs = d * n_loc + cs
+            ell_k = dev(ell_all[rs:rs + cs], device)
+            valid = dev(np.arange(rs, rs + cs) < n, device)
+            U = dev(rng.random(cs) < 0.7, device)
+            lab = f"shard D{D} d{d} R{cs} W{W} n{n_pad} C{C} rs{rs}"
+            cmp.check("firstfit", lab, ops.firstfit(ell_k, colors, C,
+                                                    backend=kb),
+                      ref.firstfit_ref(ell_k, colors, C), ("mex", "ovf"))
+            for kw in ({}, {"valid": valid}):
+                cmp.check("detect_recolor", lab + ("+valid" if kw else ""),
+                          ops.detect_recolor(ell_k, colors, pri, U, rs, C,
+                                             backend=kb, **kw),
+                          ref.detect_recolor_ref(ell_k, colors, pri, rs, U,
+                                                 C, **kw), names)
+            ell_d = dev(ell_all[d * n_loc:(d + 1) * n_loc], device)
+            U = dev(rng.random(n_loc) < 0.5, device)
+            cmp.check(DETECT_ONLY, f"shard D{D} d{d} R{n_loc} W{W} C{C}",
+                      (ops.detect_recolor(ell_d, colors, pri, U, d * n_loc,
+                                          C, backend=kb, detect_only=True),),
+                      (ref.detect_recolor_ref(ell_d, colors, pri, d * n_loc,
+                                              U, C, detect_only=True),),
+                      ("recolored",))
+    # a shard's table with a ghost tail: (n_loc, ghosts, W, C, frontier)
+    for n_loc, G, W, C, R in [(4096, 1500, 12, 32, 512),
+                              (4096, 1500, 48, 64, 512),
+                              (2048, 700, 516, 256, 256)]:
+        rng = np.random.default_rng(n_loc + G + W)
+        n_tab = n_loc + G
+        ell = dev(rand_ell(rng, n_loc, W, n_tab), device)
+        colors = rng.integers(0, max(C // 2, 1), size=(n_tab,)).astype(
+            np.int32)
+        colors[rng.integers(0, n_tab, size=n_tab // 10)] = -1
+        pri = dev(rng.permutation(n_tab).astype(np.int32), device)
+        live = np.sort(rng.choice(n_loc, size=R * 3 // 4, replace=False))
+        ids = np.full((R,), n_tab, np.int32)         # dead: off the table
+        ids[:len(live)] = live
+        valid = ids < n_tab
+        force = valid & (colors[np.minimum(ids, n_tab - 1)] < 0)
+        colors = dev(colors, device)
+        ids, U, force = dev(ids, device), dev(valid, device), dev(force,
+                                                                    device)
+        opt = dict(force=force, forb0=rand_words(rng, R, C, device),
+                   extra_defect=dev(rng.random(R) < 0.2, device) & U)
+        for keys in ((), ("force",), tuple(opt)):
+            kw = {k: opt[k] for k in keys}
+            cmp.check("detect_recolor",
+                      f"ghost tail n_loc{n_loc} G{G} R{R} W{W} C{C} "
+                      f"+row_ids{'+' if keys else ''}{'+'.join(keys)}",
+                      ops.detect_recolor(ell, colors, pri, U, 0, C,
+                                         backend=kb, row_ids=ids, **kw),
+                      ref.detect_recolor_ref(ell, colors, pri, 0, U, C,
+                                             row_ids=ids, **kw), names)
 
 
 def phase_kernels_detect_only(device, launch: bool, cmp: Cmp):
@@ -1084,6 +1186,41 @@ def phase_golden_dynamic(device) -> tuple:
     return n_inc, sum(len(s) for s in got)
 
 
+def phase_golden_mesh(device) -> tuple:
+    """The file's distributed sections on the card: ``rsoc`` / ``cat`` with
+    ``backend="distributed"`` on meshes of 1 and 4 shards over the tiny
+    suite x seeds 0-2, and ``mesh2d(24, 24)``'s sharded streams, entry for
+    entry.  Returns (static runs, sharded batches) checked."""
+    from repro_torch import api
+    from repro_torch.core.coloring import is_proper
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.dynamic import recolor_sharded
+    from repro_torch.graphs import generators
+    gm = golden_module()
+    with open(gm.PATH) as f:
+        doc = json.load(f)
+    meshes = {D: make_mesh((D,), ("data",), device=device)
+              for D in gm.DIST_SHARDS}
+    n = 0
+    for key, g, D, kw in gm.dist_runs(generators):
+        res = api.color(g, mesh=meshes[D], **kw)
+        got, want = gm.entry(res), doc["distributed"][key]
+        if got != want:
+            fail(f"golden mismatch for {key}: got {got}, file has {want}")
+        if not is_proper(g, res.colors):
+            fail(f"golden run {key} is not a proper coloring")
+        n += 1
+    if n != len(doc["distributed"]):
+        fail(f"golden distributed: {n} runs for {len(doc['distributed'])} "
+             f"entries")
+    got = gm.sharded_stream(api.color, recolor_sharded, meshes.get,
+                            generators)
+    if got != doc["sharded"]:
+        fail(f"golden sharded streams differ from the file: {got} vs "
+             f"{doc['sharded']}")
+    return n, sum(len(v) for v in got.values())
+
+
 # --------------------------------------------------------------------------
 # phase 5: the main path at real size
 # --------------------------------------------------------------------------
@@ -1241,7 +1378,8 @@ def phase_main(rmats, device, rehearse: bool):
     from repro_torch.core.coloring import is_proper
     n_chunks = api.ColoringSpec().n_chunks
     rows, kept, t1_rows, kept_cat, inc_rows = [], {}, [], {}, []
-    main, table1, incremental = Path(), Path(), Path()
+    dist_rows, dist_s = [], 0.0
+    main, table1, incremental, distributed = Path(), Path(), Path(), Path()
     for name, make in build_graphs(rmats, rehearse).items():
         g, gen_s, stream = make()
         obs.metrics.reset()
@@ -1299,9 +1437,23 @@ def phase_main(rmats, device, rehearse: bool):
         # ---- phase 5f: the paper's Table 1 on this graph ----
         t1_rows += table1_graph(name, g, row, device, table1, kept_cat)
         # ---- phase 5g: incremental recoloring on this graph ----
+        local = None
         if name.startswith(INC_GRAPHS):
-            inc_rows += phase_incremental(name, g, stream, row, device,
-                                          incremental)
+            more, local = phase_incremental(
+                name, g, stream, row, device, incremental,
+                keep=name.startswith(SHARD_GRAPHS))
+            inc_rows += more
+        # ---- phase 5i: distributed coloring on this graph ----
+        t5i = time.perf_counter()
+        if name.startswith(DIST_GRAPHS):
+            dist_rows += phase_distributed_static(name, g, row, device,
+                                                  distributed)
+        if name.startswith(SHARD_GRAPHS):
+            sb = stream[0] if stream else make_batches(g, MESH_FRACS)[0]
+            dist_rows += phase_sharded(name, g, sb, local, device,
+                                       distributed)
+        del local
+        dist_s += time.perf_counter() - t5i
         # kept for phase 5b / 6: the meshes and the uniform and the skewed
         # RMAT (the last one is the largest ELL table of the run)
         if not name.startswith("rmat_g"):
@@ -1321,7 +1473,18 @@ def phase_main(rmats, device, rehearse: bool):
             fail("the Table 1 path never launched the detect-only form")
     if device.type == "cuda" and not incremental.counts["detect_recolor"]:
         fail("the incremental path never launched the detect_recolor kernel")
-    return rows, kept, main, t1_rows, table1, kept_cat, inc_rows, incremental
+    if device.type == "cuda":
+        for k in ("firstfit", "detect_recolor"):
+            if distributed.counts[k] < 1:
+                fail(f"the distributed path never launched the {k} kernel")
+        if distributed.detect["launches"] < 1:
+            fail("the distributed path never launched the detect-only form")
+    log("distributed", json.dumps({"phase_5i_seconds": round(dist_s, 1),
+                                   "launches": distributed.counts,
+                                   "detect_only_launches":
+                                       distributed.detect}))
+    return (rows, kept, main, t1_rows, table1, kept_cat, inc_rows,
+            incremental, dist_rows, distributed)
 
 
 # GM's serial repair is the reference's Python loop: it runs on the meshes
@@ -1514,25 +1677,26 @@ def conflicts_on_card(st) -> int:
     return int(bad)
 
 
+def checksum(t) -> tuple:
+    """A position-sensitive checksum of a tensor, taken on the card in
+    blocks: the sums of x and of x * (1 + i mod 65521) over its flat int64
+    view (i the flat position).  Any write that changes a value changes one
+    of them but with odds about 2**-64."""
+    flat = t.reshape(-1)
+    a = torch.zeros((), dtype=torch.int64, device=flat.device)
+    b = torch.zeros_like(a)
+    for lo in range(0, flat.numel(), FINGERPRINT_BLOCK):
+        x = flat[lo:lo + FINGERPRINT_BLOCK].long()
+        i = torch.arange(lo, lo + x.numel(), device=flat.device)
+        a += x.sum()
+        b += (x * (i % 65521 + 1)).sum()
+    return int(a), int(b)
+
+
 def fingerprint(st) -> list:
-    """A position-sensitive checksum of each tensor of a dynamic state,
-    taken on the card in blocks: per field, the sums of x and of x * (1 +
-    i mod 65521) over its flat int64 view (i the flat position).  Any
-    write that changes a value changes one of them but with odds about
-    2**-64."""
+    """``checksum`` of each tensor of a dynamic state."""
     from repro_torch.dynamic.incremental import TENSOR_FIELDS
-    out = []
-    for f in TENSOR_FIELDS:
-        flat = getattr(st, f).reshape(-1)
-        a = torch.zeros((), dtype=torch.int64, device=flat.device)
-        b = torch.zeros_like(a)
-        for lo in range(0, flat.numel(), FINGERPRINT_BLOCK):
-            x = flat[lo:lo + FINGERPRINT_BLOCK].long()
-            i = torch.arange(lo, lo + x.numel(), device=flat.device)
-            a += x.sum()
-            b += (x * (i % 65521 + 1)).sum()
-        out.append((f, int(a), int(b)))
-    return out
+    return [(f,) + checksum(getattr(st, f)) for f in TENSOR_FIELDS]
 
 
 FINGERPRINT_BLOCK = 2 ** 25           # elements a block of ``fingerprint``
@@ -1545,8 +1709,8 @@ def state_fields(st) -> dict:
             **{f: getattr(st, f) for f in TENSOR_FIELDS}}
 
 
-def phase_incremental(name, g, stream, scratch_row, device,
-                      path: Path) -> list:
+def phase_incremental(name, g, stream, scratch_row, device, path: Path,
+                      keep: bool = False):
     """Phase 5g on one graph: ``api.color(g, mode="incremental", seed=1)``,
     then the ``INC_FRACS`` stream through ``recolor_incremental``, each
     batch traced (its ``apply`` and ``solve`` phases: the waves and the
@@ -1556,7 +1720,10 @@ def phase_incremental(name, g, stream, scratch_row, device,
     armed (the plain versions on the card), field-equal and colour-equal at
     every batch.  Each batch's gather passes are held against phase 5's
     from-scratch ``n_rounds + 1``.  ``stream`` is ``make_batches``' output
-    and its seconds, made in the graph's generator process."""
+    and its seconds, made in the graph's generator process.  Returns the
+    batches' rows and, with ``keep``, what phase 5i's one-shard stream is
+    held to: per state (the start, then each batch) its summary, colours
+    and ``fingerprint``."""
     from repro_torch import api, obs
     from repro_torch.dynamic import recolor_incremental
     from repro_torch.resilience import faults
@@ -1586,6 +1753,7 @@ def phase_incremental(name, g, stream, scratch_row, device,
     rows = []
     st, st_f = st0, st0
     fp0 = fingerprint(st0)
+    kept = [(st0.summary(), st0.colors, fp0)] if keep else None
     for i, (ins, dels, k) in enumerate(batches):
         def one():
             with obs.run_tracer() as tr:
@@ -1635,10 +1803,303 @@ def phase_incremental(name, g, stream, scratch_row, device,
                "plain_path_equal": True}
         log("incremental", json.dumps(row))
         rows.append(row)
+        if keep:
+            kept.append((st.summary(), st.colors, fingerprint(st)))
     # the start state was never written (copy-on-write): the plain replay
     # began from it
     if fingerprint(st0) != fp0:
         fail(f"{name}: the start state changed under the stream")
+    return rows, kept
+
+
+# --------------------------------------------------------------------------
+# phase 5i: distributed coloring on the card
+# --------------------------------------------------------------------------
+
+DIST_D = 4                                 # shards of phase 5i's meshes
+DIST_GRAPHS = ("mesh2d", "bmw3_2", "pwtk", "rmat_er")   # static engines
+SHARD_GRAPHS = ("rmat_g", "mesh2d")        # the sharded incremental engine
+MESH_FRACS = (0.001,) * 3                  # mesh2d's sharded batches
+# what the one-shard stream is held to of 5g's states: their summaries'
+# keys (a sharded summary has more), colours and tensors
+LOCAL_SUMMARY = ("version", "colors", "rounds", "conflicts",
+                 "gather_passes", "total_gather_passes", "final_C",
+                 "retries", "ovf_grows", "degrade_rung", "ovf_load")
+
+
+def dist_mesh(device, D: int):
+    from repro_torch.core.mesh import make_mesh
+    return make_mesh((D,), ("data",), device=device)
+
+
+def phase_distributed_static(name, g, rsoc_row, device, path: Path) -> list:
+    """Phase 5i, static: ``api.color(g, backend="distributed",
+    algorithm=...)`` on a mesh of ``DIST_D`` shards sharing the card, RSOC
+    and CAT, each one traced call with the counts zeroed before and read
+    after, then replayed with ``kernel.fallback`` armed (the plain versions
+    on the card) and held field-equal.  Launches are checked exactly: RSOC
+    B1 D x n_chunks (round 0) and B2 D x n_chunks a round; CAT B1 D x
+    n_chunks in round 0 and in each round's phase A, B2's detect-only form
+    D in round 0's and each round's phase B, and no full B2 pass.
+    Collectives are one a round and one for round 0 (RSOC), two (CAT): the
+    gather passes; the bytes gathered are one colour vector and one int32 a
+    shard a round."""
+    from repro_torch import api, obs
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.core.coloring import is_proper
+    from repro_torch.resilience import faults
+    n_chunks = api.ColoringSpec().n_chunks
+    D = DIST_D
+    mesh = dist_mesh(device, D)
+    n_loc = -(-(-(-g.n_vertices // D)) // n_chunks) * n_chunks
+    rows = []
+    for algo in ("rsoc", "cat"):
+        what = f"{name} {algo} D={D}"
+        obs.metrics.reset()
+        (res, split), c, des, x = path.run(lambda: traced_split(
+            g, device, what, algorithm=algo, backend="distributed",
+            mesh=mesh))
+        coll, gb = mesh_mod.collectives(), mesh_mod.gathered_bytes()
+        fb = obs.metrics.counters_matching("kernels.fallback")
+        if fb:
+            fail(f"{what}: kernels.fallback counters are not empty: {fb}")
+        if not is_proper(g, res.colors):
+            fail(f"{what}: result is not a proper coloring")
+        r = res.n_rounds
+        got = {"firstfit": c["firstfit"], "detect_recolor": c["detect_recolor"],
+               "detect_only": x["launches"]}
+        want = ({"firstfit": D * n_chunks, "detect_recolor": D * n_chunks * r,
+                 "detect_only": 0} if algo == "rsoc" else
+                {"firstfit": D * n_chunks * (1 + r), "detect_recolor": 0,
+                 "detect_only": D * (1 + r)})
+        if device.type == "cuda" and got != want:
+            fail(f"{what}: launches {got}, the loop implies {want}")
+        if coll != res.gather_passes:
+            fail(f"{what}: {coll} collectives for {res.gather_passes} "
+                 f"gather passes")
+        if gb != (1 + r) * D * (n_loc + 1) * 4:
+            fail(f"{what}: {gb} bytes gathered, expected "
+                 f"{(1 + r) * D * (n_loc + 1) * 4}")
+        t = time.perf_counter()
+        with faults.inject("kernel.fallback"):
+            res_f = api.color(g, algorithm=algo, backend="distributed",
+                              mesh=mesh)
+        assert_same_result(res, res_f, f"{what}: kernel vs plain path")
+        replay_s = time.perf_counter() - t
+        row = {"graph": name, "algorithm": algo, "shards": D,
+               "n": g.n_vertices, "n_loc": n_loc, "proper": True,
+               "n_rounds": r, "n_colors": res.n_colors,
+               "conflicts": res.total_conflicts,
+               "gather_passes": res.gather_passes, **split,
+               "collectives": coll, "gathered_bytes": gb,
+               "launches": got,
+               "launches_per_design": design_delta(zero_designs(), des, c,
+                                                   what),
+               "local_rsoc": {k: rsoc_row[k] for k in (
+                   "n_rounds", "n_colors", "conflicts", "solve_ms")},
+               "plain_path_equal": True, "replay_s": round(replay_s, 2)}
+        log("distributed", json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def conflicts_on_card_sharded(st) -> int:
+    """Edges of a sharded state whose endpoints share a colour, counted on
+    the card over each shard's ELL slots and live overflow entries, a ghost
+    slot read at its owner's colour (not the shard's copy); -1 if a vertex
+    is uncoloured."""
+    if int(st.colors.min()) < 0:
+        return -1
+    dev0 = st.colors_tab[0].device
+    flat = torch.cat([t[:st.n_loc].to(dev0) for t in st.colors_tab])
+    bad = 0
+    for d in range(st.n_shards):
+        true = st.colors_tab[d].clone()
+        ng = int(st.n_ghost[d])
+        if ng:
+            rows = torch.from_numpy(st.row_of[st.ghost_ids[d, :ng]]).to(dev0)
+            true[st.n_loc:st.n_loc + ng] = flat[rows].to(true.device)
+        ell = st.ell[d]
+        for lo in range(0, st.n_loc, PROPER_BLOCK):
+            e = ell[lo:lo + PROPER_BLOCK]
+            c = true[lo:lo + e.shape[0]]
+            bad += int(((e >= 0) & (true[e.clamp(min=0).long()]
+                                    == c[:, None])).sum())
+        s_, d_ = st.ovf_src[d], st.ovf_dst[d]
+        live = (s_ >= 0) & (d_ >= 0)
+        bad += int((live & (true[s_.clamp(min=0).long()]
+                            == true[d_.clamp(min=0).long()])).sum())
+    return bad
+
+
+def sharded_fields(st) -> dict:
+    """What a sharded batch's plain replay is compared on: the summary,
+    the host halo arrays and each shard's five tensors."""
+    from repro_torch.dynamic.sharded import TENSOR_FIELDS
+    out = {"summary": st.summary()}
+    for f in ("boundary", "n_boundary", "ghost_ids", "ghost_flat",
+              "n_ghost"):
+        out[f] = getattr(st, f)
+    for f in TENSOR_FIELDS:
+        for d, t in enumerate(getattr(st, f)):
+            out[f"{f}[{d}]"] = t
+    return out
+
+
+def differ(a: dict, b: dict) -> list:
+    """The keys of two field dicts whose values differ."""
+    out = []
+    for k in a:
+        x, y = a[k], b[k]
+        same = (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                else np.array_equal(x, y) if isinstance(x, np.ndarray)
+                else x == y)
+        if not same:
+            out.append(k)
+    return out
+
+
+def held_to_local(st, local, what: str):
+    """A one-shard state against 5g's local state at the same batch
+    (``phase_incremental(keep=True)``): summary, colours, and the checksums
+    of the local state's tensors taken of the shard's (its priority and
+    colour tables cut to the local rows: the rest is the ghost tail)."""
+    summary, colors, fp = local
+    s = st.summary()
+    bad = [k for k in LOCAL_SUMMARY if s[k] != summary[k]]
+    if bad or not np.array_equal(st.colors, colors):
+        fail(f"{what}: one shard differs from phase 5g's local state in "
+             f"{bad or ['colors']}")
+    mine = [st.ell[0], st.ovf_src[0], st.ovf_dst[0],
+            st.pri_tab[0][:st.n_loc], st.colors_tab[0][:st.n_loc]]
+    for (f, a, b), t in zip(fp, mine):
+        if checksum(t) != (a, b):
+            fail(f"{what}: one shard's {f} differs from phase 5g's")
+
+
+def phase_sharded(name, g, batches, local, device, path: Path,
+                  shards=(1, DIST_D)) -> list:
+    """Phase 5i, sharded: ``api.color(g, mode="incremental",
+    backend="distributed", seed=1)`` on meshes of ``shards`` shards sharing
+    the card, then ``batches`` through ``recolor_sharded``, each traced
+    (apply / repair ms) with the counts zeroed before and read after: the
+    start B1 D x n_chunks and B2 D x n_chunks a round, a batch B2 D x
+    n_chunks a gather pass (every shard runs every round); the collectives
+    one for the up-front ghost refresh and one a round, their bytes the
+    state's ``last_halo_bytes``; every batch proper on the card.  One
+    shard is held field for field to ``local`` (phase 5g's states, kept);
+    more shards to the plain replay (``kernel.fallback``) from the same
+    start state."""
+    from repro_torch import api, obs
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.dynamic import recolor_sharded
+    from repro_torch.resilience import faults
+    n_chunks = api.ColoringSpec().n_chunks
+    rows = []
+    for D in shards:
+        if D == 1 and local is None:
+            continue
+        mesh = dist_mesh(device, D)
+        what = f"{name} sharded D={D}"
+
+        def start():
+            sync(device)
+            t = time.perf_counter()
+            r = api.color(g, mode="incremental", backend="distributed",
+                          mesh=mesh, seed=1)
+            sync(device)
+            return r, (time.perf_counter() - t) * 1e3
+
+        obs.metrics.reset()
+        (res, e2e_ms), c, _, _ = path.run(start)
+        st0 = res.state
+        if device.type == "cuda":
+            exact_launch_counts(f"{what} start", res)
+            if (c["firstfit"], c["detect_recolor"]) != (
+                    D * n_chunks, D * n_chunks * st0.last_rounds):
+                fail(f"{what} start: launches {c}")
+        if mesh_mod.gathered_bytes() != st0.last_halo_bytes:
+            fail(f"{what} start: {mesh_mod.gathered_bytes()} bytes "
+                 f"gathered, the state counts {st0.last_halo_bytes}")
+        if D == 1:
+            held_to_local(st0, local[0], f"{what} start")
+        if conflicts_on_card_sharded(st0):
+            fail(f"{what} start: not a proper colouring")
+        log("distributed", json.dumps({
+            "graph": name, "shards": D, "sharded_start": st0.summary(),
+            "start_e2e_ms": round(e2e_ms, 2), "n_loc": st0.n_loc,
+            "n_tab": st0.n_tab, "max_b_cap": st0.max_b_cap,
+            "max_g_cap": st0.max_g_cap,
+            "ghosts": [int(x) for x in st0.n_ghost],
+            "W": st0.ell_width, "ovf_cap": st0.ovf_cap,
+            "collectives": mesh_mod.collectives()}))
+        st, st_f = st0, st0
+        for i, (ins, dels, k) in enumerate(batches):
+            def one():
+                with obs.run_tracer() as tr:
+                    sync(device)
+                    t = time.perf_counter()
+                    out = recolor_sharded(st, ins, dels)
+                    sync(device)
+                    wall = (time.perf_counter() - t) * 1e3
+                return (out, tr.phase_wall_s("apply") * 1e3,
+                        tr.phase_wall_s("solve") * 1e3, wall)
+
+            obs.metrics.reset()
+            (st, apply_ms, repair_ms, wall_ms), c, des, _ = path.run(one)
+            coll, gb = mesh_mod.collectives(), mesh_mod.gathered_bytes()
+            passes = st.last_gather_passes
+            if device.type == "cuda":
+                if st.retries != st0.retries:
+                    fail(f"{what} batch {i}: a cap-doubling retry; its "
+                         f"launch counts cannot be checked exactly")
+                if (c["firstfit"], c["detect_recolor"]) != (
+                        0, D * n_chunks * passes):
+                    fail(f"{what} batch {i}: launches {c}, expected B2 "
+                         f"D x n_chunks x {passes} gather passes")
+            if (coll, gb) != (1 + passes, st.last_halo_bytes):
+                fail(f"{what} batch {i}: {coll} collectives of {gb} bytes, "
+                     f"the state counts {1 + passes} of "
+                     f"{st.last_halo_bytes}")
+            t = time.perf_counter()
+            bad = conflicts_on_card_sharded(st)
+            if bad:
+                fail(f"{what} batch {i}: {bad} conflicting edges on the "
+                     f"card")
+            check_s = time.perf_counter() - t
+            t = time.perf_counter()
+            if D == 1:
+                held_to_local(st, local[i + 1], f"{what} batch {i}")
+            else:
+                with faults.inject("kernel.fallback"):
+                    st_f = recolor_sharded(st_f, ins, dels)
+                bad = differ(sharded_fields(st), sharded_fields(st_f))
+                if bad:
+                    fail(f"{what} batch {i}: kernel path and plain path "
+                         f"differ in {bad}")
+            held_s = time.perf_counter() - t
+            row = {"graph": name, "shards": D, "batch": i, "edges": k,
+                   "apply_ms": round(apply_ms, 3),
+                   "repair_ms": round(repair_ms, 3),
+                   "wall_ms": round(wall_ms, 3), "rounds": st.last_rounds,
+                   "gather_passes": passes, "conflicts": st.last_conflicts,
+                   "colours": st.n_colors, "final_C": st.C,
+                   "replans": st.replans,
+                   "halo_bytes_per_round": st.halo_bytes_per_round,
+                   "last_halo_bytes": st.last_halo_bytes,
+                   "collectives": coll, "gathered_bytes": gb,
+                   "n_bytes": g.n_vertices * 4,
+                   "b2_launches": design_delta(zero_designs(), des, c, what
+                                               ).get("detect_recolor", {}),
+                   "proper": True, "proper_check_s": round(check_s, 2),
+                   "held_to": "phase 5g" if D == 1 else "plain path",
+                   "held_s": round(held_s, 2)}
+            log("distributed", json.dumps(row))
+            rows.append(row)
+        if name.startswith("mesh2d") and not (
+                0 < st.halo_bytes_per_round < g.n_vertices * 4):
+            fail(f"{what}: {st.halo_bytes_per_round} halo bytes a round, "
+                 f"not under the O(n) all-gather's {g.n_vertices * 4}")
     return rows
 
 
@@ -3412,13 +3873,18 @@ def main() -> int:
         n_inc, n_svc = phase_golden_dynamic(device)
         log("golden", f"{n_inc} incremental batches and {n_svc} service "
                       f"tenant-steps equal tests/torch_golden.json")
+        n_dist, n_shard = phase_golden_mesh(device)
+        log("golden", f"{n_dist} distributed runs (rsoc, cat; 1 and 4 "
+                      f"shards) and {n_shard} sharded batches equal "
+                      f"tests/torch_golden.json")
 
         # ---- phase 5: main path ----
         if args.rmat_scale != 24:
             log("main", f"RMAT scale {args.rmat_scale}: {RMAT_SCALE_WHY}")
         # (with phase 5f, the paper's Table 1, on each graph in turn)
         (main_rows, kept, main_path, t1_rows, t1_path, kept_cat, inc_rows,
-         inc_path) = phase_main(rmats, device, args.rehearse)
+         inc_path, dist_rows, dist_path) = phase_main(rmats, device,
+                                                      args.rehearse)
         # every path's calls run with the counts zeroed just before each and
         # read just after (Path.run): a path's launches are its calls' sum
         zeros = zero_designs()
@@ -3440,6 +3906,13 @@ def main() -> int:
         log("incremental", json.dumps({
             "launches": inc_path.counts,
             "launches_per_design": designs["incremental"]}))
+        designs["distributed"] = design_delta(zeros, dist_path.designs,
+                                              dist_path.counts,
+                                              "the distributed path")
+        log("distributed", json.dumps({
+            "launches": dist_path.counts,
+            "launches_per_design": designs["distributed"],
+            "detect_only_launches": dist_path.detect}))
 
         # ---- phase 5c: distance-2, partial, compacted ----
         d2_rows, kept_d2, kept_compact, counts_d2, checks = phase_distance2(
@@ -3508,6 +3981,7 @@ def main() -> int:
 
     paths = {"main": counts, "table1": counts_t1,
              "incremental": inc_path.counts,
+             "distributed": dist_path.counts,
              "distance2_compact": counts_d2,
              "serve": counts_serve, "aggregate": counts_agg, **counts_svc}
     kernels = kernels_line(kept, time_rows, model_rows, paths, designs, cmp,
@@ -3521,6 +3995,7 @@ def main() -> int:
     print(json.dumps({"main_path": main_rows}), flush=True)
     print(json.dumps({"table1": table1, "table1_runs": t1_rows}), flush=True)
     print(json.dumps({"incremental_path": inc_rows}), flush=True)
+    print(json.dumps({"distributed_path": dist_rows}), flush=True)
     print(json.dumps({"service_path": svc_row}), flush=True)
     print(json.dumps({"distance2_path": d2_rows}), flush=True)
     print(json.dumps({"serve_path": serve_row}), flush=True)

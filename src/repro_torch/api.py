@@ -31,6 +31,12 @@ reference package's.
     res = api.color(g, algorithm="jp")
     res = api.color(g, mode="incremental")                   # mutable:
     st = dynamic.recolor_incremental(res.state, ins, dels)   # res.state
+    mesh = core.mesh.make_mesh((4,), ("data",))              # 4 shards
+    res = api.color(g, backend="distributed", mesh=mesh)     # sharded:
+    res = api.color(g, algorithm="cat", backend="distributed", mesh=mesh)
+    res = api.color(g, mode="incremental", backend="distributed",
+                    mesh=mesh)                               # res.state
+    st = dynamic.recolor_sharded(res.state, ins, dels)       # sharded
 
 Engines live in a registry keyed by ``(algorithm, distance, mode, backend)``
 (``repro_torch.registry``); each engine module registers its own at import
@@ -39,9 +45,15 @@ time.  This module imports the engine modules that are ported —
 ``core/frontier.py`` with ``(rsoc_compact, 1, static, local)``,
 ``core/distance2.py`` with ``(rsoc, 2, static, local)`` and ``(rsoc, 2,
 partial, local)``, ``dynamic/incremental.py`` with ``(rsoc, 1,
-incremental, local)`` — so ``supported_specs()`` lists exactly what runs, and
-every other combo is rejected by ``ColoringSpec.validate`` with the nearest
-supported spec named.
+incremental, local)``, ``core/distributed.py`` with ``(rsoc | cat, 1,
+static, distributed)`` and ``dynamic/sharded.py`` with ``(rsoc, 1,
+incremental, distributed)`` — the reference's whole matrix — so
+``supported_specs()`` lists exactly what runs, and every other combo is
+rejected by ``ColoringSpec.validate`` with the nearest supported spec named.
+
+With ``backend="distributed"`` the mesh (``core.mesh.make_mesh``) names the
+devices: ``device`` is then None or the mesh's one device, else
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -55,13 +67,16 @@ from repro_torch.registry import register_engine  # noqa: F401  (re-export)
 from repro_torch.core.context import (DEFAULT_FORBIDDEN_IMPL, PassContext,
                                       resolve_impl)
 from repro_torch.core.coloring import ColoringResult
+from repro_torch.core.mesh import Mesh
 
 # importing the engine modules populates the registry (each module
 # registers its own combos); only ported engine modules are listed
 from repro_torch.core import coloring as _coloring        # noqa: F401
 from repro_torch.core import distance2 as _distance2      # noqa: F401
+from repro_torch.core import distributed as _distributed  # noqa: F401
 from repro_torch.core import frontier as _frontier        # noqa: F401
 from repro_torch.dynamic import incremental as _incremental  # noqa: F401
+from repro_torch.dynamic import sharded as _sharded       # noqa: F401
 
 MODES = ("static", "incremental", "partial")
 BACKENDS = ("local", "distributed")
@@ -197,6 +212,26 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def _check_mesh_device(mesh, axis: str, device) -> None:
+    """``device`` given beside a mesh must be the mesh's one device."""
+    if mesh is None:
+        return
+    if not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh must be a repro_torch.core.mesh.Mesh (make_mesh); got "
+            f"{type(mesh).__name__}")
+    if device is None:
+        return
+    want = torch.device(device)
+    have = set(mesh.shard_devices(axis))
+    if have != {want}:
+        raise ValueError(
+            f"device={str(want)!r} contradicts the mesh, whose shards are "
+            f"on {sorted(str(d) for d in have)}: with "
+            f"backend='distributed' the mesh names the devices (pass "
+            f"device=None)")
+
+
 def color(g, spec: Optional[ColoringSpec] = None, *,
           device=None, mesh=None, axis: Optional[str] = None,
           **overrides) -> ColoringResult:
@@ -205,13 +240,15 @@ def color(g, spec: Optional[ColoringSpec] = None, *,
     ``overrides`` are ``ColoringSpec`` field replacements applied on top of
     ``spec`` (or on the default spec).  ``device`` (None: the CUDA device,
     raising where there is none) and ``mesh``/``axis`` (for
-    ``backend='distributed'``) are runtime arguments — they select
-    hardware, not the task, so they are not spec fields.
+    ``backend='distributed'``, where the mesh names the devices and
+    ``device`` may only repeat its one device) are runtime arguments — they
+    select hardware, not the task, so they are not spec fields.
 
     Returns a ``ColoringResult`` whose ``spec`` field echoes the resolved
     spec (reproducibility: feed it back in to replay the run) and, for
     ``mode='incremental'``, whose ``state`` field carries the
-    ``DynamicColoringState`` for subsequent ``recolor_incremental`` batches.
+    ``DynamicColoringState`` (``ShardedColoringState`` with a mesh) for
+    subsequent ``recolor_incremental`` (``recolor_sharded``) batches.
     """
     if spec is None:
         spec = ColoringSpec()
@@ -230,14 +267,16 @@ def color(g, spec: Optional[ColoringSpec] = None, *,
     spec.validate()
     engine = registry.get_engine(spec.algorithm, spec.distance, spec.mode,
                                  spec.backend)
-    kw = {"device": _resolve_device(device)}
     if spec.backend == "distributed":
-        kw["mesh"] = mesh           # engine raises if None
-        kw["axis"] = axis if axis is not None else "data"
+        # the mesh names the devices (engine raises if it is None)
+        kw = {"mesh": mesh, "axis": axis if axis is not None else "data"}
+        _check_mesh_device(mesh, kw["axis"], device)
     elif mesh is not None or axis is not None:
         raise ValueError(
             f"mesh=/axis= are only meaningful with backend='distributed' "
             f"(spec.backend={spec.backend!r})")
+    else:
+        kw = {"device": _resolve_device(device)}
     if not obs.tracing_enabled(spec.trace):
         # untraced fast path: byte-for-byte the pre-obs call
         return dataclasses.replace(engine(g, spec, **kw), spec=spec)

@@ -1,0 +1,140 @@
+"""A single-controller device mesh and the one collective the distributed
+engines use (the port's counterpart of ``jax.make_mesh`` /
+``jax.sharding.Mesh`` and of ``jax.lax.all_gather`` / ``psum`` under
+``shard_map``).
+
+The reference runs one Python process over a list of devices: ``shard_map``
+hands each shard its block of the inputs and the collectives join them.  The
+port keeps that programming model.  A ``Mesh`` is a tuple of torch devices
+laid out over named axes; the engines of ``core/distributed.py`` and
+``dynamic/sharded.py`` loop over its shards on the host, each shard's
+tensors living on its own device, and exchange with ``all_gather``.  On one
+card the D shards share that card; on a host with several cards a mesh made
+with ``devices=`` puts one shard on each, and the gather is a peer copy.
+There is no process group: nothing here is ``torch.distributed``.
+
+    mesh = make_mesh((4,), ("data",), device="cpu")     # tests
+    mesh = make_mesh((4,), ("data",))                   # the CUDA device
+    mesh.shape["data"]                                  # 4
+
+``psum`` is a gather of one scalar a shard and a sum.  Every gather counts
+one collective in ``mesh.collectives`` and the gathered payload's bytes (all
+shards' payloads together) in ``mesh.gathered_bytes`` (``obs.metrics``), so
+"RSOC: one collective a round, CAT: two" is a number a caller reads.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.obs import metrics as obs_metrics
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """Devices laid out row-major over named axes; frozen and hashable."""
+
+    devices: tuple          # torch.device per mesh position, row-major
+    axis_names: tuple       # str per axis
+    axis_sizes: tuple       # int per axis
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.axis_sizes):
+            raise ValueError(f"axis_names {self.axis_names} and axis_sizes "
+                             f"{self.axis_sizes} differ in length")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"axis names repeat: {self.axis_names}")
+        if int(np.prod(self.axis_sizes)) != len(self.devices):
+            raise ValueError(f"mesh shape {self.axis_sizes} needs "
+                             f"{int(np.prod(self.axis_sizes))} devices, got "
+                             f"{len(self.devices)}")
+
+    @property
+    def shape(self) -> dict:
+        """Axis name -> size (``jax.sharding.Mesh.shape``)."""
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def shard_devices(self, axis: str) -> tuple:
+        """The devices of the shards of ``axis`` ("a" or "a,b"), in the
+        row-major order of those axes: the order of ``all_gather(tiled=
+        False)`` under ``shard_map`` (shard d of the flattened axis is
+        entry d).  The named axes must cover the mesh."""
+        names = tuple(axis.split(","))
+        unknown = [a for a in names if a not in self.axis_names]
+        if unknown:
+            raise ValueError(f"axis {unknown} not in mesh axes "
+                             f"{self.axis_names}")
+        if sorted(names) != sorted(self.axis_names):
+            raise ValueError(
+                f"axis {axis!r} must name every axis of the mesh "
+                f"{self.axis_names}: the port shards over the whole mesh")
+        pos = np.arange(self.size).reshape(self.axis_sizes)
+        order = pos.transpose([self.axis_names.index(a) for a in names])
+        return tuple(self.devices[i] for i in order.reshape(-1))
+
+
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str], device=None,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A mesh of ``prod(shape)`` shards.  ``devices`` places them one by
+    one (row-major); otherwise every shard is on ``device`` — None: the
+    CUDA device, raising where there is none, as everywhere in the port."""
+    shape = tuple(int(s) for s in shape)
+    axis_names = tuple(axis_names)
+    if devices is None:
+        # api imports the engine modules, which import this one
+        from repro_torch.api import _resolve_device
+        dev = _resolve_device(device)
+        devices = (dev,) * int(np.prod(shape))
+    else:
+        if device is not None:
+            raise ValueError("pass device= or devices=, not both")
+        devices = tuple(torch.device(d) for d in devices)
+        for d in devices:
+            if d.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(f"device {str(d)!r} was asked for but no "
+                                   f"CUDA device is available")
+    return Mesh(devices=tuple(devices), axis_names=axis_names,
+                axis_sizes=shape)
+
+
+def all_gather(payloads: Sequence[torch.Tensor]) -> list:
+    """``jax.lax.all_gather(x, axis, tiled=False)`` over the shards: given
+    shard d's payload (all of one shape and dtype, each on its shard's
+    device), returns for every shard the (D, ...) stack of all payloads on
+    that shard's device.  Shards on one device share one stacked tensor (it
+    is read, never written).  Counts one collective and the stacked
+    payload's bytes."""
+    first = payloads[0]
+    for p in payloads[1:]:
+        if p.shape != first.shape or p.dtype != first.dtype:
+            raise ValueError(f"all_gather payloads differ: {tuple(p.shape)} "
+                             f"{p.dtype} against {tuple(first.shape)} "
+                             f"{first.dtype}")
+    out, by_dev = [], {}
+    for p in payloads:
+        g = by_dev.get(p.device)
+        if g is None:
+            g = torch.stack([q.to(p.device) for q in payloads])
+            by_dev[p.device] = g
+        out.append(g)
+    obs_metrics.counter("mesh.collectives").inc()
+    obs_metrics.counter("mesh.gathered_bytes").inc(
+        len(payloads) * first.numel() * first.element_size())
+    return out
+
+
+def collectives() -> int:
+    """Gathers counted since the last ``obs.metrics.reset()``."""
+    return obs_metrics.counter_value("mesh.collectives")
+
+
+def gathered_bytes() -> int:
+    """Bytes of the gathered payloads counted since the last reset."""
+    return obs_metrics.counter_value("mesh.gathered_bytes")

@@ -1,5 +1,5 @@
 """Dynamic-graph incremental recoloring (DESIGN.md §7; the port of the
-reference's ``dynamic/`` package, less its sharded engine).
+reference's ``dynamic/`` package).
 
 The static pipeline colors a graph once, from scratch.  Production graphs
 mutate: edges arrive and leave continuously, and a from-scratch recoloring on
@@ -16,6 +16,9 @@ delta, not the graph.
   service.py      ColoringService: long-lived multi-graph engine with a
                   double-buffered submit/step queue, megabatched stepping,
                   and a byte-budgeted version-memoized artifact cache
+  sharded.py      ShardedColoringState + recolor_sharded: the mutable
+                  encoding laid out per-shard over a device mesh, repaired
+                  with one boundary-sized collective per round
 """
 from repro_torch.dynamic.incremental import (  # noqa: F401
     DynamicColoringState, dynamic_state, recolor_incremental,
@@ -25,4 +28,7 @@ from repro_torch.dynamic.delta import state_to_csr  # noqa: F401
 from repro_torch.dynamic.megabatch import slot_key, step_group  # noqa: F401
 from repro_torch.dynamic.service import (  # noqa: F401
     ArtifactCache, ColoringService,
+)
+from repro_torch.dynamic.sharded import (  # noqa: F401
+    ShardedColoringState, recolor_sharded, sharded_state,
 )

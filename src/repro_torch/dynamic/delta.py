@@ -57,6 +57,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.partition import sorted_unique
 from repro_torch.graphs.csr import CSRGraph, FILL, ell_to_edges, from_edges
 from repro_torch.resilience import faults
 from repro_torch.resilience.errors import OvfGrowthExhausted
@@ -321,7 +322,7 @@ def _rank_waves_group(pairs: np.ndarray, slots: np.ndarray, n_slots: int,
     q = ((slots.astype(np.int64) << 48)
          | (pairs[:, 0].astype(np.int64) << 24)
          | pairs[:, 1].astype(np.int64))
-    uq = np.unique(q)
+    uq = sorted_unique(q)          # np.unique(q): see core/partition.py
     s = (uq >> 48).astype(np.int64)
     a = ((uq >> 24) & 0xFFFFFF).astype(np.int32)
     b = (uq & 0xFFFFFF).astype(np.int32)
@@ -530,7 +531,13 @@ def overflow_load(osrc) -> int:
 
 def state_to_csr(state) -> CSRGraph:
     """Decode a dynamic coloring state back to a host CSRGraph (original
-    ids)."""
+    ids).  Sharded states carry their own slot-space decoder (``to_csr``,
+    dynamic/sharded.py) — duck-typed here so every state consumer (service
+    verification, the degradation ladder's ``updated_graph``) stays
+    engine-agnostic."""
+    if hasattr(state, "to_csr"):
+        return state.to_csr()
+
     def host(t):
         return t.detach().cpu().numpy()
 

@@ -40,9 +40,8 @@ the CUDA device, raising where there is none; ``device="cpu"`` runs the
 plain path): a per-tenant step repairs on ``detect_recolor`` (B2) with
 ``row_ids``, a megabatched step on its slot-stride form.  The end of a
 drain waits for the device inside the ``try``, so a failed launch rolls the
-step back.  The reference's sharded tenants wait for the port of its
-sharded engine: ``add_graph(..., mesh=...)`` raises the registry's
-unsupported-combo error.
+step back.  A sharded tenant (``add_graph(..., mesh=...)``) lives on its
+mesh's devices, which must be the service's device.
 """
 from __future__ import annotations
 
@@ -62,6 +61,7 @@ from repro_torch.dynamic import delta
 from repro_torch.dynamic import megabatch
 from repro_torch.dynamic.incremental import (  # noqa: F401
     DynamicColoringState, _check_edges, _resolve_device, recolor_incremental)
+from repro_torch.dynamic.sharded import ShardedColoringState
 from repro_torch.graphs.csr import CSRGraph, FILL, to_edge_list
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.resilience import faults, ladder
@@ -93,11 +93,36 @@ def _classify(exc: BaseException) -> str:
     return "error"
 
 
+def _corrupt_colors_sharded(st: ShardedColoringState) -> ShardedColoringState:
+    """Sharded ``color.corrupt``: same deterministic conflict injection,
+    restricted to shard 0 rows with a *local* neighbor so the copied color
+    is a guaranteed same-shard conflict regardless of ghost freshness.
+    The corrupted colours land in a copy of shard 0's table."""
+    ell0 = col._to_numpy(st.ell[0])
+    n0 = min(st.blk, st.n)
+    local = (ell0 != FILL) & (ell0 < st.n_loc)
+    live_rows = np.nonzero(local[:n0].any(axis=1))[0]
+    if len(live_rows) == 0:
+        return st
+    r = faults.rng("color.corrupt")
+    k = min(max(1, int(faults.param("color.corrupt", "k", 1))),
+            len(live_rows))
+    colors = col._to_numpy(st.colors_tab[0])
+    t0 = st.colors_tab[0].clone()
+    for v in r.choice(live_rows, size=k, replace=False):
+        row = ell0[int(v)]
+        w = int(row[local[int(v)]][0])
+        t0[int(v)] = int(colors[w])
+    return dataclasses.replace(st, colors_tab=(t0,) + st.colors_tab[1:])
+
+
 def _corrupt_colors(st: DynamicColoringState) -> DynamicColoringState:
     """``color.corrupt`` payload: copy a live ELL neighbor's color onto
     ``k`` vertices (guaranteed conflicts), drawn from the site's
     deterministic RNG so replays corrupt identically.  The corrupted
     colours land in a copy: the state given is left as it is."""
+    if isinstance(st, ShardedColoringState):
+        return _corrupt_colors_sharded(st)
     ell = col._to_numpy(st.ell[:st.n])
     live_rows = np.nonzero((ell != FILL).any(axis=1))[0]
     if len(live_rows) == 0:
@@ -114,11 +139,14 @@ def _corrupt_colors(st: DynamicColoringState) -> DynamicColoringState:
     return dataclasses.replace(st, colors_dev=cd)
 
 
-def _block_until_ready(st: DynamicColoringState) -> None:
+def _block_until_ready(st) -> None:
     """Wait for the device work behind a state's colours (the reference's
-    ``colors_dev.block_until_ready()``): a failed launch surfaces here."""
-    if st.colors_dev.is_cuda:
-        torch.cuda.synchronize(st.colors_dev.device)
+    ``colors_dev.block_until_ready()``; a sharded state's on each of its
+    devices): a failed launch surfaces here."""
+    tabs = (st.colors_tab if isinstance(st, ShardedColoringState)
+            else (st.colors_dev,))
+    for dev in {t.device for t in tabs if t.is_cuda}:
+        torch.cuda.synchronize(dev)
 
 
 def _nbytes(obj) -> int:
@@ -263,9 +291,11 @@ class ColoringService:
         defaults never override a spec the caller passed explicitly).  The
         state is made on the service's device.
 
-        Passing ``mesh=`` asks for a sharded tenant (backend
-        ``'distributed'``), which the port does not run yet: ``api.color``
-        raises its unsupported-combo error.
+        Passing ``mesh=`` shards the tenant over that device mesh (a
+        ``ShardedColoringState``, DESIGN.md §15): with no explicit spec the
+        backend defaults to ``'distributed'``, and subsequent steps route
+        the tenant's batches through ``recolor_sharded``.  The mesh's
+        devices must be the service's device (``api.color``'s rule).
         """
         if name in self._states:
             raise ValueError(f"graph {name!r} already registered")
@@ -329,8 +359,10 @@ class ColoringService:
         count resets.
         """
         cur = self._state(name)
-        if not isinstance(state, DynamicColoringState):
-            raise TypeError("restore expects a DynamicColoringState")
+        if not isinstance(state, (DynamicColoringState,
+                                  ShardedColoringState)):
+            raise TypeError("restore expects a DynamicColoringState or "
+                            "ShardedColoringState")
         if state.n != cur.n:
             raise ValueError(
                 f"snapshot is for a {state.n}-vertex graph; "
@@ -403,7 +435,11 @@ class ColoringService:
         busy = [nm for nm in live if drained[nm]]
         groups: dict[tuple, list[str]] = {}
         for nm in busy:
-            key = megabatch.slot_key(self._states[nm])
+            st = self._states[nm]
+            # sharded tenants never megabatch (their dispatch is already
+            # mesh-wide); a singleton key routes them to the per-tenant path
+            key = (("sharded", nm) if isinstance(st, ShardedColoringState)
+                   else megabatch.slot_key(st))
             groups.setdefault(key, []).append(nm)
 
         for key, members in groups.items():
@@ -480,10 +516,11 @@ class ColoringService:
         """Per-tenant transactional drain: one dispatch per batch (repair
         bound comes from the state's persisted ``max_rounds``); commit only
         after every batch applied and the candidate verified."""
-        st = self._states[nm]
+        before = self._states[nm]
         t0 = time.perf_counter()
         try:
             faults.check("service.step", tenant=nm)
+            st = before
             for batch in batches:
                 st, _ = self._apply_one(st, batch)
             st = self._post_step(nm, st)
@@ -492,6 +529,12 @@ class ColoringService:
             self._rollback(nm, batches, exc, notes)
             return
         self._commit(nm, st)
+        # sharded tenants: collective payload bytes of this drain (the
+        # halo-exchange cost the O(boundary) claim is about)
+        hb = (getattr(st, "total_halo_bytes", 0)
+              - getattr(before, "total_halo_bytes", 0))
+        if hb > 0:
+            obs_metrics.counter("service.halo_bytes", tenant=nm).inc(hb)
         obs_metrics.histogram("service.step_ms", graph=nm).observe(
             (time.perf_counter() - t0) * 1e3)
         obs_metrics.counter("service.mega", outcome="loop").inc(len(batches))

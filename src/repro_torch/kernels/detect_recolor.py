@@ -17,7 +17,13 @@ defect) | force)``, and ``row_ids`` (R,) int32 makes row r the vertex
 ``row_ids[r]`` (clamped to [0, n-1]) of the full table ``ell`` — colour,
 priority and ELL row — for ``core/frontier._slot_pass``; ``forb0``,
 ``extra_defect`` and the flags stay indexed by r.  With all of them absent
-the outputs are bit-identical to the reference's.
+the outputs are bit-identical to the reference's.  The colour table may be
+longer than ``ell`` (a shard's table with its ghost tail, the sharded
+repair): the kernel reads the ELL row of a row that can work only, so the
+caller keeps those rows' ids below ``ell``'s row count, and the plain
+version clamps the ELL row of every other row to ``ell``'s last, as the
+reference's gather does.  The slot-stride form needs the whole stacked
+table.
 
 Bound on the card: bytes.  Rows outside ``valid & (U | force)`` cost their
 O(1) vector entries only; each other row costs its ``W*4`` bytes of ELL plus
@@ -142,9 +148,9 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
         n_ell, W, n, lanes, window = check_common(ell, colors, C, None,
                                                   lanes, window)
         R = check_row_ids(row_ids, ell.device)
-        if n_ell < n:
-            raise ValueError(f"with row_ids, ell must be the full table of "
-                             f">= n={n} rows (got {n_ell})")
+        if n_ell < n and int(slot_rows):
+            raise ValueError(f"with slot_rows, ell must be the stacked "
+                             f"table of >= n={n} rows (got {n_ell})")
         if forb0 is not None:
             check_tensor("forb0", forb0, torch.int32,
                          (R, bitset.n_words(C)), ell.device)

@@ -150,7 +150,9 @@ def detect_recolor_ref(ell, colors, pri, row_start: int, U_rows, C: int,
     R = ell.shape[0] if row_ids is None else row_ids.shape[0]
     vid = _row_ids(row_ids, row_start, R, colors.shape[0], ell.device)
     if row_ids is not None:
-        ell = ell[vid]
+        # a table longer than ell (a ghost tail): the rows past ell's last
+        # cannot work, and read its last row, as a clamped gather does
+        ell = ell[vid.clamp(max=ell.shape[0] - 1)]
         if slot_rows:
             ell = _slot_ids(ell, vid, slot_rows)
     c_r = colors[vid]

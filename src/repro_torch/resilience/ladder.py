@@ -22,8 +22,8 @@ the device of the state it replaces.  The rung taken is recorded on
 
 Heavy imports (api, dynamic, core) are deferred into function bodies:
 ``core/coloring`` and ``dynamic/delta`` import ``repro_torch.resilience`` at
-module scope, so this module must not import them back at its own.  The
-reference's sharded-state branches wait for the port of its sharded engine.
+module scope, so this module must not import them back at its own.  A
+``ShardedColoringState`` takes the sharded rungs of ``dynamic/sharded.py``.
 """
 from __future__ import annotations
 
@@ -67,7 +67,10 @@ def scratch_state(state, inserts=None, deletes=None):
     genuinely unsatisfiable budget (or a still-armed fault) raises again
     and the caller falls to rung 2."""
     from repro_torch import api
+    from repro_torch.dynamic import sharded
 
+    if isinstance(state, sharded.ShardedColoringState):
+        return sharded.scratch_sharded(state, inserts, deletes)
     empty = np.zeros((0, 2), np.int64)
     g2 = updated_graph(state, empty if inserts is None else inserts,
                        empty if deletes is None else deletes)
@@ -92,6 +95,10 @@ def scratch_state(state, inserts=None, deletes=None):
 def oracle_state(state, inserts=None, deletes=None):
     """Rung 2: serial First-Fit on the host, then a pure encode — no device
     coloring loop runs, so nothing is left to exhaust or inject into."""
+    from repro_torch.dynamic import sharded
+
+    if isinstance(state, sharded.ShardedColoringState):
+        return sharded.oracle_sharded(state, inserts, deletes)
     empty = np.zeros((0, 2), np.int64)
     g2 = updated_graph(state, empty if inserts is None else inserts,
                        empty if deletes is None else deletes)
@@ -148,9 +155,13 @@ def apply_with_ladder(state, inserts, deletes):
     degrade; anything else (injected step faults, real bugs) propagates so
     the service's transactional rollback handles it."""
     from repro_torch.dynamic.incremental import recolor_incremental
+    from repro_torch.dynamic.sharded import (ShardedColoringState,
+                                             recolor_sharded)
 
+    recolor = (recolor_sharded if isinstance(state, ShardedColoringState)
+               else recolor_incremental)
     try:
-        return recolor_incremental(state, inserts, deletes), 0
+        return recolor(state, inserts, deletes), 0
     except (CapRetryExhausted, OvfGrowthExhausted):
         pass
     obs_metrics.counter("resilience.degrade", rung="scratch").inc()

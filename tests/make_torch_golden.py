@@ -18,6 +18,17 @@ Two more sections hold the dynamic subsystem.  ``incremental``: per
 SHA-256 after each batch.  ``service``: one megabatched ``ColoringService``
 of ``SVC_TENANTS`` tenants stepped ``SVC_STEPS`` times (``service_stream``),
 with each tenant's ``summary()`` and colors SHA-256 after each step.
+
+Two more hold the distributed engines, made on meshes of host devices.
+``distributed``: ``paper_suite("tiny")`` x seeds 0-2 x ``rsoc`` / ``cat``
+with ``backend="distributed"`` on meshes of ``DIST_SHARDS`` shards
+(``dist_runs``).  ``sharded``: ``mesh2d(24, 24)`` through ``mode=
+"incremental", backend="distributed"`` on the same meshes, then
+``SHARD_BATCHES`` batches of ``recolor_sharded`` (``sharded_stream``), with
+the state's ``SHARD_FIELDS`` and a colors SHA-256 after each.  The
+reference needs ``XLA_FLAGS`` set before JAX is imported for a mesh of more
+than one device, so ``main`` makes these two sections in a subprocess
+(``reference_mesh_sections``) and the others exactly as before.
 """
 import hashlib
 import json
@@ -165,6 +176,101 @@ def service_entries(svc, gen) -> list:
     return out
 
 
+# --------------------------------------------------------------------------
+# the distributed engines: static on meshes, and the sharded stream
+# --------------------------------------------------------------------------
+
+DIST_SHARDS = (1, 4)
+DIST_ALGOS = ("rsoc", "cat")
+SHARD_FIELDS = INC_FIELDS + ("replans", "last_halo_bytes",
+                             "halo_bytes_per_round", "n_shards")
+SHARD_BATCHES = 5
+
+
+def dist_runs(gen):
+    """``(key, graph, D, spec overrides)`` of every ``distributed`` entry."""
+    for name, g in gen.paper_suite("tiny").items():
+        for seed in SEEDS:
+            for algo in DIST_ALGOS:
+                for D in DIST_SHARDS:
+                    yield (f"{algo}/{name}/seed={seed}/D={D}", g, D,
+                           dict(seed=seed, algorithm=algo,
+                                backend="distributed"))
+
+
+def distributed_entries(color, mesh_of, gen) -> dict:
+    """``{key: entry}`` of ``dist_runs`` for a package's ``color`` and a
+    ``mesh_of(D)`` maker of its meshes."""
+    return {key: entry(color(g, mesh=mesh_of(D), **kw))
+            for key, g, D, kw in dist_runs(gen)}
+
+
+def sharded_stream(color, recolor, mesh_of, gen) -> dict:
+    """``{"D=<D>": per-batch rows}``: ``mesh2d(24, 24)`` encoded over
+    ``mesh_of(D)``, then ``SHARD_BATCHES`` batches (40 inserts, 15
+    deletes; seed 7) of a package's ``recolor_sharded``."""
+    g = gen.mesh2d(24, 24)
+    out = {}
+    for D in DIST_SHARDS:
+        st = color(g, mode="incremental", backend="distributed",
+                   mesh=mesh_of(D), seed=0).state
+        rng = np.random.default_rng(7)
+        rows = []
+        for _ in range(SHARD_BATCHES):
+            ins = rng.integers(0, g.n_vertices, size=(40, 2))
+            dels = rng.integers(0, g.n_vertices, size=(15, 2))
+            st = recolor(st, ins[ins[:, 0] != ins[:, 1]], dels)
+            row = {f: int(getattr(st, f)) for f in SHARD_FIELDS}
+            row["colors_sha256"] = sha(st.colors)
+            rows.append(row)
+        out[f"D={D}"] = rows
+    return out
+
+
+def mesh_sections() -> dict:
+    """The reference's ``distributed`` and ``sharded`` sections (in a
+    process whose JAX sees ``max(DIST_SHARDS)`` host devices)."""
+    import jax
+    from repro import api
+    from repro.dynamic import recolor_sharded
+    from repro.graphs import generators
+
+    meshes = {D: jax.make_mesh((D,), ("data",)) for D in DIST_SHARDS}
+    return {"distributed": distributed_entries(api.color, meshes.get,
+                                               generators),
+            "sharded": sharded_stream(api.color, recolor_sharded,
+                                      meshes.get, generators)}
+
+
+def start_mesh_sections():
+    """Start ``mesh_sections()`` in a subprocess of this file that sets
+    ``XLA_FLAGS`` before JAX is imported; ``finish_mesh_sections`` reads
+    it.  (A caller may do other work meanwhile.)"""
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(PATH)), "src")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               XLA_FLAGS="--xla_force_host_platform_device_count="
+                         f"{max(DIST_SHARDS)}")
+    env.pop("REPRO_FAULTS", None)
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--mesh-sections"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def finish_mesh_sections(proc, timeout: float = 900) -> dict:
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(err[-3000:])
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def reference_mesh_sections() -> dict:
+    """``mesh_sections()`` of the reference, made in a subprocess."""
+    return finish_mesh_sections(start_mesh_sections())
+
+
 def main() -> None:
     from repro import api
     from repro.dynamic import ColoringService, recolor_incremental
@@ -173,19 +279,29 @@ def main() -> None:
                            "paper_suite('tiny') x seeds 0-2 at distance 1 "
                            "and 2 and with cat / gm / jp, bipartite partial "
                            "x seeds 0-2; incremental streams on "
-                           "paper_suite('tiny'); a megabatched service)",
+                           "paper_suite('tiny'); a megabatched service; "
+                           "rsoc / cat on meshes of 1 and 4 shards x "
+                           "paper_suite('tiny') x seeds 0-2; sharded "
+                           "streams on mesh2d(24, 24))",
            "results": compute(api.color, generators),
            "incremental": incremental_entries(api.color, recolor_incremental,
                                               generators),
            "service": service_entries(
-               ColoringService(megabatch=True, **SVC_OPTS), generators)}
+               ColoringService(megabatch=True, **SVC_OPTS), generators),
+           **reference_mesh_sections()}
     with open(PATH, "w") as f:
         json.dump(doc, f, indent=1, sort_keys=True)
         f.write("\n")
     print(f"wrote {PATH} ({len(doc['results'])} entries, "
           f"{len(doc['incremental'])} incremental streams, "
-          f"{len(doc['service'])} service steps)")
+          f"{len(doc['service'])} service steps, "
+          f"{len(doc['distributed'])} distributed entries, "
+          f"{len(doc['sharded'])} sharded streams)")
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+    if sys.argv[1:] == ["--mesh-sections"]:
+        print(json.dumps(mesh_sections()))
+    else:
+        main()

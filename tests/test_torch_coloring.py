@@ -219,19 +219,22 @@ def test_externally_seeded_repair_loop(name, ell_cap):
     assert int(tout[1]) >= 2 and int(tout[3]) > 0
 
 
-# combos the port does not run (CAT, GM and JP themselves are ported: their
-# cases now ask for a distance, mode or backend they lack; so is the local
-# incremental engine: its case asks for the sharded one); the ids are the
-# cases' ids from before those engines were ported
+# combos neither package runs (CAT, GM and JP themselves are ported: their
+# cases ask for a distance, mode or backend they lack; so are the
+# distributed engines: the "incremental" and "distributed" cases ask for a
+# distributed distance 2 and a distributed GM, and a distributed JP's
+# nearest spec is now the distributed CAT, as in the reference); the ids
+# are the cases' ids from before those engines were ported
 _UNSUPPORTED = [
     (dict(algorithm="cat", distance=2), ("rsoc", 2, "static", "local")),
     (dict(algorithm="gm", mode="partial", n_left=3),
      ("rsoc", 2, "partial", "local")),
-    (dict(mode="incremental", backend="distributed"),
-     ("rsoc", 1, "incremental", "local")),
-    (dict(backend="distributed"), ("rsoc", 1, "static", "local")),
+    (dict(distance=2, backend="distributed"),
+     ("rsoc", 2, "static", "local")),
+    (dict(algorithm="gm", backend="distributed"),
+     ("cat", 1, "static", "distributed")),
     (dict(algorithm="jp", backend="distributed"),
-     ("jp", 1, "static", "local"))]
+     ("cat", 1, "static", "distributed"))]
 
 
 @pytest.mark.parametrize("kw,near", _UNSUPPORTED,
@@ -266,9 +269,12 @@ def test_spec_and_surface_parity():
     assert tapi.ColoringSpec(seed=3, C=64).spec_key() == \
         japi.ColoringSpec(seed=3, C=64).spec_key()
     assert "device" not in tapi.SPEC_FIELDS
-    ported = [("cat", 1, "static", "local"), ("gm", 1, "static", "local"),
+    ported = [("cat", 1, "static", "distributed"),
+              ("cat", 1, "static", "local"), ("gm", 1, "static", "local"),
               ("jp", 1, "static", "local"),
+              ("rsoc", 1, "incremental", "distributed"),
               ("rsoc", 1, "incremental", "local"),
+              ("rsoc", 1, "static", "distributed"),
               ("rsoc", 1, "static", "local"), ("rsoc", 2, "partial", "local"),
               ("rsoc", 2, "static", "local"),
               ("rsoc_compact", 1, "static", "local")]
@@ -279,11 +285,11 @@ def test_spec_and_surface_parity():
     assert tapi.algorithms(distance=2) == ["rsoc"]
     assert tapi.algorithms(distance=2, mode="partial") == ["rsoc"]
     rows = [r for r in japi.supported_specs() if key(r) in ported]
-    assert rows == tapi.supported_specs()
+    assert rows == tapi.supported_specs() == japi.supported_specs()
     assert {r["replaces"] for r in rows} == {
         "color_rsoc", "color_rsoc_compact", "color_distance2",
         "color_bipartite_partial", "color_cat", "color_gm", "color_jp",
-        "dynamic_state"}
+        "dynamic_state", "color_distributed", "sharded_state"}
     for bad in (dict(n_chunks=0), dict(C=0), dict(max_rounds=0),
                 dict(forbidden_impl="sparse"), dict(mode="nope"),
                 dict(n_left=3)):

@@ -100,3 +100,65 @@ def test_golden_service_equals_reference_and_port():
     assert make_torch_golden.service_entries(
         TService(megabatch=True, device="cpu", **make_torch_golden.SVC_OPTS),
         t_generators) == GOLDEN_SVC, "port"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def mesh_reference():
+    """The reference's multi-device sections, made again in a subprocess
+    whose JAX sees 4 host devices; started with this file's first test and
+    read by its last, so the port's tests run meanwhile."""
+    proc = make_torch_golden.start_mesh_sections()
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+GOLDEN_DIST = _DOC["distributed"]
+GOLDEN_SHARDED = _DOC["sharded"]
+T_DIST = {key: (g, D, kw)
+          for key, g, D, kw in make_torch_golden.dist_runs(t_generators)}
+
+
+def _cpu_mesh(D: int):
+    from repro_torch.core.mesh import make_mesh
+    return make_mesh((D,), ("data",), device="cpu")
+
+
+def test_golden_mesh_sections_cover_the_suite():
+    keys = sorted(key for key, *_ in make_torch_golden.dist_runs(
+        j_generators))
+    assert sorted(GOLDEN_DIST) == keys == sorted(T_DIST)
+    assert len(keys) == (len(J_SUITE) * len(make_torch_golden.SEEDS)
+                         * len(make_torch_golden.DIST_ALGOS)
+                         * len(make_torch_golden.DIST_SHARDS))
+    assert sorted(GOLDEN_SHARDED) == [
+        f"D={D}" for D in make_torch_golden.DIST_SHARDS]
+    for D, rows in GOLDEN_SHARDED.items():
+        assert [r["version"] for r in rows] == list(
+            range(1, make_torch_golden.SHARD_BATCHES + 1))
+        assert all(r["n_shards"] == int(D[2:]) for r in rows)
+
+
+@pytest.mark.parametrize(
+    "key", sorted(T_DIST),
+    ids=lambda k: k.replace("/seed=", "-").replace("/", "-"))
+def test_golden_distributed_equals_port(key):
+    g, D, kw = T_DIST[key]
+    assert make_torch_golden.entry(
+        tapi.color(g, mesh=_cpu_mesh(D), **kw)) == GOLDEN_DIST[key], "port"
+
+
+def test_golden_sharded_equals_port():
+    from repro_torch.dynamic import recolor_sharded
+    assert make_torch_golden.sharded_stream(
+        tapi.color, recolor_sharded, _cpu_mesh, t_generators) == \
+        GOLDEN_SHARDED, "port"
+
+
+# the last test of this file: it waits for the subprocess started with the
+# first one
+def test_golden_mesh_sections_equal_reference(mesh_reference):
+    got = make_torch_golden.finish_mesh_sections(mesh_reference)
+    assert got["distributed"] == GOLDEN_DIST, "reference package"
+    assert got["sharded"] == GOLDEN_SHARDED, "reference package"

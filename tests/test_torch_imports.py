@@ -86,6 +86,9 @@ def test_every_module_is_found():
               "repro_torch.dynamic.delta", "repro_torch.dynamic.incremental",
               "repro_torch.dynamic.megabatch",
               "repro_torch.dynamic.service",
+              "repro_torch.dynamic.sharded", "repro_torch.core.mesh",
+              "repro_torch.core.partition",
+              "repro_torch.core.distributed",
               "repro_torch.resilience.ladder",
               "repro_torch.resilience.quarantine"):
         assert m in mods, m
@@ -108,6 +111,29 @@ def test_any_kernel_module_imports_first(first):
             "c = torch.tensor([0, 1], dtype=torch.int32)\n"
             "mex, ovf = ops.firstfit(ell, c, 32)\n"
             "assert mex.tolist() == [0, 1] and not ovf.any()\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("REPRO_FAULTS", None)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("first", [
+    "repro_torch.core.mesh", "repro_torch.core.partition",
+    "repro_torch.core.distributed", "repro_torch.dynamic.sharded"])
+def test_distributed_module_imports_first(first):
+    """Each module of the distributed slice imports first in a fresh
+    interpreter, pulls in neither ``jax`` nor the reference package, and
+    leaves the registry with the reference's whole support matrix."""
+    code = (f"import {first}\n"
+            "import sys\n"
+            "from repro_torch import api\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "assert len(api.supported_specs()) == 11\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     env.pop("REPRO_FAULTS", None)

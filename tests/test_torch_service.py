@@ -424,10 +424,23 @@ def test_max_rounds_persisted_and_stats_lazy():
 
 
 def test_mesh_asks_for_the_unported_sharded_engine():
+    """``mesh=`` asks for the sharded engine, ported since: the tenant is a
+    ``ShardedColoringState`` on the mesh (``tests/test_torch_sharded.py``
+    holds it against the reference); a mesh that is not one, or whose
+    devices are not the service's, is refused and adds no tenant."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.dynamic import ShardedColoringState
     svc = ColoringService(device="cpu", **OPTS)
-    with pytest.raises(ValueError, match="no engine registered"):
+    with pytest.raises(TypeError, match="must be a repro_torch.core.mesh"):
         svc.add_graph("s", tgen.mesh2d(4, 4), mesh=object())
+    with pytest.raises(ValueError, match="contradicts the mesh"):
+        svc.add_graph("s", tgen.mesh2d(4, 4), mesh=make_mesh(
+            (2,), ("data",), devices=("meta", "meta")))
     assert svc.graphs() == []
+    svc.add_graph("s", tgen.mesh2d(4, 4),
+                  mesh=make_mesh((2,), ("data",), device="cpu"))
+    assert isinstance(svc.snapshot("s"), ShardedColoringState)
+    assert tcol.is_proper(svc.graph("s"), svc.colors("s"))
 
 
 @pytest.mark.cuda

@@ -332,8 +332,13 @@ def test_dispatch_counters_and_wrapper_checks():
         twohop_detect_recolor(ea[:32], ea, c, None, u, 0, 32)
     with pytest.raises(TypeError, match="row_ids must be torch.int32"):
         twohop_detect_recolor(None, ea, c, p, u, 0, 32, row_ids=ids.long())
-    with pytest.raises(ValueError, match="with row_ids, ell must be"):
-        detect_recolor(ea[:40], c, p, u, 0, 32, row_ids=ids)
+    # row_ids into a table longer than ell (a shard's ghost tail) are
+    # taken; the slot-stride form still needs the whole stacked table
+    with pytest.raises(ValueError, match="with slot_rows, ell must be"):
+        detect_recolor(ea[:40], c, p, u, 0, 32, row_ids=ids, slot_rows=32)
+    short = detect_recolor(ea[:40], c, p, u, 0, 32, row_ids=ids)
+    _eq(short, [x.numpy() for x in ref.detect_recolor_ref(
+        ea, c, p, 0, u, 32, row_ids=ids)], NAMES3)
     # round 0 reads no priority: pri may be None
     r0 = twohop_detect_recolor(ea[:32], ea, c, None, u, 0, 32, detect=False)
     _eq(r0, ref.twohop_ref(ea[:32], ea, c, p, 0, u, 32, detect=False),
