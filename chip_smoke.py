@@ -102,6 +102,23 @@ ends the run with a non-zero exit code:
               rollback, quarantine, degrade, escape or fallback; step p50 /
               p99 ms of both; B2's slot-stride launches against the looped
               path's (n_chunks a gather pass)
+  5j. gnn     GNN training (no kernel of the port on this path; counts
+              zeroed before, read after, logged): (a) GatedGCN at
+              ogb_products' widths (16 layers, d 70) on rmat_er(16, 13),
+              10 AdamW steps through train_loop.run checkpointing every 4,
+              and a run stopped at 4 and restarted from LATEST: parameters
+              and losses bit-equal, every loss finite, peak memory under
+              GNN_MEM_LIMIT, ms a step with deterministic and with atomic
+              scatters; (e) colored_segment_sum on (a)'s first-layer
+              messages: bit-equal twice, within COLORED_TOL of the plain
+              sum; (b) GAT and MeshGraphNet at cora's widths on
+              erdos_renyi(2708, 3.9), 5 steps each; (c) the halo GatedGCN
+              at full width on mesh2d(256, 256) at 4 shards sharing the
+              card against the replicated one (loss, gradient norms,
+              gathered bytes a layer); (d) tests/torch_golden.json's gnn
+              section (the reference's loss histories, the halo ring's
+              loss), and the card against the port's CPU run on
+              rmat_er(12, 13)
   (5, 5c: each row's prepare_ms + solve_ms must not pass e2e_traced_ms,
   the wall time of the call they split, by more than SPLIT_SLACK)
   6. times    per-kernel device time (device_ms; the back-to-back call time
@@ -2241,6 +2258,416 @@ def phase_service(device, rehearse: bool):
         {"service_mega": mc.counts, "service_loop": lc.counts}, mc
 
 
+# --------------------------------------------------------------------------
+# phase 5j: GNN training on the card
+# --------------------------------------------------------------------------
+
+# (a) GatedGCN at ogb_products' widths on an RMAT-ER of 2^16 vertices at 13
+# undirected edges a vertex: 26.0 directed edges a node against the shape's
+# 25.3, the vertex count cut from 2,449,029 so that the activations autograd
+# keeps (16 layers of (E, d) tensors) fit the card with room
+GNN_SCALE = 16
+GNN_EDGE_FACTOR = 13
+GNN_STEPS = 10
+GNN_CKPT_EVERY = 4
+GNN_RESTART_AT = 4            # the second run stops here and restarts
+GNN_MEM_LIMIT = 60e9          # bytes: the activations reckoned at ~40 GB
+GNN_ATOMIC_STEPS = 4          # steps timed with atomic scatters
+# (b) cora's shape: erdos_renyi(2708, 3.9) gives 10,546 directed edges
+CORA_N, CORA_DEG, CORA_STEPS = 2708, 3.9, 5
+# (c) the halo GatedGCN: mesh2d(256, 256) at 4 shards sharing the card
+HALO_MESH, HALO_SHARDS = (256, 256), 4
+HALO_REL = 1e-5               # halo loss against the replicated one
+HALO_NORM_REL = 1e-4          # the gradients' global norms
+# (d) the card against the reference (tests/torch_golden.json) and against
+# the port's own CPU run on an RMAT-ER cut to 2^12
+GNN_GOLDEN_RTOL = 1e-4        # float32 in another order, six AdamW steps
+GNN_CPU_SCALE, GNN_CPU_STEPS = 12, 3
+GNN_CPU_RTOL = 1e-4
+# (e) colored_segment_sum against the plain segment sum
+COLORED_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def gnn_train(loss_fn, cfg, stream_of, device, total: int, opt,
+              ckpt_dir=None, init=None):
+    """``train_loop.run`` of a GNN from ``init`` (a ``ParamTree``; None:
+    ``gatedgcn_init`` from seed 0 on ``device``) on a fresh stream; returns
+    (params, losses, per-step wall times in ms: the metrics of every step
+    are read, which waits for the card)."""
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import gnn as GNN
+    from repro_torch.training import train_loop as TL
+    params = init if init is not None else GNN.gatedgcn_init(
+        torch.Generator(device=device).manual_seed(0), cfg, device)
+    stamps = [time.perf_counter()]
+    params, _, hist = TL.run(
+        loss_fn, params, stream_of(), opt,
+        TL.TrainLoopConfig(total_steps=total, log_every=1,
+                           ckpt_every=GNN_CKPT_EVERY, ckpt_dir=ckpt_dir),
+        to_device=lambda b: to_device(b, device),
+        on_metrics=lambda m: stamps.append(time.perf_counter()))
+    ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    return params, [h["loss"] for h in hist], ms
+
+
+def median_after_first(ms: list) -> float:
+    return statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+
+
+def phase_gnn_full(device, rehearse: bool) -> tuple:
+    """(a) GatedGCN at full width (16 layers, d 70; ogb_products' 100
+    features and 47 classes) on ``rmat_er(GNN_SCALE, 13)``:
+    ``GNN_STEPS`` AdamW steps through ``train_loop.run`` checkpointing
+    every ``GNN_CKPT_EVERY`` into a temporary directory; a second run
+    stopped at ``GNN_RESTART_AT`` and restarted from LATEST to the end must
+    give the first run's parameters and losses bit for bit.  Then the same
+    steps with atomic scatters, timed (and whether their bits repeat).
+    Returns (row, graph, batch, params) for (e)."""
+    import tempfile
+    from repro_torch import configs, tree
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.data import pipeline as DP
+    from repro_torch.graphs import generators as gen
+    from repro_torch.models import gnn as GNN
+    from repro_torch.training.optimizer import OptimizerConfig
+    shp = GNN_SHAPES["ogb_products"]
+    arch = configs.get("gatedgcn")
+    cfg = arch.make_full(d_in=shp["d_feat"], n_classes=shp["n_classes"])
+    scale = 9 if rehearse else GNN_SCALE
+    t = time.perf_counter()
+    g = gen.rmat_er(scale, edge_factor=GNN_EDGE_FACTOR)
+    stream_of = lambda: DP.FullGraphStream(  # noqa: E731
+        g, d_feat=shp["d_feat"], n_classes=shp["n_classes"],
+        pad_edges_to=1024)
+    batch0 = next(stream_of())
+    host_s = time.perf_counter() - t
+    loss_fn = GNN.gnn_loss_fn(arch, shp, cfg, g.n_vertices + 1)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=GNN_STEPS)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        p1, l1, ms1 = gnn_train(loss_fn, cfg, stream_of, device, GNN_STEPS,
+                                opt, d1)
+        peak = (torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else 0)
+        _, l2a, _ = gnn_train(loss_fn, cfg, stream_of, device,
+                              GNN_RESTART_AT, opt, d2)
+        p2, l2b, _ = gnn_train(loss_fn, cfg, stream_of, device, GNN_STEPS,
+                               opt, d2)
+    if not all(np.isfinite(l1)):
+        fail(f"gnn train (a): a loss is not finite: {l1}")
+    if l2a + l2b != l1:
+        fail(f"gnn train (a): the restarted run's losses {l2a + l2b} are not "
+             f"the uninterrupted run's {l1} bit for bit")
+    for (k, a), b in zip(tree.flatten_with_paths(p1), tree.leaves(p2)):
+        if not torch.equal(a, b):
+            fail(f"gnn train (a): parameter {k} after the restart differs "
+                 f"from the uninterrupted run's")
+    if peak > GNN_MEM_LIMIT:
+        fail(f"gnn train (a): peak memory {peak} B over {GNN_MEM_LIMIT}")
+    with GNN.atomic_scatter():
+        _, la, msa = gnn_train(loss_fn, cfg, stream_of, device,
+                               GNN_ATOMIC_STEPS, opt)
+        _, lb, _ = gnn_train(loss_fn, cfg, stream_of, device,
+                             GNN_ATOMIC_STEPS, opt)
+    row = {"graph": f"rmat_er({scale}, edge_factor={GNN_EDGE_FACTOR})",
+           "n_nodes": g.n_vertices + 1, "n_edges": g.n_edges,
+           "n_edges_padded": int(batch0["src"].shape[0]),
+           "cut_from": {"n_nodes": shp["n_nodes"], "n_edges": shp["n_edges"]},
+           "layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+           "d_feat": cfg.d_in, "classes": cfg.d_out,
+           "host_graph_and_stream_s": round(host_s, 3),
+           "losses": l1, "step_ms": [round(x, 3) for x in ms1],
+           "ms_per_step": round(median_after_first(ms1), 3),
+           "restart_bit_equal": True,
+           "peak_memory_bytes": int(peak),
+           "atomic_ms_per_step": round(median_after_first(msa), 3),
+           "atomic_losses": la, "atomic_repeats_bits": la == lb,
+           "atomic_equals_deterministic": la == l1[:GNN_ATOMIC_STEPS]}
+    return row, g, batch0, p1
+
+
+def phase_gnn_colored(device, g, batch, params) -> dict:
+    """(e) ``colored_segment_sum`` on (a)'s first-layer messages with
+    ``edge_color_by_dst`` classes (the graph's edges, not the sink's
+    padding): twice bit-equal, and equal to the plain segment sum within
+    ``COLORED_TOL``; the plain (sorted) segment sum twice bit-equal too."""
+    from repro_torch.core import schedule
+    from repro_torch.models import gnn as GNN
+    E = g.n_edges
+    src_np, dst_np = batch["src"][:E], batch["dst"][:E]
+    t = time.perf_counter()
+    ec, k = schedule.edge_color_by_dst(src_np, dst_np, g.n_vertices + 1)
+    color_s = time.perf_counter() - t
+    src, dst = dev(src_np, device), dev(dst_np, device)
+    ec = dev(ec, device)
+    n = g.n_vertices + 1
+    with torch.no_grad():
+        h = dev(batch["feats"], device) @ params["embed"]
+        blk = params["blocks"][0]
+        e_new = GNN.gather(h @ blk["D"], src) + GNN.gather(h @ blk["E"], dst)
+        msg = torch.sigmoid(e_new) * GNN.gather(h @ blk["B"], src)
+        a = GNN.colored_segment_sum(msg, dst, n, ec, k)
+        b = GNN.colored_segment_sum(msg, dst, n, ec, k)
+        plain = GNN.segment_sum(msg, dst, n)
+        if not torch.equal(a, b):
+            fail("gnn train (e): colored_segment_sum differs between two "
+                 "runs")
+        if not torch.equal(GNN.segment_sum(msg, dst, n), plain):
+            fail("gnn train (e): the sorted segment sum differs between two "
+                 "runs")
+        err = float((a - plain).abs().max())
+        if not torch.allclose(a, plain, **COLORED_TOL):
+            fail(f"gnn train (e): colored_segment_sum differs from the "
+                 f"plain segment sum by {err} (past {COLORED_TOL})")
+        with GNN.atomic_scatter():
+            atomic_ms = time_ms(lambda: GNN.segment_sum(msg, dst, n), device,
+                                3)
+        row = {"edges": E, "d": int(msg.shape[1]), "classes": k,
+               "host_edge_coloring_s": round(color_s, 3),
+               "max_abs_err_vs_plain": err, "bit_equal_twice": True,
+               "colored_ms": time_ms(lambda: GNN.colored_segment_sum(
+                   msg, dst, n, ec, k), device, 3),
+               "deterministic_segment_sum_ms": time_ms(
+                   lambda: GNN.segment_sum(msg, dst, n), device, 3),
+               "atomic_segment_sum_ms": atomic_ms}
+    return row
+
+
+def phase_gnn_cora(device, rehearse: bool) -> dict:
+    """(b) GAT (2 layers, 8 x 8 heads) and MeshGraphNet (15 layers, d 128,
+    zero edge features) at cora's widths (1433 features, 7 classes) on
+    ``erdos_renyi(2708, 3.9)``: ``CORA_STEPS`` steps each, ms a step."""
+    from repro_torch import configs
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.data import pipeline as DP
+    from repro_torch.graphs import generators as gen
+    from repro_torch.models import gnn as GNN
+    from repro_torch.training.optimizer import OptimizerConfig
+    shp = GNN_SHAPES["full_graph_sm"]
+    g = gen.erdos_renyi(CORA_N, CORA_DEG)
+    out = {"graph": f"erdos_renyi({CORA_N}, {CORA_DEG})",
+           "n_edges": g.n_edges, "cora_n_edges": shp["n_edges"]}
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=CORA_STEPS)
+    for name, init in (("gat-cora", GNN.gat_init),
+                       ("meshgraphnet", GNN.mgn_init)):
+        arch = configs.get(name)
+        cfg = arch.make_full(d_in=shp["d_feat"], n_classes=shp["n_classes"])
+        loss = GNN.gnn_loss_fn(arch, shp, cfg, g.n_vertices + 1)
+        if name == "meshgraphnet":
+            base = loss
+
+            def loss(p, b, base=base):        # the launcher's zero features
+                return base(p, dict(b, edge_feats=torch.zeros(
+                    (b["src"].shape[0], cfg.d_edge_in), device=device)))
+        params = init(torch.Generator(device=device).manual_seed(0), cfg,
+                      device)
+        _, losses, ms = gnn_train(
+            loss, cfg, lambda: DP.FullGraphStream(
+                g, d_feat=shp["d_feat"], n_classes=shp["n_classes"],
+                pad_edges_to=1024),
+            device, CORA_STEPS, opt, init=params)
+        if not all(np.isfinite(losses)):
+            fail(f"gnn train (b): {name}'s losses are not finite: {losses}")
+        out[name] = {"losses": losses,
+                     "ms_per_step": round(median_after_first(ms), 3),
+                     "step_ms": [round(x, 3) for x in ms]}
+    return out
+
+
+def phase_gnn_halo(device, rehearse: bool) -> dict:
+    """(c) The halo GatedGCN at full width (ogb_products' widths) on
+    ``mesh2d(256, 256)`` through ``block_partition`` / ``build_halo`` at
+    ``HALO_SHARDS`` shards sharing the card, against the replicated
+    GatedGCN on the same relabeled graph: loss within ``HALO_REL``, the
+    gradients' global norms within ``HALO_NORM_REL``; gathered bytes a
+    layer counted."""
+    from repro_torch import configs, tree
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.core import mesh as M
+    from repro_torch.core import partition
+    from repro_torch.graphs import generators as gen
+    from repro_torch.graphs.csr import to_edge_list
+    from repro_torch.models import gnn as GNN
+    from repro_torch.obs import metrics
+    from repro_torch.training.optimizer import global_norm
+    gm = golden_module()
+    shp = GNN_SHAPES["ogb_products"]
+    cfg = configs.get("gatedgcn").make_full(d_in=shp["d_feat"],
+                                            n_classes=shp["n_classes"])
+    nx, ny = (32, 32) if rehearse else HALO_MESH
+    g = gen.mesh2d(nx, ny)
+    t = time.perf_counter()
+    part = partition.block_partition(g, HALO_SHARDS, seed=0)
+    plan = partition.build_halo(part)
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((part.n_pad, shp["d_feat"])).astype(
+        np.float32)
+    labels = rng.integers(0, shp["n_classes"], part.n_pad).astype(np.int32)
+    mask = (rng.random(part.n_pad) < 0.6).astype(np.float32)
+    shards = [{k: dev(v, device) for k, v in s.items()}
+              for s in gm.halo_shards(part, plan, feats, labels, mask)]
+    e = to_edge_list(part.graph)
+    host_s = time.perf_counter() - t
+    params = GNN.gatedgcn_init(torch.Generator(device=device).manual_seed(0),
+                               cfg, device)
+    mesh = M.make_mesh((HALO_SHARDS,), ("data",), device=device)
+    leaves = tree.leaves(params)
+
+    def grads(loss):
+        return torch.autograd.grad(loss, leaves, allow_unused=True,
+                                   materialize_grads=True)
+
+    sync(device)
+    t = time.perf_counter()
+    metrics.reset()
+    lh = GNN.gatedgcn_halo_loss(params, cfg, shards, mesh)
+    gh = grads(lh)
+    sync(device)
+    halo_ms = 1e3 * (time.perf_counter() - t)
+    coll, gbytes = M.collectives(), M.gathered_bytes()
+    t = time.perf_counter()
+    lr = GNN.node_classification_loss(
+        GNN.gatedgcn_apply(params, cfg, dev(feats, device),
+                           dev(e[:, 0].astype(np.int32), device),
+                           dev(e[:, 1].astype(np.int32), device),
+                           part.n_pad),
+        dev(labels, device), dev(mask, device))
+    gr = grads(lr)
+    sync(device)
+    rep_ms = 1e3 * (time.perf_counter() - t)
+    lh, lr = float(lh.detach()), float(lr.detach())
+    nh, nr = float(global_norm(gh)), float(global_norm(gr))
+    rel = abs(lh - lr) / abs(lr)
+    nrel = abs(nh - nr) / nr
+    if not rel <= HALO_REL:
+        fail(f"gnn train (c): halo loss {lh} against the replicated {lr} "
+             f"(relative {rel} past {HALO_REL})")
+    if not nrel <= HALO_NORM_REL:
+        fail(f"gnn train (c): gradient norms {nh} / {nr} (relative {nrel} "
+             f"past {HALO_NORM_REL})")
+    per_layer = HALO_SHARDS * plan.max_b * cfg.d_hidden * 4
+    if coll != cfg.n_layers + 1 or gbytes != (cfg.n_layers * per_layer
+                                              + HALO_SHARDS * 2 * 4):
+        fail(f"gnn train (c): {coll} collectives and {gbytes} gathered bytes "
+             f"for {cfg.n_layers} layers of {per_layer} B and the loss's")
+    return {"graph": f"mesh2d({nx}, {ny})", "n": g.n_vertices,
+            "n_edges": g.n_edges, "shards": HALO_SHARDS, "max_b": plan.max_b,
+            "max_g": plan.max_g,
+            "edges_per_shard": [int(s["src"].shape[0]) for s in shards],
+            "host_partition_s": round(host_s, 3),
+            "halo_loss": lh, "replicated_loss": lr, "loss_rel_err": rel,
+            "grad_norm_halo": nh, "grad_norm_replicated": nr,
+            "grad_norm_rel_err": nrel, "collectives": coll,
+            "gathered_bytes_per_layer": per_layer,
+            "replicated_vector_bytes": part.n_pad * cfg.d_hidden * 4,
+            "halo_fwd_bwd_ms": round(halo_ms, 3),
+            "replicated_fwd_bwd_ms": round(rep_ms, 3)}
+
+
+def phase_gnn_golden(device, rehearse: bool) -> dict:
+    """(d) The card against ``tests/torch_golden.json``'s ``gnn`` section:
+    each smoke model's six losses within ``GNN_GOLDEN_RTOL``, the halo
+    ring's loss within ``HALO_REL``; and the full-width GatedGCN on
+    ``rmat_er(GNN_CPU_SCALE, 13)``: the card's loss history against the
+    port's own CPU run of the same steps from the same weights."""
+    from repro_torch import configs, tree
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.core import mesh as M
+    from repro_torch.core import partition
+    from repro_torch.data import pipeline as DP
+    from repro_torch.graphs import csr
+    from repro_torch.graphs import generators as gen
+    from repro_torch.models import gnn as GNN
+    from repro_torch.training.optimizer import OptimizerConfig
+    gm = golden_module()
+    with open(gm.PATH) as f:
+        golden = json.load(f)["gnn"]
+    got = gm.port_gnn_losses(device)
+    worst = 0.0
+    for arch, want in golden["losses"].items():
+        rel = float(np.max(np.abs(np.subtract(got[arch], want))
+                           / np.abs(want)))
+        worst = max(worst, rel)
+        if not rel <= GNN_GOLDEN_RTOL:
+            fail(f"gnn train (d): {arch}'s losses {got[arch]} against the "
+                 f"reference's {want} (relative {rel})")
+    _, shards, _ = gm.halo_ring(partition, csr)
+    cfg = GNN.GatedGCNConfig(**gm.HALO_CFG)
+    params = GNN.gatedgcn_init(torch.Generator(device=device).manual_seed(0),
+                               cfg, device)
+    vals = gm.gnn_leaf_values([(k, tuple(x.shape))
+                               for k, x in tree.flatten_with_paths(params)])
+    with torch.no_grad():
+        for k, x in tree.flatten_with_paths(params):
+            x.copy_(dev(vals[k], device))
+    halo = float(GNN.gatedgcn_halo_loss(
+        params, cfg, [{k: dev(v, device) for k, v in s.items()}
+                      for s in shards],
+        M.make_mesh((gm.HALO_D,), ("data",), device=device)).detach())
+    halo_rel = abs(halo - golden["halo_loss"]) / abs(golden["halo_loss"])
+    if not halo_rel <= HALO_REL:
+        fail(f"gnn train (d): the halo ring's loss {halo} against the "
+             f"reference's {golden['halo_loss']} (relative {halo_rel})")
+    # the card against the port's CPU run (weights made on the CPU)
+    shp = GNN_SHAPES["ogb_products"]
+    arch = configs.get("gatedgcn")
+    cfg = arch.make_full(d_in=shp["d_feat"], n_classes=shp["n_classes"])
+    scale = 9 if rehearse else GNN_CPU_SCALE
+    g = gen.rmat_er(scale, edge_factor=GNN_EDGE_FACTOR)
+    loss_fn = GNN.gnn_loss_fn(arch, shp, cfg, g.n_vertices + 1)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1,
+                          total_steps=GNN_CPU_STEPS)
+    p0 = GNN.gatedgcn_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    p0 = tree.tree_map(lambda t: t.detach().numpy(), p0)
+    runs = {}
+    for where in (torch.device("cpu"), device):
+        _, runs[where.type], _ = gnn_train(
+            loss_fn, cfg, lambda: DP.FullGraphStream(
+                g, d_feat=shp["d_feat"], n_classes=shp["n_classes"],
+                pad_edges_to=1024),
+            where, GNN_CPU_STEPS, opt,
+            init=GNN.params_from_reference("gatedgcn", p0, where))
+    cpu_rel = float(np.max(np.abs(np.subtract(runs[device.type],
+                                              runs["cpu"]))
+                           / np.abs(runs["cpu"])))
+    if not cpu_rel <= GNN_CPU_RTOL:
+        fail(f"gnn train (d): the card's losses {runs[device.type]} against "
+             f"the CPU's {runs['cpu']} (relative {cpu_rel})")
+    return {"smoke_losses": got, "smoke_max_rel_err": worst,
+            "halo_ring_loss": halo, "halo_ring_rel_err": halo_rel,
+            "cpu_graph": f"rmat_er({scale}, {GNN_EDGE_FACTOR})",
+            "cpu_losses": runs["cpu"], "card_losses": runs[device.type],
+            "cpu_max_rel_err": cpu_rel}
+
+
+def phase_gnn(device, card: str, rehearse: bool) -> dict:
+    """Phase 5j: GNN training on the card, (a)-(e).  No kernel of the port
+    lies on this path (the reference's GNNs run no Pallas kernel): the
+    launch counts are zeroed before and read after, and logged."""
+    t0 = time.perf_counter()
+    zero_counts()
+    full, g, batch, params = phase_gnn_full(device, rehearse)
+    log("gnn", json.dumps({"full_width": full, "card": card}))
+    colored = phase_gnn_colored(device, g, batch, params)
+    log("gnn", json.dumps({"colored_segment_sum": colored, "card": card}))
+    del g, batch, params
+    cora = phase_gnn_cora(device, rehearse)
+    log("gnn", json.dumps({"cora_shape": cora, "card": card}))
+    halo = phase_gnn_halo(device, rehearse)
+    log("gnn", json.dumps({"halo": halo, "card": card}))
+    golden = phase_gnn_golden(device, rehearse)
+    log("gnn", json.dumps({"golden": golden, "card": card}))
+    row = {"card": card, "full_width": full, "colored_segment_sum": colored,
+           "cora_shape": cora, "halo": halo, "golden": golden,
+           "launches": launch_counts(),
+           "seconds": round(time.perf_counter() - t0, 3)}
+    log("gnn", f"phase 5j: {row['seconds']} s, launches of the port's "
+               f"kernels {row['launches']}")
+    return row
+
+
 def exact_launch_counts(what: str, res):
     """The launch checks are exact for one cap attempt: a run that doubled
     its cap ran earlier attempts whose round counts the result does not
@@ -3967,6 +4394,9 @@ def main() -> int:
         log("service", json.dumps({"launches": counts_svc,
                                    "slot_stride_launches": svc_path.slots}))
 
+        # ---- phase 5j: GNN training ----
+        gnn_row = phase_gnn(device, card, args.rehearse)
+
         # ---- phase 6: kernel times ----
         slot_row = phase_times_slots(device, svc_states, cmp, launch)
         del svc_states
@@ -4000,6 +4430,7 @@ def main() -> int:
     print(json.dumps({"distance2_path": d2_rows}), flush=True)
     print(json.dumps({"serve_path": serve_row}), flush=True)
     print(json.dumps({"aggregate_path": agg_row}), flush=True)
+    print(json.dumps({"gnn_train_path": gnn_row}), flush=True)
     print(json.dumps({"kernel_times": time_rows + model_rows + [slot_row]}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -118,22 +118,41 @@ def check_supported(cfg: TransformerConfig) -> None:
 # --------------------------------------------------------------------------
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors as a module, indexed like the dict:
-    ``tree["attn"]["wq"]``.  Leaves are frozen parameters (inference)."""
+    """A nested dict (or list) of tensors as a module, indexed like the
+    container it holds: ``tree["attn"]["wq"]``, ``tree["blocks"][0]["A"]``.
+    Leaves are parameters, frozen (inference) unless ``trainable``.  A list
+    keeps its order and iterates over its items; a dict iterates over its
+    keys, in the order given."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree, trainable: bool = False):
         super().__init__()
-        for key, val in tree.items():
-            if isinstance(val, dict):
-                self.add_module(key, ParamTree(val))
+        self.is_list = isinstance(tree, (list, tuple))
+        for key, val in (enumerate(tree) if self.is_list else tree.items()):
+            if isinstance(val, (dict, list, tuple)):
+                self.add_module(str(key), ParamTree(val, trainable))
             else:
                 self.register_parameter(
-                    key, nn.Parameter(val, requires_grad=False))
+                    str(key), nn.Parameter(val, requires_grad=trainable))
+
+    def keys(self) -> list:
+        return list(self._parameters) + list(self._modules)
 
     def __getitem__(self, key):
+        key = str(key)
         if key in self._parameters:
             return self._parameters[key]
         return self._modules[key]
+
+    def __contains__(self, key) -> bool:
+        return str(key) in self._parameters or str(key) in self._modules
+
+    def __len__(self) -> int:
+        return len(self._parameters) + len(self._modules)
+
+    def __iter__(self):
+        if self.is_list:
+            return (self[i] for i in range(len(self)))
+        return iter(self.keys())
 
 
 class TransformerParams(nn.Module):

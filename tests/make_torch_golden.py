@@ -29,6 +29,16 @@ the state's ``SHARD_FIELDS`` and a colors SHA-256 after each.  The
 reference needs ``XLA_FLAGS`` set before JAX is imported for a mesh of more
 than one device, so ``main`` makes these two sections in a subprocess
 (``reference_mesh_sections``) and the others exactly as before.
+
+One more holds GNN training: ``gnn``.  ``losses``: the reference's
+``launch.train.build_gnn`` smoke model of each of ``GNN_ARCHS`` on
+``mesh2d(24, 24)``, its weights from ``gnn_leaf_values`` (one seeded
+numpy stream, which both packages can make), ``GNN_STEPS`` steps of
+``train_loop.run`` (``reference_gnn_losses``; ``port_gnn_losses`` is the
+port's same run).  ``halo_loss``: the reference's ``gatedgcn_halo_loss``
+under ``shard_map`` on the 256-vertex ring of ``tests/test_distributed.py``
+at ``HALO_D`` shards (``halo_ring`` / ``halo_shards`` build its inputs
+from a package's partition module; made in the mesh subprocess).
 """
 import hashlib
 import json
@@ -227,9 +237,173 @@ def sharded_stream(color, recolor, mesh_of, gen) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# GNN training: the smoke models' loss histories and the halo GatedGCN
+# --------------------------------------------------------------------------
+
+GNN_ARCHS = ("gat-cora", "meshgraphnet", "gatedgcn")
+GNN_STEPS = 6
+# the launcher's optimizer at --steps 6 (warmup max(6 // 10, 1))
+GNN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=GNN_STEPS)
+HALO_N = 256          # the reference's ring (tests/test_distributed.py)
+HALO_D = 4
+HALO_CFG = dict(n_layers=3, d_hidden=8, d_in=6, d_out=3)
+
+
+def gnn_leaf_values(paths_shapes) -> dict:
+    """``{path: float32 array}`` for a parameter tree given as ``[(path,
+    shape)]`` in JAX's leaf order, from one seeded numpy stream, so both
+    packages start from the same weights: a matrix N(0, 1 / rows), a
+    layer norm's scale 1, every other vector 0."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for path, shape in paths_shapes:
+        if len(shape) >= 2:
+            out[path] = (rng.standard_normal(shape)
+                         / np.sqrt(shape[0])).astype(np.float32)
+        elif path.endswith("['ln_scale']"):
+            out[path] = np.ones(shape, np.float32)
+        else:
+            out[path] = np.zeros(shape, np.float32)
+    return out
+
+
+def reference_gnn_losses() -> dict:
+    """``{arch: losses}``: the reference's ``repro.launch.train.build_gnn``
+    smoke model of each of ``GNN_ARCHS`` on ``mesh2d(24, 24)`` (weights
+    from ``gnn_leaf_values``), ``GNN_STEPS`` steps of its ``TL.run``."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs
+    from repro.launch.train import build_gnn
+    from repro.training import train_loop as TL
+    from repro.training.optimizer import OptimizerConfig
+
+    out = {}
+    for arch in GNN_ARCHS:
+        params, stream, loss = build_gnn(configs.get(arch), True, 8)
+        flat, tdef = jax.tree_util.tree_flatten_with_path(params)
+        paths = [jax.tree_util.keystr(p) for p, _ in flat]
+        vals = gnn_leaf_values([(k, np.shape(x))
+                                for k, (_, x) in zip(paths, flat)])
+        params = jax.tree_util.tree_unflatten(
+            tdef, [jnp.asarray(vals[k]) for k in paths])
+        _, _, hist = TL.run(
+            loss, params, stream, OptimizerConfig(**GNN_OPT),
+            TL.TrainLoopConfig(total_steps=GNN_STEPS, log_every=1),
+            to_device=lambda b: jax.tree.map(jnp.asarray, b))
+        out[arch] = [h["loss"] for h in hist]
+    return out
+
+
+def port_gnn_losses(device) -> dict:
+    """``reference_gnn_losses`` of the port on ``device``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch import tree
+    from repro_torch.launch.train import build_gnn, to_device
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    out = {}
+    for arch in GNN_ARCHS:
+        params, stream, loss = build_gnn(configs.get(arch), device)
+        flat = tree.flatten_with_paths(params)
+        vals = gnn_leaf_values([(k, tuple(x.shape)) for k, x in flat])
+        with torch.no_grad():
+            for k, x in flat:
+                x.copy_(torch.from_numpy(vals[k]))
+        _, _, hist = TL.run(
+            loss, params, stream, OptimizerConfig(**GNN_OPT),
+            TL.TrainLoopConfig(total_steps=GNN_STEPS, log_every=1),
+            to_device=lambda b: to_device(b, device))
+        out[arch] = [h["loss"] for h in hist]
+    return out
+
+
+def halo_ring(partition, csr):
+    """The halo GatedGCN's inputs on the reference's ring, as numpy
+    (``partition`` and ``csr`` are a package's ``core.partition`` and
+    ``graphs.csr``): the partition, the per-shard batches
+    (``halo_shards``) and the replicated graph's (src, dst, feats, labels,
+    mask) over ``n_pad`` relabeled nodes."""
+    ring = np.stack([np.arange(HALO_N), (np.arange(HALO_N) + 1) % HALO_N], 1)
+    part = partition.block_partition(csr.from_edges(HALO_N, ring), HALO_D,
+                                     seed=0)
+    plan = partition.build_halo(part)
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((part.n_pad, HALO_CFG["d_in"])).astype(
+        np.float32)
+    labels = rng.integers(0, HALO_CFG["d_out"], part.n_pad).astype(np.int32)
+    mask = np.ones(part.n_pad, np.float32)
+    e = csr.to_edge_list(part.graph)
+    replicated = (e[:, 0].astype(np.int32), e[:, 1].astype(np.int32), feats,
+                  labels, mask)
+    return part, halo_shards(part, plan, feats, labels, mask), replicated
+
+
+def halo_shards(part, plan, feats, labels, mask) -> list:
+    """Shard d's batch of the halo GatedGCN (numpy): its owned rows of the
+    global ``feats`` / ``labels`` / ``mask`` (block partition), its ELL's
+    live slots as (src, dst) edges — src a local slot or a ghost slot
+    n_loc + g — its boundary list, and each ghost's index into the
+    gathered (D * max_b,) boundary payload."""
+    n_loc = part.n_loc
+    W = plan.ell_local.shape[-1]
+    ghost_flat = np.where(plan.ghost_owner >= 0,
+                          plan.ghost_owner * plan.max_b + plan.ghost_slot,
+                          -1).astype(np.int32)
+    out = []
+    for d in range(part.n_shards):
+        srcs = plan.ell_local[d].reshape(-1)
+        dsts = np.repeat(np.arange(n_loc, dtype=np.int32), W)
+        keep = srcs >= 0
+        rows = slice(d * n_loc, (d + 1) * n_loc)
+        out.append({"feats": feats[rows], "labels": labels[rows],
+                    "train_mask": mask[rows],
+                    "src": srcs[keep].astype(np.int32),
+                    "dst": dsts[keep],
+                    "boundary": plan.boundary[d].astype(np.int32),
+                    "ghost_flat": ghost_flat[d]})
+    return out
+
+
+def reference_halo_loss() -> float:
+    """The reference's ``gatedgcn_halo_loss`` on the ring at ``HALO_D``
+    shards under ``shard_map`` (needs ``HALO_D`` host devices)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import PartitionSpec as P
+    from repro.core import partition
+    from repro.graphs import csr
+    from repro.models import gnn as GNN
+
+    _, shards, _ = halo_ring(partition, csr)
+    cfg = GNN.GatedGCNConfig(**HALO_CFG)
+    params = GNN.gatedgcn_init(jax.random.PRNGKey(0), cfg)
+    flat, tdef = jax.tree_util.tree_flatten_with_path(params)
+    paths = [jax.tree_util.keystr(p) for p, _ in flat]
+    vals = gnn_leaf_values([(k, np.shape(x))
+                            for k, (_, x) in zip(paths, flat)])
+    params = jax.tree_util.tree_unflatten(
+        tdef, [jnp.asarray(vals[k]) for k in paths])
+    if len({len(s["src"]) for s in shards}) != 1:
+        raise ValueError("shard_map needs equal edge counts a shard")
+    batch = {k: jnp.asarray(np.concatenate([s[k] for s in shards]))
+             for k in shards[0]}
+    mesh = jax.make_mesh((HALO_D,), ("data",))
+    loss = shard_map(
+        lambda p, b: GNN.gatedgcn_halo_loss(p, cfg, b, ("data",), HALO_D),
+        mesh=mesh, in_specs=(P(), {k: P("data") for k in batch}),
+        out_specs=P(), check_rep=False)
+    return float(loss(params, batch))
+
+
 def mesh_sections() -> dict:
-    """The reference's ``distributed`` and ``sharded`` sections (in a
-    process whose JAX sees ``max(DIST_SHARDS)`` host devices)."""
+    """The reference's ``distributed`` and ``sharded`` sections and the
+    halo GatedGCN's loss on the ring (in a process whose JAX sees
+    ``max(DIST_SHARDS)`` host devices)."""
     import jax
     from repro import api
     from repro.dynamic import recolor_sharded
@@ -239,7 +413,8 @@ def mesh_sections() -> dict:
     return {"distributed": distributed_entries(api.color, meshes.get,
                                                generators),
             "sharded": sharded_stream(api.color, recolor_sharded,
-                                      meshes.get, generators)}
+                                      meshes.get, generators),
+            "halo_loss": reference_halo_loss()}
 
 
 def start_mesh_sections():
@@ -275,6 +450,7 @@ def main() -> None:
     from repro import api
     from repro.dynamic import ColoringService, recolor_incremental
     from repro.graphs import generators
+    mesh = reference_mesh_sections()
     doc = {"generated_by": "tests/make_torch_golden.py (repro.api.color, "
                            "paper_suite('tiny') x seeds 0-2 at distance 1 "
                            "and 2 and with cat / gm / jp, bipartite partial "
@@ -282,13 +458,18 @@ def main() -> None:
                            "paper_suite('tiny'); a megabatched service; "
                            "rsoc / cat on meshes of 1 and 4 shards x "
                            "paper_suite('tiny') x seeds 0-2; sharded "
-                           "streams on mesh2d(24, 24))",
+                           "streams on mesh2d(24, 24); 6 training steps of "
+                           "each GNN smoke model on mesh2d(24, 24) and the "
+                           "halo GatedGCN's loss on a 256-vertex ring at 4 "
+                           "shards)",
            "results": compute(api.color, generators),
            "incremental": incremental_entries(api.color, recolor_incremental,
                                               generators),
            "service": service_entries(
                ColoringService(megabatch=True, **SVC_OPTS), generators),
-           **reference_mesh_sections()}
+           "distributed": mesh["distributed"], "sharded": mesh["sharded"],
+           "gnn": {"losses": reference_gnn_losses(),
+                   "halo_loss": mesh["halo_loss"]}}
     with open(PATH, "w") as f:
         json.dump(doc, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -296,7 +477,8 @@ def main() -> None:
           f"{len(doc['incremental'])} incremental streams, "
           f"{len(doc['service'])} service steps, "
           f"{len(doc['distributed'])} distributed entries, "
-          f"{len(doc['sharded'])} sharded streams)")
+          f"{len(doc['sharded'])} sharded streams, "
+          f"{len(doc['gnn']['losses'])} GNN loss histories)")
 
 
 if __name__ == "__main__":

@@ -4,12 +4,14 @@ JAX reference package produces today and what the port produces on the CPU.
 ``chip_smoke.py`` holds the port's output on a GPU against the same file,
 which is how the card's results are tied to the reference's without JAX on
 that machine.  Integer results and a SHA-256 of the color bytes: the bar is
-equality.  Regenerate with ``tests/make_torch_golden.py``.
+equality; the ``gnn`` section's float losses are held to stated tolerances.
+Regenerate with ``tests/make_torch_golden.py``.
 """
 import importlib.util
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -156,9 +158,55 @@ def test_golden_sharded_equals_port():
         GOLDEN_SHARDED, "port"
 
 
+GOLDEN_GNN = _DOC["gnn"]
+# the port's loss histories against the reference's: float32 in another
+# order, six AdamW steps (measured at about 2e-7 on the CPU)
+GNN_RTOL = 1e-4
+
+
+def test_golden_gnn_losses_equal_reference_and_port():
+    """Six training steps of each GNN smoke model (``gnn_leaf_values``
+    weights): the reference today gives the file's numbers (rtol 1e-6: the
+    same program), the port on the CPU within ``GNN_RTOL``."""
+    assert sorted(GOLDEN_GNN["losses"]) == sorted(
+        make_torch_golden.GNN_ARCHS)
+    got = make_torch_golden.reference_gnn_losses()
+    for arch, want in GOLDEN_GNN["losses"].items():
+        assert len(want) == make_torch_golden.GNN_STEPS
+        np.testing.assert_allclose(got[arch], want, rtol=1e-6, err_msg=arch)
+    got = make_torch_golden.port_gnn_losses("cpu")
+    for arch, want in GOLDEN_GNN["losses"].items():
+        np.testing.assert_allclose(got[arch], want, rtol=GNN_RTOL,
+                                   err_msg=arch)
+
+
+def test_golden_halo_loss_equals_port():
+    """The port's halo GatedGCN on the ring at 4 CPU shards against the
+    reference's ``shard_map`` loss in the file (rtol 1e-5)."""
+    from repro_torch import tree
+    from repro_torch.core import partition
+    from repro_torch.graphs import csr
+    from repro_torch.models import gnn
+    _, shards, _ = make_torch_golden.halo_ring(partition, csr)
+    cfg = gnn.GatedGCNConfig(**make_torch_golden.HALO_CFG)
+    params = gnn.gatedgcn_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    vals = make_torch_golden.gnn_leaf_values(
+        [(k, tuple(x.shape)) for k, x in tree.flatten_with_paths(params)])
+    with torch.no_grad():
+        for k, x in tree.flatten_with_paths(params):
+            x.copy_(torch.from_numpy(vals[k]))
+    loss = gnn.gatedgcn_halo_loss(
+        params, cfg, [{k: torch.from_numpy(v) for k, v in s.items()}
+                      for s in shards], _cpu_mesh(make_torch_golden.HALO_D))
+    np.testing.assert_allclose(float(loss.detach()), GOLDEN_GNN["halo_loss"],
+                               rtol=1e-5)
+
+
 # the last test of this file: it waits for the subprocess started with the
 # first one
 def test_golden_mesh_sections_equal_reference(mesh_reference):
     got = make_torch_golden.finish_mesh_sections(mesh_reference)
     assert got["distributed"] == GOLDEN_DIST, "reference package"
     assert got["sharded"] == GOLDEN_SHARDED, "reference package"
+    np.testing.assert_allclose(got["halo_loss"], GOLDEN_GNN["halo_loss"],
+                               rtol=1e-6, err_msg="reference package")

@@ -90,7 +90,16 @@ def test_every_module_is_found():
               "repro_torch.core.partition",
               "repro_torch.core.distributed",
               "repro_torch.resilience.ladder",
-              "repro_torch.resilience.quarantine"):
+              "repro_torch.resilience.quarantine", "repro_torch.tree",
+              "repro_torch.training", "repro_torch.training.optimizer",
+              "repro_torch.training.checkpoint",
+              "repro_torch.training.elastic",
+              "repro_torch.training.train_loop", "repro_torch.data",
+              "repro_torch.data.pipeline", "repro_torch.graphs.sampler",
+              "repro_torch.models.gnn", "repro_torch.configs.gat_cora",
+              "repro_torch.configs.gatedgcn",
+              "repro_torch.configs.meshgraphnet",
+              "repro_torch.launch.train"):
         assert m in mods, m
 
 
@@ -141,6 +150,54 @@ def test_distributed_module_imports_first(first):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+TRAINING_MODULES = (
+    "repro_torch.tree", "repro_torch.training.optimizer",
+    "repro_torch.training.checkpoint", "repro_torch.training.elastic",
+    "repro_torch.training.train_loop", "repro_torch.graphs.sampler",
+    "repro_torch.data.pipeline", "repro_torch.models.gnn",
+    "repro_torch.configs.gat_cora", "repro_torch.configs.gatedgcn",
+    "repro_torch.configs.meshgraphnet", "repro_torch.launch.train")
+
+
+@pytest.fixture(scope="module")
+def training_imports():
+    """One fresh interpreter per module of the GNN training slice, all
+    started at once (each spends seconds importing torch), read by the
+    cases below."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("REPRO_FAULTS", None)
+    procs = {}
+    for first in TRAINING_MODULES:
+        code = (f"import {first}\n"
+                "import sys\n"
+                "from repro_torch import configs\n"
+                "from repro_torch.launch import train\n"
+                "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+                "('jax', 'jaxlib', 'repro'))\n"
+                "assert not bad, bad\n"
+                "assert {'gat-cora', 'gatedgcn', 'meshgraphnet'} <= "
+                "set(configs.ARCHS)\n"
+                "print('ok')\n")
+        procs[first] = subprocess.Popen(
+            [sys.executable, "-c", code], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    yield procs
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+@pytest.mark.parametrize("first", TRAINING_MODULES)
+def test_training_module_imports_first(first, training_imports):
+    """Each module of the GNN training slice imports first in a fresh
+    interpreter, pulls in neither ``jax`` nor the reference package, and
+    leaves the GNN archs in the registry."""
+    out, err = training_imports[first].communicate(timeout=240)
+    assert training_imports[first].returncode == 0, err
+    assert out.startswith("ok")
 
 
 def test_fresh_interpreter_imports_without_jax_or_reference():

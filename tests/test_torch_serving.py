@@ -74,7 +74,7 @@ def test_unported_archs_and_settings_raise():
     with pytest.raises(KeyError, match="ROADMAP"):
         tconfigs.get("qwen3-32b")
     with pytest.raises(KeyError, match="ROADMAP"):
-        tconfigs.get("gat-cora")
+        tconfigs.get("nequip")
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get("no-such-arch")
     assert set(tconfigs.NOT_PORTED) | set(tconfigs.ARCHS) == set(
