@@ -41,7 +41,9 @@ ends the run with a non-zero exit code:
               service run (8 tenants, 2 steps), entry for entry; its
               distributed sections (rsoc / cat on meshes of 1 and 4 shards
               x the tiny suite x seeds 0-2; mesh2d(24, 24)'s sharded
-              streams)
+              streams); its lm_train section (the two LM smoke configs'
+              loss, gradients and three training steps) within
+              LM_GOLDEN_TOL
   5. main     repro_torch.api.color(g), default spec, on the paper's graph
               classes at real size; launch counters zeroed before, read
               after, launches per design logged per graph (B1: vec16 on the
@@ -119,6 +121,25 @@ ends the run with a non-zero exit code:
               section (the reference's loss histories, the halo ring's
               loss), and the card against the port's CPU run on
               rmat_er(12, 13)
+  5k. lm      LM training on the card (no kernel of the port on this
+              path, as the reference trains in jnp; counts zeroed before,
+              read after, all 0): (a) qwen3-1.7b make_full() (28 layers,
+              bfloat16, remat, chunks 1024) on TokenStream(2, 4096), 2
+              microbatches, 6 steps of train_loop.run: losses and gradient
+              norms finite, the last loss below the first, every leaf's
+              step-1 gradient nonzero; ms a step, tokens/s, peak memory,
+              a microbatch's and an update's device time split by
+              torch.profiler (attention, cross entropy, optimizer, other
+              matrix products, the rest);
+              (b) flash_bwd True against False, one value_and_grad each
+              (LM_FLASH_LOSS_RTOL, LM_FLASH_GRAD_REL), the peak memory each
+              adds;
+              (c) depth cut to 2, a restart from LATEST bit for bit, and
+              ops.attention refusing inputs that require grad; (d)
+              ServeEngine on qwen3-32b at full width cut to 8 layers, 4
+              requests: exactly 8 x 4 attention launches, all on the fma
+              design (head dim 80), prefill logits against the plain
+              attention within LOGITS_ATOL
   (5, 5c: each row's prepare_ms + solve_ms must not pass e2e_traced_ms,
   the wall time of the call they split, by more than SPLIT_SLACK)
   6. times    per-kernel device time (device_ms; the back-to-back call time
@@ -130,7 +151,9 @@ ends the run with a non-zero exit code:
               op) calls with embedding_bag, sparse.mm (sum, float32) and
               the gather floor; attention at L 512, 2048 and
               8192 in bfloat16 and at L 2048 in float32, each with its
-              ratio to SDPA; one compacted repair pass per
+              ratio to SDPA; attention at qwen3-32b's prefill (64 / 8
+              heads, D 80, L 2048, bfloat16: the fma design) beside its
+              bound and SDPA; one compacted repair pass per
               compacted path (detect_recolor with row_ids, forb0 and
               extra_defect on RMAT-B; twohop with row_ids on RMAT-ER),
               kernels against plain versions on the same inputs; B2's
@@ -1001,7 +1024,8 @@ def phase_kernels_attention(device, launch: bool, cmp: Cmp):
     (128-row query tiles, 128-key tiles: L = 1, 63-65, 127-129,
     255, 257, 2049, and Lk > Lq with a ragged offset at GQA ratios 1, 2 and
     8, B = 2); causal and not, float32 and bfloat16; a few in the serving
-    prefill's layout (views of (B, L, H, D) tensors, no copy).  Each case
+    prefill's layout (views of (B, L, H, D) tensors, no copy); qwen3-32b's
+    heads (64 / 8) at head dim 80, ragged and with Lk > Lq.  Each case
     is held to ``FA_TOL`` and, row by row, to ``ROW_TOL``, and checks that
     the launch went to the design ``design(dtype, D)`` names."""
     from repro_torch.kernels import ops, ref
@@ -1018,6 +1042,10 @@ def phase_kernels_attention(device, launch: bool, cmp: Cmp):
     shapes += [(2, 8, 8, 129, 257, 64), (2, 8, 4, 65, 300, 128),
                (2, 16, 2, 255, 383, 64), (2, 8, 1, 257, 257, 128),
                (2, 16, 2, 63, 191, 128)]
+    # qwen3-32b's heads (64 / 8) at head dim 80, on the fma design: ragged
+    # lengths, Lk > Lq
+    shapes += [(1, 64, 8, L, L, 80) for L in (1, 63, 65, 300)]
+    shapes += [(1, 64, 8, 129, 257, 80), (2, 64, 8, 33, 700, 80)]
     views = {(1, 16, 8, 300, 300, 128), (2, 8, 4, 65, 300, 128),
              (2, 16, 2, 255, 383, 64)}
 
@@ -2668,6 +2696,493 @@ def phase_gnn(device, card: str, rehearse: bool) -> dict:
     return row
 
 
+# --------------------------------------------------------------------------
+# phase 5k: LM training at full width, and qwen3-32b serving (B5 at D 80)
+# --------------------------------------------------------------------------
+
+LM_BATCH, LM_SEQ = 2, 4096     # train_4k's length; its batch cut 256 -> 2
+LM_MICROBATCHES = 2
+LM_STEPS = 6
+LM_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=LM_STEPS)  # the launcher's
+# (b) flash_bwd True against False, bfloat16: the forward runs the same
+# tiles in the same order (the losses are expected equal); the two
+# backwards round differently (the FA-2 one casts ds and p to bfloat16
+# before its products, autograd keeps them float32), measured at about 1e-2
+# relative (L2, a leaf) on the CPU at the smoke widths
+LM_FLASH_LOSS_RTOL = 1e-3
+LM_FLASH_GRAD_REL = 5e-2
+# (c) the restart: full width, depth cut to keep a checkpoint near 4 GB
+LM_RESTART_LAYERS, LM_CKPT_EVERY, LM_RESTART_STEPS = 2, 2, 4
+# (d) qwen3-32b at full width, depth cut from 64 to 8 layers (8.8 GB of
+# bfloat16 weights beside the earlier phases), 4 requests of 128-1024
+LM32_LAYERS, LM32_REQUESTS, LM32_NEW_TOKENS = 8, 4, 8
+LM32_PROMPT_LENS = (128, 1024)
+# the golden phase: the card's smoke-config LM training against the file's
+# lm_train section (float32 in another order; the CPU is within 1e-6)
+LM_GOLDEN_TOL = dict(loss_rtol=1e-4, grad_atol=1e-3, after_atol=1e-4)
+# the profiler split's ranges, put around the port's functions for one call
+LM_SPANS = ("lm.attention", "lm.cross_entropy", "lm.optimizer")
+GEMM_KERNEL = re.compile(r"gemm|cutlass|xmma|sm90_|cublas|matmul|nvjet",
+                         re.IGNORECASE)
+
+
+def lm_memory_reckoning(cfg, micro: int) -> dict:
+    """Bytes the step holds, reckoned before the run: bfloat16 weights and
+    gradients, float32 moments and gradient accumulator, and one
+    microbatch's float32 logits."""
+    n = cfg.n_params() + cfg.n_layers * 2 * cfg.head_dim
+    return {"params": n, "bf16_weights": 2 * n, "bf16_grads": 2 * n,
+            "f32_moments": 8 * n, "f32_grad_accumulator": 4 * n,
+            "f32_logits_one_microbatch": 4 * micro * LM_SEQ * cfg.vocab}
+
+
+def lm_step_split(device, loss_fn, opt_cfg, params, opt_state,
+                  batch) -> dict:
+    """One microbatch's forward and backward (the first sequence of
+    ``batch``) and one optimizer update under ``torch.profiler`` (a step
+    runs ``LM_MICROBATCHES`` of the first and one of the second; the
+    profiler's own post-processing takes tens of seconds for a whole
+    step), its device time split into the attention (``chunked_attention``:
+    its tiles forward, in the remat recompute and backward), the cross
+    entropy, the optimizer, the other matrix products (kernels named as
+    GEMMs) and the rest.  The port's ``chunked_attention`` and
+    ``cross_entropy`` run inside ``record_function`` ranges for this call
+    only, the update inside one of its own; a backward kernel is given the
+    range of the forward op its autograd node came from (the profiler's
+    sequence numbers).  On the CPU rehearsal the CPU time of each op
+    stands in for the kernels'."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch import tree
+    from repro_torch.models import layers as L
+    from repro_torch.training.optimizer import adamw_update
+
+    def ranged(fn, label):
+        def run(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return run
+
+    saved = (L.chunked_attention, L.cross_entropy)
+    L.chunked_attention = ranged(saved[0], LM_SPANS[0])
+    L.cross_entropy = ranged(saved[1], LM_SPANS[1])
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    mb = {k: v[:1] for k, v in batch.items()}
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        with profile(activities=acts) as prof:
+            loss = loss_fn(params, mb)
+            grads = torch.autograd.grad(loss, tree.leaves(params))
+            with record_function(LM_SPANS[2]):
+                adamw_update(opt_cfg, params,
+                             tree.unflatten(params, grads), opt_state)
+            sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        L.chunked_attention, L.cross_entropy = saved
+    t0 = time.perf_counter()
+    events = prof.events()
+
+    def span_above(e):
+        while e is not None:
+            if e.name in LM_SPANS:
+                return e.name
+            e = e.cpu_parent
+        return None
+
+    seq_span = {}
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            s = span_above(e)
+            if s:
+                seq_span.setdefault(e.sequence_nr, s)
+    ms = dict.fromkeys(LM_SPANS + ("lm.other_matmuls", "lm.rest"), 0.0)
+    for e in events:
+        x, span = e, None
+        while x is not None:
+            if x.name in LM_SPANS:
+                span = x.name
+                break
+            if x.name.startswith("autograd::engine::evaluate_function"):
+                span = seq_span.get(x.sequence_nr)
+                break
+            x = x.cpu_parent
+        if device.type == "cuda":
+            parts = [(k.name, k.duration / 1e3) for k in e.kernels]
+        else:
+            parts = [(e.name, e.self_cpu_time_total / 1e3)]
+        for name, t in parts:
+            key = span or ("lm.other_matmuls" if GEMM_KERNEL.search(name)
+                           else "lm.rest")
+            ms[key] += t
+    busy = sum(ms.values())
+    return {"profiled": "one microbatch forward + backward, one update",
+            "profiled_wall_ms": wall,
+            "post_processing_s": time.perf_counter() - t0,
+            "device_busy_ms": busy,
+            "ms": {k.split(".")[1]: v for k, v in ms.items()},
+            "share": {k.split(".")[1]: v / busy if busy else None
+                      for k, v in ms.items()},
+            "what": "device kernel time" if device.type == "cuda"
+            else "CPU op time (rehearsal)"}
+
+
+def lm_train_full(device, card: str, rehearse: bool) -> tuple:
+    """(a) qwen3-1.7b ``make_full()`` (the smoke config, in bfloat16 with
+    remat, in the rehearsal): bfloat16, remat on, chunks 1024, flash_bwd as
+    the config has it, weights from ``torch.Generator`` seed 0;
+    ``LM_STEPS`` steps of ``train_loop.run`` on ``TokenStream(LM_BATCH,
+    LM_SEQ)`` with ``LM_MICROBATCHES`` microbatches, no checkpoint.  Every
+    loss and gradient norm finite, the last loss below the first, every
+    leaf's step-1 gradient nonzero (hooks on the leaves for step 1), no
+    kernel launched.  Then a microbatch and an update profiled
+    (``lm_step_split``).
+    Returns (row, params, cfg)."""
+    from repro_torch import configs, tree
+    from repro_torch.data import pipeline as DP
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import transformer as TF
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.optimizer import OptimizerConfig
+    arch = configs.get("qwen3-1.7b")
+    cfg = (dataclasses.replace(arch.make_smoke(), dtype="bfloat16",
+                               remat=True) if rehearse else arch.make_full())
+    seq = 128 if rehearse else LM_SEQ
+    reckoned = lm_memory_reckoning(cfg, LM_BATCH // LM_MICROBATCHES)
+    log("lm", json.dumps({"memory_reckoned_bytes": reckoned, "card": card}))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    params = TF.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg, device, trainable=True)
+    sync(device)
+    init_s = time.perf_counter() - t
+    flat = tree.flatten_with_paths(params)
+    step1 = {k: [] for k, _ in flat}
+    hooks = [x.register_hook(lambda g, k=k: step1[k].append(
+        g.detach().abs().amax())) for k, x in flat]
+    stamps = [time.perf_counter()]
+
+    def on_metrics(m):
+        stamps.append(time.perf_counter())
+        if m["step"] == 1:
+            for h in hooks:
+                h.remove()
+
+    zero_counts()
+    params, opt_state, hist = TL.run(
+        lambda p, b: TF.train_step_loss(p, cfg, b), params,
+        DP.TokenStream(batch=LM_BATCH, seq_len=seq, vocab=cfg.vocab),
+        OptimizerConfig(**LM_OPT),
+        TL.TrainLoopConfig(total_steps=LM_STEPS, microbatches=LM_MICROBATCHES,
+                           log_every=1, ckpt_dir=None),
+        to_device=lambda b: to_device(b, device), on_metrics=on_metrics)
+    sync(device)
+    counts = launch_counts()
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    if any(c for c in counts.values()):
+        fail(f"lm train (a): the training path launched kernels {counts}")
+    if not all(np.isfinite(losses + norms)):
+        fail(f"lm train (a): a loss or gradient norm is not finite: "
+             f"{losses}, {norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"lm train (a): step {LM_STEPS}'s loss {losses[-1]} is not "
+             f"below step 1's {losses[0]}")
+    zero = [k for k, v in step1.items()
+            if len(v) != LM_MICROBATCHES or not float(torch.stack(v).max())]
+    if zero:
+        fail(f"lm train (a): no nonzero step-1 gradient for {zero}")
+    ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    step_ms = median_after_first(ms)
+    batch = to_device(next(DP.TokenStream(batch=LM_BATCH, seq_len=seq,
+                                          vocab=cfg.vocab)), device)
+    split = lm_step_split(device, lambda p, b: TF.train_step_loss(p, cfg, b),
+                          OptimizerConfig(**LM_OPT), params, opt_state, batch)
+    del opt_state
+    # a step's device time: its microbatches' and one update's; the idle
+    # share against the unprofiled steps' median
+    opt_ms = split["ms"]["optimizer"]
+    split["device_busy_ms_a_step"] = (
+        LM_MICROBATCHES * (split["device_busy_ms"] - opt_ms) + opt_ms)
+    split["device_idle_share_of_step"] = (
+        1 - split["device_busy_ms_a_step"] / step_ms)
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+           "flash_bwd": cfg.flash_bwd, "chunk": [cfg.chunk_q, cfg.chunk_k],
+           "batch": LM_BATCH, "seq_len": seq,
+           "microbatches": LM_MICROBATCHES, "init_s": init_s,
+           "losses": losses, "grad_norms": norms,
+           "step_ms": ms, "ms_per_step": step_ms,
+           "tokens_per_s": LM_BATCH * seq / (step_ms / 1e3),
+           "peak_memory_bytes": int(peak),
+           "memory_reckoned_bytes": reckoned,
+           "leaves_with_nonzero_step1_grad": len(step1),
+           "launches": counts, "step_split": split}
+    return row, params, cfg
+
+
+def lm_flash_pair(device, params, cfg, rehearse: bool) -> dict:
+    """(b) One ``value_and_grad`` of ``train_step_loss`` with ``flash_bwd``
+    False and True, from (a)'s weights on one batch: the losses within
+    ``LM_FLASH_LOSS_RTOL``, each leaf's gradient within
+    ``LM_FLASH_GRAD_REL`` (L2, relative to the plain backward's); the peak
+    memory each adds to what was held before it."""
+    from repro_torch import tree
+    from repro_torch.data import pipeline as DP
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import transformer as TF
+    seq = 128 if rehearse else LM_SEQ
+    batch = to_device(next(DP.TokenStream(batch=LM_BATCH, seq_len=seq,
+                                          vocab=cfg.vocab, seed=1)), device)
+    out = {}
+    for fb in (False, True):
+        c = dataclasses.replace(cfg, flash_bwd=fb)
+        base = 0
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+        sync(device)
+        t = time.perf_counter()
+        loss = TF.train_step_loss(params, c, batch)
+        grads = torch.autograd.grad(loss, tree.leaves(params))
+        sync(device)
+        # the peak this value_and_grad adds to what was held before it (the
+        # weights; for the second, the first one's gradients too)
+        out[fb] = (float(loss.detach()), grads,
+                   (time.perf_counter() - t) * 1e3,
+                   torch.cuda.max_memory_allocated(device) - base
+                   if device.type == "cuda" else 0)
+    (l0, g0, ms0, m0), (l1, g1, ms1, m1) = out[False], out[True]
+    loss_rel = abs(l1 - l0) / abs(l0)
+    if not loss_rel <= LM_FLASH_LOSS_RTOL:
+        fail(f"lm train (b): flash_bwd=True loss {l1} against False's {l0} "
+             f"(relative {loss_rel})")
+    rel = {}
+    for (k, _), a, b in zip(tree.flatten_with_paths(params), g0, g1):
+        a, b = a.float(), b.float()
+        rel[k] = float((a - b).norm() / a.norm().clamp_min(1e-30))
+        if not rel[k] <= LM_FLASH_GRAD_REL or not bool(
+                torch.isfinite(b).all()):
+            fail(f"lm train (b): {k}'s flash_bwd gradient is {rel[k]} from "
+                 f"the plain backward's (tolerance {LM_FLASH_GRAD_REL})")
+    return {"loss_plain_bwd": l0, "loss_flash_bwd": l1,
+            "loss_rel_err": loss_rel, "grad_rel_err": rel,
+            "grad_rel_tol": LM_FLASH_GRAD_REL,
+            "ms_plain_bwd": ms0, "ms_flash_bwd": ms1,
+            "peak_added_bytes_plain_bwd": int(m0),
+            "peak_added_bytes_flash_bwd": int(m1)}
+
+
+def lm_restart(device, rehearse: bool) -> dict:
+    """(c) qwen3-1.7b at full width cut to ``LM_RESTART_LAYERS`` layers:
+    ``LM_RESTART_STEPS`` steps uninterrupted, and a run that checkpoints
+    every ``LM_CKPT_EVERY`` into a temporary directory, stops ("crashes")
+    after ``LM_CKPT_EVERY`` steps and is rerun to the end from LATEST:
+    every parameter leaf ``torch.equal`` to the uninterrupted run's, the
+    losses equal.  Also: ``ops.attention`` on tensors that require grad
+    raises under grad mode (a cut gradient is an error)."""
+    import tempfile
+    from repro_torch import configs, tree
+    from repro_torch.data import pipeline as DP
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import transformer as TF
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.optimizer import OptimizerConfig
+    arch = configs.get("qwen3-1.7b")
+    base = (dataclasses.replace(arch.make_smoke(), dtype="bfloat16",
+                                remat=True) if rehearse else arch.make_full())
+    cfg = dataclasses.replace(base, n_layers=LM_RESTART_LAYERS)
+    seq = 128 if rehearse else LM_SEQ
+    opt = OptimizerConfig(lr=3e-4, warmup_steps=1,
+                          total_steps=LM_RESTART_STEPS)
+
+    def run(total, ckpt_dir):
+        params = TF.init_params(
+            torch.Generator(device=device).manual_seed(0), cfg, device,
+            trainable=True)
+        t = time.perf_counter()
+        params, _, hist = TL.run(
+            lambda p, b: TF.train_step_loss(p, cfg, b), params,
+            DP.TokenStream(batch=LM_BATCH, seq_len=seq, vocab=cfg.vocab),
+            opt, TL.TrainLoopConfig(total_steps=total,
+                                    microbatches=LM_MICROBATCHES,
+                                    ckpt_every=LM_CKPT_EVERY,
+                                    ckpt_dir=ckpt_dir, log_every=1),
+            to_device=lambda b: to_device(b, device))
+        sync(device)
+        return params, [h["loss"] for h in hist], time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as d:
+        p_full, l_full, _ = run(LM_RESTART_STEPS, None)
+        _, l_a, s_a = run(LM_CKPT_EVERY, d)
+        p_res, l_b, s_b = run(LM_RESTART_STEPS, d)
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(d) for f in fs)
+    if l_a + l_b != l_full:
+        fail(f"lm train (c): the restarted run's losses {l_a + l_b} are not "
+             f"the uninterrupted run's {l_full} bit for bit")
+    for (k, a), b in zip(tree.flatten_with_paths(p_full), tree.leaves(p_res)):
+        if not torch.equal(a, b):
+            fail(f"lm train (c): parameter {k} after the restart differs "
+                 f"from the uninterrupted run's")
+    q = torch.zeros((1, 4, 64, 64), device=device, requires_grad=True)
+    k = torch.zeros((1, 4, 64, 64), device=device)
+    refused = False
+    try:
+        ops.attention(q, k, k, causal=True)
+    except RuntimeError as e:
+        refused = "forward-only" in str(e)
+    if device.type == "cuda" and not refused:
+        fail("lm train (c): ops.attention on a tensor that requires grad "
+             "did not raise under grad mode")
+    return {"n_layers": cfg.n_layers, "steps": LM_RESTART_STEPS,
+            "ckpt_every": LM_CKPT_EVERY, "losses": l_full,
+            "restart_bit_equal": True, "kept_ckpt_bytes": ckpt_bytes,
+            "crashed_run_s": s_a, "resumed_run_s": s_b,
+            "kernel_refuses_grad": refused}
+
+
+def lm_serve_32b(device, rehearse: bool) -> tuple:
+    """(d) ``ServeEngine`` on qwen3-32b at full width, depth cut to
+    ``LM32_LAYERS`` (the smoke config in the rehearsal), random weights
+    from seed 0: ``LM32_REQUESTS`` requests with prompts of 128-1024 tokens.
+    Counts zeroed before, read after: exactly one attention launch per
+    layer per prefill, all on the fma design (head dim 80).  Each prompt's
+    prefill logits against the plain attention (``kernel.fallback``) within
+    ``LOGITS_ATOL``.  Returns (row, counts)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as TF
+    from repro_torch.resilience import faults
+    from repro_torch.serving import Request, ServeEngine
+    arch = configs.get("qwen3-32b")
+    cfg = (arch.make_smoke() if rehearse else dataclasses.replace(
+        arch.make_full(), n_layers=LM32_LAYERS))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    params = TF.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg, device)
+    rng = np.random.default_rng(2)
+    lo, hi = (8, 64) if rehearse else LM32_PROMPT_LENS
+    lens = rng.integers(lo, hi + 1, LM32_REQUESTS)
+    prompts = [rng.integers(1, cfg.vocab, L).astype(np.int32) for L in lens]
+    eng = ServeEngine(params, cfg, batch=LM32_REQUESTS,
+                      max_len=hi + LM32_NEW_TOKENS, device=device)
+    reqs = [Request(prompt=p, max_new_tokens=LM32_NEW_TOKENS)
+            for p in prompts]
+    zero_counts()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    sync(device)
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    designs = attention_designs()
+    if device.type == "cuda":
+        want = {k: 0 for k in KERNELS}
+        want["flash_attention"] = cfg.n_layers * len(reqs)
+        if counts != want:
+            fail(f"lm serve 32b (d): launches {counts}, expected {want}")
+        if designs != {"sm90": 0, "fma": want["flash_attention"]}:
+            fail(f"lm serve 32b (d): attention launches by design {designs}"
+                 f", expected all {want['flash_attention']} on fma (D 80)")
+    for r in reqs:
+        if not r.done or len(r.out_tokens) != LM32_NEW_TOKENS:
+            fail(f"lm serve 32b (d): a request ended with "
+                 f"{len(r.out_tokens)} tokens (done={r.done})")
+    worst = 0.0
+    with torch.inference_mode():
+        for p in prompts:
+            tokens = torch.from_numpy(p).to(device)[None]
+            with faults.inject("kernel.fallback"):
+                plain = TF.prefill(params, cfg, tokens)[0].float()
+            kern = TF.prefill(params, cfg, tokens)[0].float()
+            if not bool(torch.isfinite(kern).all()):
+                fail("lm serve 32b (d): prefill logits are not finite")
+            worst = max(worst, float((kern - plain).abs().max()))
+    if worst > LOGITS_ATOL:
+        fail(f"lm serve 32b (d): prefill logits differ by {worst} between "
+             f"the kernel and the plain route (tolerance {LOGITS_ATOL})")
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "cut_from_layers": 64,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.head_dim,
+           "params": sum(p.numel() for p in params.parameters()),
+           "prompt_lens": [int(x) for x in lens], "wall_s": wall_s,
+           "attention_designs": designs,
+           "logits_max_abs_err_vs_plain": worst, "logits_tol": LOGITS_ATOL}
+    del eng, params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return row, counts
+
+
+def phase_lm(device, card: str, rehearse: bool) -> tuple:
+    """Phase 5k: (a)-(c) LM training on the card (no kernel of the port on
+    this path: the reference trains in jnp, and B5 is forward only), then
+    (d) qwen3-32b serving with B5 at head dim 80.  Returns (row, counts of
+    the training path, counts of the serving path)."""
+    t0 = time.perf_counter()
+    full, params, cfg = lm_train_full(device, card, rehearse)
+    log("lm", json.dumps({"full_width": full, "card": card}))
+    flash = lm_flash_pair(device, params, cfg, rehearse)
+    log("lm", json.dumps({"flash_bwd": flash, "card": card}))
+    del params
+    counts_train = launch_counts()
+    if any(counts_train.values()):
+        fail(f"lm train: the training path launched kernels {counts_train}")
+    restart = lm_restart(device, rehearse)
+    log("lm", json.dumps({"restart": restart, "card": card}))
+    serve, counts_serve = lm_serve_32b(device, rehearse)
+    log("lm", json.dumps({"serve_qwen3_32b": serve, "card": card}))
+    row = {"card": card, "full_width": full, "flash_bwd": flash,
+           "restart": restart, "serve_qwen3_32b": serve,
+           "seconds": round(time.perf_counter() - t0, 3)}
+    log("lm", f"phase 5k: {row['seconds']} s")
+    return row, counts_train, counts_serve
+
+
+def phase_golden_lm(device) -> dict:
+    """The card's smoke-config LM training against ``tests/
+    torch_golden.json``'s ``lm_train`` section (made by the reference, over
+    the batches it stores), within ``LM_GOLDEN_TOL``; each leaf's largest
+    first gradient at the reference's element."""
+    gm = golden_module()
+    with open(gm.PATH) as f:
+        want = json.load(f)["lm_train"]
+    got = gm.port_lm_train(device, want)
+    worst = {"loss_rel": 0.0, "grad_rel_to_absmax": 0.0, "after_abs": 0.0}
+    for arch, w in want.items():
+        g = got[arch]
+        moved = [p for p in w["grad"]
+                 if g["grad"][p]["index"] != w["grad"][p]["index"]]
+        if moved:
+            fail(f"golden lm_train: {arch}'s largest first gradient lies at "
+                 f"another element on the card for {moved}")
+        worst["loss_rel"] = max(
+            worst["loss_rel"], *(abs(a - b) / abs(b) for a, b in zip(
+                [g["loss"]] + g["losses"], [w["loss"]] + w["losses"])))
+        for path, wg in w["grad"].items():
+            worst["grad_rel_to_absmax"] = max(
+                worst["grad_rel_to_absmax"], *(
+                    abs(a - b) / wg["absmax"] for a, b in
+                    zip(g["grad"][path]["values"], wg["values"])))
+            worst["after_abs"] = max(worst["after_abs"], abs(
+                g["after_steps"][path] - w["after_steps"][path]))
+    tol = LM_GOLDEN_TOL
+    if not (worst["loss_rel"] <= tol["loss_rtol"]
+            and worst["grad_rel_to_absmax"] <= tol["grad_atol"]
+            and worst["after_abs"] <= tol["after_atol"]):
+        fail(f"golden lm_train: the card's smoke LM training is {worst} "
+             f"from the reference's (tolerances {tol})")
+    return worst
+
+
 def exact_launch_counts(what: str, res):
     """The launch checks are exact for one cap attempt: a run that doubled
     its cap ran earlier attempts whose round counts the result does not
@@ -3869,6 +4384,7 @@ F32_TFLOPS = 67e12       # H100 SXM float32 rate outside the tensor cores
 # a typical serving prompt, the serving prefill's longest, and 4x it
 FA_TIME_LENS = (512, 2048, 8192)
 FA_F32_LEN = 2048        # the float32 row (the unchanged CUDA-core kernel)
+FA_D80_LEN = 2048        # qwen3-32b's prefill row (head dim 80, fma design)
 
 
 def attention_pairs(Lq: int, Lk: int, causal: bool) -> int:
@@ -3887,7 +4403,8 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
     ``flash_attention`` at the serving prefill's head shape (B=1, Hq=16,
     Hkv=8, D=128, causal): bfloat16 at L = 512, 2048 and 8192 (the sm90
     design), and float32 at L = 2048 (the CUDA-core design, unchanged);
-    each held to ``FA_TOL`` and ``ROW_TOL``.  Bound: the larger
+    and at qwen3-32b's prefill (Hq=64, Hkv=8, D=80, L=2048, bfloat16: the
+    fma design); each held to ``FA_TOL`` and ``ROW_TOL``.  Bound: the larger
     of 4 * Hq * D FLOPs per visible (query, key) pair at the type's rate
     (bf16 tensor cores; float32 outside them) and q, k, v, out read /
     written once at the memory rate — operations bound it.  Library:
@@ -3916,9 +4433,13 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
     gen = torch.Generator(device=device).manual_seed(1)
     B, Hq, Hkv, D = (1, 4, 2, 16) if rehearse else (1, 16, 8, 128)
     lens = (32, 64, 128) if rehearse else FA_TIME_LENS
-    cases = [(L, torch.bfloat16) for L in lens]
-    cases.append((64 if rehearse else FA_F32_LEN, torch.float32))
-    for L, dt in cases:
+    cases = [(L, torch.bfloat16, (B, Hq, Hkv, D)) for L in lens]
+    cases.append((64 if rehearse else FA_F32_LEN, torch.float32,
+                  (B, Hq, Hkv, D)))
+    # qwen3-32b's prefill: 64 / 8 heads at head dim 80 (the fma design)
+    cases.append((64 if rehearse else FA_D80_LEN, torch.bfloat16,
+                  (1, 8, 1, 80) if rehearse else (1, 64, 8, 80)))
+    for L, dt, (B, Hq, Hkv, D) in cases:
         q, k, v = (torch.randn((B, H, L, D), generator=gen, device=device,
                                dtype=torch.float32).to(dt)
                    for H in (Hq, Hkv, Hkv))
@@ -3943,7 +4464,8 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
         row = {"kernel": "flash_attention", "B": B, "Hq": Hq, "Hkv": Hkv,
                "L": L, "D": D, "dtype": name, "causal": True,
                # the kernels line's row: the serving prefill's longest prompt
-               "kernels_line": dt == torch.bfloat16 and L == lens[1],
+               "kernels_line": dt == torch.bfloat16 and L == lens[1]
+               and D != 80, "head_dim_80": D == 80,
                "design": route, "flops": flops, "bytes": nbytes,
                "ms": device_ms(fn, device, 10),
                "call_ms": time_ms(fn, device, 10),
@@ -4166,6 +4688,7 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
         "shape": {k: r[k] for k in ("graph", "S", "R", "W", "n", "C")},
         "cases_checked": len(cmp.cases[SLOT_STRIDE])}
     fa = next(r for r in model_rows if r.get("kernels_line"))
+    d80 = next(r for r in model_rows if r.get("head_dim_80"))
     sp = next(r for r in model_rows
               if r["kernel"] == "ell_spmm" and r["kernels_line"])
     fa_src = {"sm90": "flash_attention_sm90.cu",
@@ -4197,6 +4720,16 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
             "launches_per_path": {p: c[name] for p, c in paths.items()},
             "shape": {k: r[k] for k in shape},
             "cases_checked": len(cmp.cases[name])})
+    next(k for k in kernels if k["name"] == "flash_attention")[
+        "head_dim_80"] = {
+        "source": csrc + "flash_attention.cu", "path": "lm_serve_32b",
+        "launches": paths["lm_serve_32b"]["flash_attention"],
+        "design": d80["design"], "ms": d80["ms"], "ms_method": "device",
+        "call_ms": d80["call_ms"], "plain_ms": d80["plain_ms"],
+        "bound_ms": d80["bound_ms"], "bound_by": d80["bound_by"],
+        "library_ms": d80["library_ms"],
+        "shape": {k: d80[k] for k in ("B", "Hq", "Hkv", "L", "D", "dtype",
+                                       "causal")}}
     return kernels
 
 
@@ -4304,6 +4837,10 @@ def main() -> int:
         log("golden", f"{n_dist} distributed runs (rsoc, cat; 1 and 4 "
                       f"shards) and {n_shard} sharded batches equal "
                       f"tests/torch_golden.json")
+        lm_golden = phase_golden_lm(device)
+        log("golden", f"LM smoke training within {LM_GOLDEN_TOL} of "
+                      f"tests/torch_golden.json's lm_train: "
+                      f"{json.dumps(lm_golden)}")
 
         # ---- phase 5: main path ----
         if args.rmat_scale != 24:
@@ -4397,6 +4934,10 @@ def main() -> int:
         # ---- phase 5j: GNN training ----
         gnn_row = phase_gnn(device, card, args.rehearse)
 
+        # ---- phase 5k: LM training, qwen3-32b serving ----
+        lm_row, counts_lm_train, counts_lm_32b = phase_lm(
+            device, card, args.rehearse)
+
         # ---- phase 6: kernel times ----
         slot_row = phase_times_slots(device, svc_states, cmp, launch)
         del svc_states
@@ -4413,7 +4954,8 @@ def main() -> int:
              "incremental": inc_path.counts,
              "distributed": dist_path.counts,
              "distance2_compact": counts_d2,
-             "serve": counts_serve, "aggregate": counts_agg, **counts_svc}
+             "serve": counts_serve, "aggregate": counts_agg, **counts_svc,
+             "lm_train": counts_lm_train, "lm_serve_32b": counts_lm_32b}
     kernels = kernels_line(kept, time_rows, model_rows, paths, designs, cmp,
                            t1_path, slot_row, svc_path)
     if args.rehearse:
@@ -4431,6 +4973,7 @@ def main() -> int:
     print(json.dumps({"serve_path": serve_row}), flush=True)
     print(json.dumps({"aggregate_path": agg_row}), flush=True)
     print(json.dumps({"gnn_train_path": gnn_row}), flush=True)
+    print(json.dumps({"lm_path": lm_row}), flush=True)
     print(json.dumps({"kernel_times": time_rows + model_rows + [slot_row]}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,9 @@
 // kernel of csrc/flash_attention_sm90.cu (wgmma, TMA, warp specialisation),
 // for every bfloat16 call with D in {64, 128}; design 0, the kernel below,
 // for float32 (wgmma on float32 is TF32, which would miss the float32
-// tolerance) and for D in {16, 32}.
+// tolerance) and for D in {16, 32, 80} (80, qwen3-32b's head dim, is no
+// multiple of design 1's 64-element panels; here it is D / 16 = 5
+// accumulator columns a thread, like any multiple of 16).
 //
 // What both compute (equal to _flash_kernel up to the order of f32 sums):
 // q (B, Hq, Lq, D), k and v (B, Hkv, Lk, D), f32 or bf16; query
@@ -288,6 +290,9 @@ cudaError_t by_dim(int D, int causal, const void* q, const void* k,
     case 32:
       return by_causal<T, 32>(causal, q, k, v, out, B, Hq, Hkv, Lq, Lk, scale,
                               stream);
+    case 80:
+      return by_causal<T, 80>(causal, q, k, v, out, B, Hq, Hkv, Lq, Lk, scale,
+                              stream);
     default:
       break;
   }
@@ -318,7 +323,8 @@ extern "C" int attn_flash_sm90(const void* q, const void* k, const void* v,
                                float scale, cudaStream_t stream);
 
 // dtype: 0 = float32, 1 = bfloat16.  design: 0 = the kernel above (float32
-// at D in {16, 32, 64, 128}, bfloat16 at D in {16, 32}; contiguous q, k, v),
+// at D in {16, 32, 64, 80, 128}, bfloat16 at D in {16, 32, 80}; contiguous
+// q, k, v),
 // 1 = the Hopper kernel (bfloat16, D in {64, 128}, any strides the wrapper
 // admits): one kernel per (dtype, D).  Strides are in elements, (batch,
 // head, row) for q, k and v, the last dimension contiguous; out is

@@ -24,9 +24,10 @@ Two designs on the card, chosen by dtype and head dim (``design``):
   strides: any view whose last dimension is contiguous and whose other
   strides and address are 16-byte multiples runs without a copy (the
   serving prefill's (B, L, H, D)-ordered projections, for one).
-* ``"fma"`` — float32 at every D, and bfloat16 with D in {16, 32}: the
-  CUDA-core kernel of ``csrc/flash_attention.cu``, unchanged (wgmma on
-  float32 is TF32, which would break the float32 tolerance).  It reads
+* ``"fma"`` — float32 at every D, and bfloat16 with D in {16, 32, 80}:
+  the CUDA-core kernel of ``csrc/flash_attention.cu`` (wgmma on float32 is
+  TF32, which would break the float32 tolerance; D 80, qwen3-32b's head
+  dim, is no multiple of the sm90 design's 64-element panels).  It reads
   contiguous rows: the wrapper copies a strided view first.
 
 Bound on the card: operations at prefill shapes, 4 * B * Hq * Lq * Lk * D
@@ -35,7 +36,10 @@ rate.
 
 ``flash_attention`` launches a kernel for CUDA tensors and takes the plain
 version for CPU tensors — for those only: on a CUDA tensor it launches or
-raises (no fallback from one design to the other either).
+raises (no fallback from one design to the other either).  The kernels are
+forward only: on a CUDA tensor, under grad mode with an input that
+requires grad, the wrapper raises rather than return a tensor with no
+gradient (training takes ``models.layers.chunked_attention``).
 ``flash_attention.launches`` counts the launches, ``launches_sm90`` and
 ``launches_fma`` those of each design.
 """
@@ -48,7 +52,7 @@ from repro_torch.kernels.firstfit import check_launch, check_tensor, ptr
 # the plain version, as a module attribute (see kernels/firstfit.py)
 from repro_torch.kernels import ref
 
-HEAD_DIMS = (16, 32, 64, 128)            # compiled into the library
+HEAD_DIMS = (16, 32, 64, 80, 128)        # compiled into the library
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DESIGNS = ("fma", "sm90")                # the C entry point's design ids
 SM90_HEAD_DIMS = (64, 128)
@@ -112,6 +116,12 @@ def flash_attention(q, k, v, *, causal: bool = True):
     B, Hq, Hkv, Lq, Lk, D = check_attention(q, k, v, causal)
     if q.device.type != "cuda":
         return ref.flash_attention_ref(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention is a forward-only kernel: its inputs require "
+            "grad under grad mode, and its output would carry no gradient "
+            "(train through models.layers.chunked_attention, or call it "
+            "under torch.no_grad)")
     route = design(q.dtype, D)
     if route == "fma":
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

@@ -1,16 +1,18 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``
 (the port of the reference's ``python -m repro.launch.train``).
 
-Runs real training of the arch's smoke config on one device: config
-registry -> data pipeline -> train step -> checkpointing -> watchdog.  As in
-the reference, ``--full`` is accepted and does not change the GNN path (it
-always trains the smoke config on ``mesh2d(24, 24)``); a full-width run goes
-through the module functions.  ``--device`` defaults to the card (CUDA, or
-an error without one); ``--device cpu`` runs on the CPU.
+Runs real training on one device: config registry -> data pipeline ->
+train step -> checkpointing -> watchdog.  An LM trains its smoke config, or
+with ``--full`` its published one, on a ``TokenStream`` of ``--batch``
+sequences of ``--seq-len`` tokens (``build_lm``).  As in the reference,
+``--full``, ``--batch`` and ``--seq-len`` do not change the GNN path (it
+always trains the smoke config on ``mesh2d(24, 24)``); a full-width GNN run
+goes through the module functions.  ``--device`` defaults to the card
+(CUDA, or an error without one); ``--device cpu`` runs on the CPU.
 
-Ported families: the GNNs ``gat-cora``, ``meshgraphnet`` and ``gatedgcn``.
-LM and recsys training and ``nequip`` raise ``NotImplementedError`` naming
-their ROADMAP item.
+Ported families: the LMs ``qwen3-1.7b`` and ``qwen3-32b`` and the GNNs
+``gat-cora``, ``meshgraphnet`` and ``gatedgcn``.  Recsys training and
+``nequip`` raise ``NotImplementedError`` naming their ROADMAP item.
 
 Fault-tolerance wiring (the reference's):
   * checkpoint every --ckpt-every steps (async, atomic) + data-stream state;
@@ -34,16 +36,25 @@ from repro_torch import configs
 from repro_torch.api import _resolve_device
 from repro_torch.data import pipeline as DP
 from repro_torch.models import gnn as GNN
+from repro_torch.models import transformer as TF
 from repro_torch.training import train_loop as TL
 from repro_torch.training.optimizer import OptimizerConfig
 
 _NOT_PORTED_FAMILIES = {
-    "lm": "LM training is not ported yet (ROADMAP queue A.5: LM training, "
-          "layers' flash-attention custom VJP, cross_entropy, "
-          "transformer.train_step_loss)",
-    "recsys": "recsys training is not ported yet (ROADMAP queue A.5: "
+    "recsys": "recsys training is not ported yet (ROADMAP queue A.5.3: "
               "models/recsys.py with dcn_v2)",
 }
+
+
+def build_lm(arch_def, smoke: bool, batch: int, seq_len: int, device):
+    """(params, stream, loss) of an LM arch (the reference's ``build_lm``):
+    its smoke or full config, weights from ``torch.Generator`` seed 0 on
+    ``device``, trainable."""
+    cfg = arch_def.make_smoke() if smoke else arch_def.make_full()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = TF.init_params(gen, cfg, device, trainable=True)
+    stream = DP.TokenStream(batch=batch, seq_len=seq_len, vocab=cfg.vocab)
+    return params, stream, lambda p, b: TF.train_step_loss(p, cfg, b)
 
 
 def build_gnn(arch_def, device):
@@ -85,7 +96,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=50)
-    # --batch and --seq-len size the LM and recsys streams (not ported)
+    # --batch and --seq-len size the LM stream
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -93,8 +104,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--full", action="store_true",
-                    help="full config (accepted; the GNN path trains the "
-                         "smoke config either way, as the reference's)")
+                    help="full config (LMs; the GNN path trains the smoke "
+                         "config either way, as the reference's)")
     ap.add_argument("--step-timeout", type=float, default=10.0,
                     help="abort (exit 75) if a step exceeds this many x the "
                          "trailing-median step time (straggler watchdog)")
@@ -113,7 +124,11 @@ def main(argv=None) -> int:
         raise RuntimeError("repro_torch.launch.train runs on CUDA by default "
                            "and no GPU is available; pass --device cpu")
     device = _resolve_device(args.device)
-    params, stream, loss = build_gnn(arch_def, device)
+    if arch_def.family == "lm":
+        params, stream, loss = build_lm(arch_def, not args.full, args.batch,
+                                        args.seq_len, device)
+    else:
+        params, stream, loss = build_gnn(arch_def, device)
 
     opt_cfg = OptimizerConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                               total_steps=args.steps)

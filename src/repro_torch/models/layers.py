@@ -1,19 +1,23 @@
-"""Transformer building blocks of the serving path: RMSNorm, RoPE (on the
-fly), GQA attention with optional qk-norm, the plain blockwise-softmax
-attention, single-token decode attention, SwiGLU, embedding.
+"""Transformer building blocks: RMSNorm, RoPE (on the fly), GQA attention
+with optional qk-norm, the plain blockwise-softmax attention with its
+custom-backward form (``flash_bwd``), single-token decode attention,
+SwiGLU, embedding and cross entropy.
 
-Port of ``src/repro/models/layers.py`` (the parts serving needs; the custom-
-VJP flash backward and ``cross_entropy`` are training and not ported).
-Params are nested dicts of tensors — or ``ParamTree`` modules, which index
-the same way — in the reference's layout: a dense weight is ``(d_in,
-d_out)`` and applied as ``x @ w``.  Init functions take a
-``torch.Generator``.
+Port of ``src/repro/models/layers.py``.  Params are nested dicts of
+tensors — or ``ParamTree`` modules, which index the same way — in the
+reference's layout: a dense weight is ``(d_in, d_out)`` and applied as
+``x @ w``.  Init functions take a ``torch.Generator``.
 
-On a CUDA tensor, the prefill attention of ``gqa_attend`` is the
-hand-written kernel through ``kernels.ops.attention``; on a CPU tensor it is
-``chunked_attention``, the reference's plain function.  Decode attention is
-plain torch on every device, as in the reference (outside any Pallas
-kernel), and B5 has no per-row cache-length mask.
+Two attention routes.  Training (``gqa_attend(..., training=True)``, the
+route ``transformer.forward`` takes) is ``chunked_attention`` on every
+device, plain torch with autograd, or with ``flash_bwd`` the FA-2 two-pass
+backward of ``FlashAttention``: the reference trains in jnp and has no
+backward kernel.  Serving (prefill) is the hand-written forward kernel
+through ``kernels.ops.attention`` on a CUDA tensor and ``chunked_attention``
+on a CPU tensor; the kernel refuses inputs that require grad under grad
+mode, so a gradient is never cut silently.  Decode attention is plain torch
+on every device, as in the reference (outside any Pallas kernel), and B5
+has no per-row cache-length mask.
 """
 from __future__ import annotations
 
@@ -70,18 +74,31 @@ def rope(x, positions, theta: float = 10000.0):
 # attention cores
 # --------------------------------------------------------------------------
 
+def _visible(q0: int, rows: int, k0: int, causal: bool, q_offset) -> bool:
+    """Whether any of query rows q0 .. q0 + rows - 1 sees key k0 (a tile
+    that no row sees adds p = 0 with alpha = 1: skipping it changes no
+    bit, since key 0 is visible to every row and the running max is finite
+    from the first tile on)."""
+    return not causal or k0 <= q0 + rows - 1 + q_offset
+
+
 def chunked_attention(q, k, v, *, causal: bool, q_offset=0,
-                      chunk_q: int = 1024, chunk_k: int = 1024):
+                      chunk_q: int = 1024, chunk_k: int = 1024,
+                      flash_bwd: bool = False):
     """Blockwise-softmax attention in plain torch: the reference's function,
     tile for tile (running max / sum, scores and P.V in float32, p cast to
     v's type before P.V, hidden scores -1e30).
 
     q: (B, Hq, Lq, D); k, v: (B, Hkv, Lk, D).  q_offset: absolute position
-    of q[..., 0] minus that of k[..., 0] (decode: Lk - Lq).  The reference
-    pads a ragged last tile with masked rows / keys; here the tile is cut
-    short, which gives the same values.  (The reference's ``repeat_kv`` and
-    ``flash_bwd`` pick a sharding layout and a training backward; the values
-    do not depend on them, and the port has neither.)
+    of q[..., 0] minus that of k[..., 0] (decode: Lk - Lq).  K / V are
+    repeated to Hq heads first, as the reference's default ``repeat_kv``.
+    With ``flash_bwd`` and tiles that divide Lq and Lk (the reference's
+    condition) the custom-backward ``FlashAttention`` computes it: it saves
+    only (q, k, v, out, lse) and recomputes the tiles in its backward.
+    Otherwise autograd runs through the tiles.  The reference pads a ragged
+    last tile with masked rows / keys; here the tile is cut short, which
+    gives the same values.  Tiles above the causal diagonal are skipped
+    (``_visible``).
     """
     B, Hq, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
@@ -90,21 +107,50 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0,
         k = k.repeat_interleave(Hq // Hkv, dim=1)
         v = v.repeat_interleave(Hq // Hkv, dim=1)
     cq, ck = min(chunk_q, Lq), min(chunk_k, Lk)
-    out = torch.empty((B, Hq, Lq, D), dtype=torch.float32, device=q.device)
+    if flash_bwd and Lq % cq == 0 and Lk % ck == 0:
+        return FlashAttention.apply(q, k, v, causal, int(q_offset), cq, ck)
+    return _fa_fwd_chunked(q, k, v, causal, q_offset, cq, ck, scale)[0]
+
+
+# --------------------------------------------------------------------------
+# chunked attention with the flash backward (the reference's custom VJP)
+#
+# Autograd through the tiles saves every tile's probabilities: O(L^2)
+# residuals a layer.  ``FlashAttention`` saves (q, k, v, out, lse), O(L),
+# and recomputes the tiles in its backward (FlashAttention-2 schedule):
+# pass 1 accumulates dQ over the kv blocks of each q block, pass 2 dK / dV
+# over the q blocks of each kv block.  Plain torch, as the reference's jnp.
+# --------------------------------------------------------------------------
+
+def _scores(qb, kb, q0: int, k0: int, causal: bool, q_offset: int, scale):
+    """One tile's scaled float32 scores, hidden ones -1e30."""
+    s = torch.einsum("bhqd,bhkd->bhqk", qb.float(), kb.float()) * scale
+    if causal:
+        rows = torch.arange(q0, q0 + qb.shape[2], device=qb.device)
+        cols = torch.arange(k0, k0 + kb.shape[2], device=qb.device)
+        s = torch.where(cols[None, :] <= rows[:, None] + q_offset, s, MASKED)
+    return s
+
+
+def _fa_fwd_chunked(q, k, v, causal: bool, q_offset: int, cq: int, ck: int,
+                    scale):
+    """Forward tiles returning (out in q's type, lse float32 (B, H, Lq));
+    all heads = Hq.  A ragged last tile is cut short."""
+    Lq, Lk = q.shape[2], k.shape[2]
+    outs, lses = [], []
     for q0 in range(0, Lq, cq):
+        # one float32 copy a query block: under autograd its gradient then
+        # sums over the key tiles in float32 and is rounded to q's type once
         qb = q[:, :, q0:q0 + cq].float()
-        rows = torch.arange(q0, q0 + qb.shape[2], device=q.device)
         acc = torch.zeros(qb.shape, dtype=torch.float32, device=q.device)
         m = torch.full(qb.shape[:3], MASKED, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros_like(m)
         for k0 in range(0, Lk, ck):
+            if not _visible(q0, qb.shape[2], k0, causal, q_offset):
+                break
             kb, vb = k[:, :, k0:k0 + ck], v[:, :, k0:k0 + ck]
-            s = torch.einsum("bhqd,bhkd->bhqk", qb, kb.float()) * scale
-            if causal:
-                cols = torch.arange(k0, k0 + kb.shape[2], device=q.device)
-                ok = cols[None, :] <= rows[:, None] + q_offset
-                s = torch.where(ok, s, MASKED)
+            s = _scores(qb, kb, q0, k0, causal, q_offset, scale)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
@@ -112,8 +158,81 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0,
             acc = acc * alpha[..., None] + torch.einsum(
                 "bhqk,bhkd->bhqd", p.to(vb.dtype).float(), vb.float())
             m = m_new
-        out[:, :, q0:q0 + cq] = acc / l.clamp(min=1e-30)[..., None]
-    return out.to(q.dtype)
+        l = l.clamp(min=1e-30)
+        outs.append(acc / l[..., None])
+        lses.append(m + torch.log(l))
+    return torch.cat(outs, dim=2).to(q.dtype), torch.cat(lses, dim=2)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``chunked_attention`` with the FA-2 backward (the reference's
+    ``_make_flash_attention(causal, q_offset, cq, ck)``): q, k, v of Hq
+    heads each, tiles that divide.  Saves only (q, k, v, out, lse).  Its
+    backward follows the reference: ``Drow = sum(do * out)`` in float32,
+    ``p = exp(s - lse)``, ``ds = p * (do . v - Drow)``; dQ accumulates
+    ``ds' . k`` over the kv blocks, dK ``ds' . q`` and dV ``p' . do`` over
+    the q blocks (``'``: cast to the other operand's type), all in float32;
+    the scale multiplies dQ and dK after accumulation; each result is cast
+    to its input's type."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int, cq: int,
+                ck: int):
+        scale = 1.0 / np.sqrt(q.shape[-1])
+        out, lse = _fa_fwd_chunked(q, k, v, causal, q_offset, cq, ck, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, cq, ck, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, cq, ck, scale = ctx.args
+        Lq, Lk = q.shape[2], k.shape[2]
+        drow = (do.float() * out.float()).sum(-1)
+
+        def tile(q0, k0):
+            qb, kb = q[:, :, q0:q0 + cq], k[:, :, k0:k0 + ck]
+            p = torch.exp(_scores(qb, kb, q0, k0, causal, q_offset, scale)
+                          - lse[:, :, q0:q0 + cq, None])
+            dob = do[:, :, q0:q0 + cq]
+            dp = torch.einsum("bhqd,bhkd->bhqk", dob.float(),
+                              v[:, :, k0:k0 + ck].float())
+            return p, dp - drow[:, :, q0:q0 + cq, None], qb, kb, dob
+
+        # pass 1: dQ, over the kv blocks of each q block
+        dqs = []
+        for q0 in range(0, Lq, cq):
+            dq = torch.zeros(q[:, :, q0:q0 + cq].shape, dtype=torch.float32,
+                             device=q.device)
+            for k0 in range(0, Lk, ck):
+                if not _visible(q0, cq, k0, causal, q_offset):
+                    break
+                p, dpd, _, kb, _ = tile(q0, k0)
+                ds = p * dpd
+                dq = dq + torch.einsum("bhqk,bhkd->bhqd",
+                                       ds.to(kb.dtype).float(), kb.float())
+            dqs.append(dq * scale)
+        # pass 2: dK and dV, over the q blocks of each kv block
+        dks, dvs = [], []
+        for k0 in range(0, Lk, ck):
+            dk = torch.zeros(k[:, :, k0:k0 + ck].shape, dtype=torch.float32,
+                             device=k.device)
+            dv = torch.zeros_like(dk)
+            for q0 in range(0, Lq, cq):
+                if not _visible(q0, cq, k0, causal, q_offset):
+                    continue
+                p, dpd, qb, _, dob = tile(q0, k0)
+                dv = dv + torch.einsum("bhqk,bhqd->bhkd",
+                                       p.to(dob.dtype).float(), dob.float())
+                ds = p * dpd
+                dk = dk + torch.einsum("bhqk,bhqd->bhkd",
+                                       ds.to(qb.dtype).float(), qb.float())
+            dks.append(dk * scale)
+            dvs.append(dv)
+        return (torch.cat(dqs, dim=2).to(q.dtype),
+                torch.cat(dks, dim=2).to(k.dtype),
+                torch.cat(dvs, dim=2).to(v.dtype), None, None, None, None)
 
 
 def decode_attention(q, k, v, length=None):
@@ -197,18 +316,26 @@ def gqa_project_qkv(params, cfg: AttnConfig, x, positions):
 
 
 def gqa_attend(params, cfg: AttnConfig, x, positions, *, causal=True,
-               kv_cache=None, cache_length=None, chunk_q=1024, chunk_k=1024):
+               kv_cache=None, cache_length=None, chunk_q=1024, chunk_k=1024,
+               training: bool = False, flash_bwd: bool = False):
     """Returns (out (B, L, d), new_kv) — new_kv is (k, v) to append.
 
     kv_cache: fixed-capacity (k, v) of shape (B, Hkv, S, Dh); cache_length
     (B,) marks valid entries.  The current step's k / v are appended
     virtually (concat) so the token attends to itself without a prior cache
-    write.  Without a cache (prefill) the attention is ``prefill_attention``:
-    the kernel on CUDA tensors.
+    write.  Without a cache the attention is, with ``training``,
+    ``chunked_attention(..., flash_bwd=flash_bwd)`` on every device (the
+    route gradients go through), else ``prefill_attention``: the kernel on
+    CUDA tensors.
     """
     B, L, _ = x.shape
     q, k, v = gqa_project_qkv(params, cfg, x, positions)
-    if kv_cache is not None:
+    if training:
+        if kv_cache is not None:
+            raise ValueError("the training route has no KV cache")
+        o = chunked_attention(q, k, v, causal=causal, chunk_q=chunk_q,
+                              chunk_k=chunk_k, flash_bwd=flash_bwd)
+    elif kv_cache is not None:
         ck, cv = kv_cache
         S = ck.shape[2]
         k_full = torch.cat([ck, k], dim=2)
@@ -262,3 +389,16 @@ def embed(params, tokens):
 def unembed(params, x):
     """Tied unembedding: (B, L, d) @ (d, vocab)."""
     return x @ params["table"].T.to(x.dtype)
+
+
+def cross_entropy(logits, labels, ignore_id: int = -1):
+    """Mean token NLL over the labels that are not ``ignore_id``: float32
+    logits, ``logsumexp``, the label's logit gathered at ``labels`` clipped
+    at 0, the sum divided by max(count, 1) (the reference's function)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    idx = labels.long().clamp(min=0)[..., None]
+    ll = torch.take_along_dim(logits, idx, dim=-1)[..., 0]
+    mask = labels != ignore_id
+    nll = (lse - ll) * mask
+    return nll.sum() / mask.sum().clamp(min=1)

@@ -1,22 +1,37 @@
 """Config-driven decoder-only LM: the dense GQA variant (+ optional qk-norm).
 
-Port of ``src/repro/models/transformer.py`` for serving:
+Port of ``src/repro/models/transformer.py``:
 
   forward(params, cfg, tokens)                  -> (logits, aux)
+  train_step_loss(params, cfg, batch)           -> scalar loss
   prefill(params, cfg, tokens)                  -> (logits_last, caches)
   decode_step(params, cfg, token, cache, length) -> (logits, caches)
 
-The reference stacks the layers on a leading axis and scans over them; here
-``TransformerParams.layers`` is an ``nn.ModuleList`` and a Python loop runs
-it.  Weights keep the reference's layout (a dense weight is ``(d_in,
-d_out)``, applied as ``x @ w``), so ``params_from_reference`` copies arrays
-without transposing them.  Caches are fixed-capacity; ``decode_step`` writes
-the step's K / V at position ``length`` **in place** (the reference returns
-a new cache; the port saves the copy) and returns the same dict.
+The parameters keep the reference's tree: ``embed``, ``final_norm`` and
+``layers``, whose every leaf is stacked on a leading ``n_layers`` axis
+(``TransformerParams``), so ``repro_torch.tree`` flattens them to the
+reference's paths, order and shapes and a checkpoint crosses packages.  A
+Python loop runs the layers over views of the stacked leaves
+(``TransformerParams.layer_views``: one ``unbind`` a leaf, whose backward
+is one stack of the layers' gradients).  Weights keep the reference's
+layout (a dense weight is ``(d_in, d_out)``, applied as ``x @ w``), so
+``params_from_reference`` / ``params_to_reference`` copy arrays without
+transposing them.
 
-Only ``attn_type="gqa"`` without ``moe`` is ported; MLA, MoE, the mesh-only
-knobs and ``decode_write_then_attend`` raise ``NotImplementedError``.
-``remat`` and ``flash_bwd`` are training knobs: accepted and unused.
+``forward`` is the training route: its attention is ``chunked_attention``
+on every device, with the FA-2 backward when ``flash_bwd`` is set, and with
+``remat`` each layer runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of its scan body).  ``prefill`` is the serving route: on
+CUDA tensors each layer's attention is one launch of the attention kernel.
+Caches are fixed-capacity; ``decode_step`` writes the step's K / V at
+position ``length`` **in place** (the reference returns a new cache; the
+port saves the copy) and returns the same dict.
+
+Only ``attn_type="gqa"`` without ``moe`` is ported; MLA and MoE raise
+``NotImplementedError`` naming their ROADMAP item, and the reference's mesh
+knobs (``wire_barrier``, ``act_shard``, ``fsdp_inner``,
+``decode_seq_axis``) and ``decode_write_then_attend`` raise as settings
+this single-device port does not have.
 """
 from __future__ import annotations
 
@@ -26,6 +41,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 
@@ -105,12 +121,13 @@ def check_supported(cfg: TransformerConfig) -> None:
                  "decode_write_then_attend"):
         if getattr(cfg, knob):
             raise NotImplementedError(
-                f"{cfg.name}: {knob}=True is a mesh / sharding knob of the "
-                f"reference, not ported (ROADMAP queue A.4)")
+                f"{cfg.name}: {knob}=True is not ported: a mesh / sharding "
+                f"knob of the reference; this is a single-device port, see "
+                f"DESIGN_TORCH.md")
     if cfg.decode_seq_axis is not None:
         raise NotImplementedError(
-            f"{cfg.name}: decode_seq_axis is a mesh knob of the reference, "
-            f"not ported (ROADMAP queue A.4)")
+            f"{cfg.name}: decode_seq_axis is not ported: a mesh knob of the "
+            f"reference; this is a single-device port, see DESIGN_TORCH.md")
 
 
 # --------------------------------------------------------------------------
@@ -156,14 +173,22 @@ class ParamTree(nn.Module):
 
 
 class TransformerParams(nn.Module):
-    """The reference's parameter tree with the stacked ``layers`` axis cut
-    into one ``ParamTree`` per layer."""
+    """The reference's parameter tree: ``embed``, ``layers`` (every leaf
+    stacked on a leading ``n_layers`` axis) and ``final_norm``, each a
+    ``ParamTree``; a dict to ``repro_torch.tree``.  Leaves are frozen
+    (inference) unless ``trainable``."""
 
-    def __init__(self, embed: dict, layers: list, final_norm: dict):
+    is_list = False
+
+    def __init__(self, embed: dict, layers: dict, final_norm: dict,
+                 trainable: bool = False):
         super().__init__()
-        self.embed = ParamTree(embed)
-        self.layers = nn.ModuleList(ParamTree(lp) for lp in layers)
-        self.final_norm = ParamTree(final_norm)
+        self.embed = ParamTree(embed, trainable)
+        self.layers = ParamTree(layers, trainable)
+        self.final_norm = ParamTree(final_norm, trainable)
+
+    def keys(self) -> list:
+        return ["embed", "final_norm", "layers"]
 
     def __getitem__(self, key):
         return getattr(self, key)
@@ -172,26 +197,65 @@ class TransformerParams(nn.Module):
     def device(self) -> torch.device:
         return self.embed["table"].device
 
+    @property
+    def n_layers(self) -> int:
+        return self.layers["ln1"]["scale"].shape[0]
+
+    def layer_views(self) -> list:
+        """One nested dict of views a layer: each stacked leaf ``unbind``-ed
+        once, so autograd sees one node a leaf (its backward stacks the
+        layers' gradients) rather than one full-size scatter a layer."""
+        def split(t):
+            if isinstance(t, torch.Tensor):
+                return t.unbind(0)
+            parts = {k: split(t[k]) for k in t.keys()}
+            return [{k: v[i] for k, v in parts.items()}
+                    for i in range(self.n_layers)]
+        return split(self.layers)
+
+
+def _stacked(make_layer, n: int) -> dict:
+    """``make_layer()`` called ``n`` times in turn (the reference's draw
+    order a layer), each leaf written into its ``(n, ...)`` stack."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.new_empty((n,) + tuple(t.shape))
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    first = make_layer()
+    out = alloc(first)
+    put(out, first, 0)
+    for i in range(1, n):
+        put(out, make_layer(), i)
+    return out
+
 
 def init_params(generator: torch.Generator, cfg: TransformerConfig,
-                device=None) -> TransformerParams:
+                device=None, trainable: bool = False) -> TransformerParams:
     """Random weights with the reference's distributions (embedding
     N(0, 0.02²), dense N(0, 1/d_in), norms 1), drawn from ``generator``
     (which must live on ``device``).  Not the reference's numbers: JAX's
     generator differs; ``params_from_reference`` carries those across."""
     check_supported(cfg)
     dt = cfg.torch_dtype
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
-            "ln1": L.rmsnorm_init(cfg.d_model, device),
-            "ln2": L.rmsnorm_init(cfg.d_model, device),
-            "attn": L.gqa_init(generator, cfg.attn_cfg(), dt, device),
-            "ffn": L.swiglu_init(generator, cfg.d_model, cfg.d_ff, dt,
-                                 device)})
+
+    def layer():
+        return {"ln1": L.rmsnorm_init(cfg.d_model, device),
+                "ln2": L.rmsnorm_init(cfg.d_model, device),
+                "attn": L.gqa_init(generator, cfg.attn_cfg(), dt, device),
+                "ffn": L.swiglu_init(generator, cfg.d_model, cfg.d_ff, dt,
+                                     device)}
+    layers = _stacked(layer, cfg.n_layers)
     return TransformerParams(
         L.embedding_init(generator, cfg.vocab, cfg.d_model, dt, device),
-        layers, L.rmsnorm_init(cfg.d_model, device))
+        layers, L.rmsnorm_init(cfg.d_model, device), trainable)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -204,35 +268,49 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def params_from_reference(cfg: TransformerConfig, tree: dict,
-                          device=None) -> TransformerParams:
+                          device=None, trainable: bool = False
+                          ) -> TransformerParams:
     """The reference's parameter tree (``repro.models.transformer.
-    init_params``), its leaves as numpy arrays, as port parameters: the
-    scanned ``layers`` axis is unstacked into per-layer trees, every array
-    keeps its layout."""
+    init_params``), its leaves as numpy arrays, as port parameters: every
+    array keeps its shape (``layers`` stacked) and layout."""
     check_supported(cfg)
 
-    def conv(t, layer=None):
+    def conv(t):
         if isinstance(t, dict):
-            return {k: conv(v, layer) for k, v in t.items()}
-        return _tensor(t if layer is None else np.asarray(t)[layer], device)
+            return {k: conv(v) for k, v in t.items()}
+        return _tensor(t, device)
 
     n = np.asarray(tree["layers"]["ln1"]["scale"]).shape[0]
     if n != cfg.n_layers:
         raise ValueError(f"the tree has {n} layers, the config "
                          f"{cfg.n_layers}")
-    return TransformerParams(conv(tree["embed"]),
-                             [conv(tree["layers"], i) for i in range(n)],
-                             conv(tree["final_norm"]))
+    return TransformerParams(conv(tree["embed"]), conv(tree["layers"]),
+                             conv(tree["final_norm"]), trainable)
+
+
+def params_to_reference(params: TransformerParams) -> dict:
+    """The inverse of ``params_from_reference``: the tree as nested dicts of
+    numpy arrays in the reference's layout (``layers`` stacked).  A
+    bfloat16 leaf comes back as float32 holding the same values (numpy has
+    no bfloat16; ``astype`` to it is exact)."""
+    def conv(t):
+        if isinstance(t, torch.Tensor):
+            t = t.detach().to("cpu")
+            return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        return {k: conv(t[k]) for k in t.keys()}
+    return conv(params)
 
 
 # --------------------------------------------------------------------------
 # forward (a loop over the layers)
 # --------------------------------------------------------------------------
 
-def _attend(cfg, lp, xn, positions, kv_cache=None, cache_length=None):
+def _attend(cfg, lp, xn, positions, kv_cache=None, cache_length=None,
+            training: bool = False):
     return L.gqa_attend(lp["attn"], cfg.attn_cfg(), xn, positions,
                         kv_cache=kv_cache, cache_length=cache_length,
-                        chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k)
+                        chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k,
+                        training=training, flash_bwd=cfg.flash_bwd)
 
 
 def _positions(B: int, Lq: int, device) -> torch.Tensor:
@@ -240,19 +318,41 @@ def _positions(B: int, Lq: int, device) -> torch.Tensor:
         B, Lq)
 
 
+def _layer_fwd(cfg, lp, x, positions):
+    """One layer of the training route."""
+    h, _ = _attend(cfg, lp, L.rmsnorm(lp["ln1"], x), positions,
+                   training=True)
+    x = x + h
+    return x + L.swiglu(lp["ffn"], L.rmsnorm(lp["ln2"], x))
+
+
 def forward(params: TransformerParams, cfg: TransformerConfig, tokens):
-    """tokens (B, L) -> logits (B, L, vocab), aux loss (0: no MoE)."""
+    """tokens (B, L) -> logits (B, L, vocab), aux loss (0: no MoE).  The
+    training route: ``chunked_attention`` on every device; with ``remat``
+    (and grad mode on) each layer's activations are recomputed in the
+    backward."""
     check_supported(cfg)
     B, Lq = tokens.shape
     x = L.embed(params["embed"], tokens)
     positions = _positions(B, Lq, x.device)
-    for lp in params.layers:
-        h, _ = _attend(cfg, lp, L.rmsnorm(lp["ln1"], x), positions)
-        x = x + h
-        x = x + L.swiglu(lp["ffn"], L.rmsnorm(lp["ln2"], x))
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in params.layer_views():
+        if remat:
+            x = checkpoint(_layer_fwd, cfg, lp, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _layer_fwd(cfg, lp, x, positions)
     x = L.rmsnorm(params["final_norm"], x)
     return (L.unembed(params["embed"], x),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def train_step_loss(params: TransformerParams, cfg: TransformerConfig,
+                    batch: dict):
+    """Mean next-token cross entropy of ``batch["tokens"]`` against
+    ``batch["labels"]``, plus the aux loss."""
+    logits, aux = forward(params, cfg, batch["tokens"])
+    return L.cross_entropy(logits, batch["labels"]) + aux
 
 
 # --------------------------------------------------------------------------
@@ -276,7 +376,7 @@ def prefill(params: TransformerParams, cfg: TransformerConfig, tokens):
     x = L.embed(params["embed"], tokens)
     positions = _positions(B, Lq, x.device)
     ks, vs = [], []
-    for lp in params.layers:
+    for lp in params.layer_views():
         h, (k, v) = _attend(cfg, lp, L.rmsnorm(lp["ln1"], x), positions)
         x = x + h
         x = x + L.swiglu(lp["ffn"], L.rmsnorm(lp["ln2"], x))
@@ -295,7 +395,7 @@ def decode_step(params: TransformerParams, cfg: TransformerConfig, token,
     check_supported(cfg)
     x = L.embed(params["embed"], token[:, None])
     positions = length[:, None]
-    for i, lp in enumerate(params.layers):
+    for i, lp in enumerate(params.layer_views()):
         kvc = (cache["k"][i], cache["v"][i])
         h, (k, v) = _attend(cfg, lp, L.rmsnorm(lp["ln1"], x), positions,
                             kv_cache=kvc, cache_length=length)

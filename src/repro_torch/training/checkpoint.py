@@ -32,14 +32,33 @@ from repro_torch import tree as T
 
 def _host_copies(tree) -> dict:
     """``{path: numpy array}``: every leaf copied to the host now (a CPU
-    tensor is copied too, so later in-place updates cannot reach it)."""
+    tensor is copied too, so later in-place updates cannot reach it).  A
+    bfloat16 leaf is stored as its raw 2-byte words (numpy dtype ``V2``),
+    the bytes the reference's ``np.savez`` of an ``ml_dtypes`` array
+    writes."""
     out = {}
     for key, leaf in T.flatten_with_paths(tree):
         if torch.is_tensor(leaf):
-            out[key] = leaf.detach().to("cpu", copy=True).numpy()
+            host = leaf.detach().to("cpu", copy=True)
+            if host.dtype == torch.bfloat16:
+                out[key] = host.view(torch.int16).numpy().view("V2")
+            else:
+                out[key] = host.numpy()
         else:
             out[key] = np.array(leaf)
     return out
+
+
+def _from_host(arr: np.ndarray, dtype) -> torch.Tensor:
+    """A stored array as a CPU tensor of ``dtype``; raw 2-byte words (a
+    bfloat16 leaf, ``_host_copies``) are read back bit for bit."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        if dtype != torch.bfloat16:
+            raise ValueError(f"a bfloat16 array cannot restore a {dtype} "
+                             f"leaf")
+        return torch.from_numpy(np.array(arr).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(dtype)
 
 
 def _write(ckpt_dir: str, step: int, host: dict, extra: Optional[dict],
@@ -125,8 +144,7 @@ def restore(ckpt_dir: str, like: Any, devices: Any = None):
                 dev = getattr(leaf, "device", "cpu")
                 if torch.device(dev).type == "meta":
                     dev = "cpu"
-            out.append(torch.from_numpy(np.array(arr)).to(
-                device=dev, dtype=leaf.dtype))
+            out.append(_from_host(arr, leaf.dtype).to(dev))
     return T.unflatten(like, out), meta["step"], meta.get("extra", {})
 
 

@@ -63,6 +63,17 @@ def global_norm(tree) -> torch.Tensor:
                           for x in T.leaves(tree)))
 
 
+def _fma(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, as a fused multiply-add of
+    float32 operands (a Python float is rounded to float32 first, as XLA's
+    constants are): in float64, where the product of two float32 values is
+    exact."""
+    def f64(x):
+        return (x if torch.is_tensor(x) else torch.tensor(
+            x, dtype=torch.float32)).double()
+    return (f64(a) * f64(b) + f64(c)).float()
+
+
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, params, grads, state):
     """One AdamW step; returns ``(params, new_state, metrics)``.  ``params``
@@ -80,10 +91,20 @@ def adamw_update(cfg: OptimizerConfig, params, grads, state):
         g = g.to(torch.float32) * scale
         mu = cfg.b1 * mu + (1 - cfg.b1) * g
         nu = cfg.b2 * nu + (1 - cfg.b2) * g * g
-        update = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
+        # the reference's arithmetic as XLA compiles it, so that the new
+        # value (and a bfloat16 leaf's rounding of it) is the reference's
+        # bit for bit: (mu / bc1) / (sqrt(nu / bc2) + eps) as its algebraic
+        # simplifier rewrites it (a / b / c -> a / (b * c)), and the weight
+        # decay and the step as fused multiply-adds; the square root taken
+        # in float64 and rounded once, which is the correctly rounded
+        # float32 root (PyTorch's vectorised float32 sqrt on a CPU can be an
+        # ulp off)
+        root = torch.sqrt((nu / bc2).double()).float()
+        update = mu / (bc1 * (root + cfg.eps))
+        p32 = p.to(torch.float32)
         if p.ndim >= 2:  # decoupled weight decay on matrices only
-            update = update + cfg.weight_decay * p.to(torch.float32)
-        p.copy_(p.to(torch.float32) - lr * update)
+            update = _fma(p32, cfg.weight_decay, update)
+        p.copy_(_fma(-lr, update, p32))
         return mu, nu
 
     out = [upd(p, g, m, n) for p, g, m, n in zip(

@@ -132,8 +132,12 @@ def run(loss_fn, params, stream, opt_cfg: OptimizerConfig,
             writer.save(step + 1, {"params": params, "opt": opt_state},
                         extra={"stream": stream.state()})
     if writer:
-        writer.save(loop_cfg.total_steps,
-                    {"params": params, "opt": opt_state},
-                    extra={"stream": stream.state()})
+        # the final state, unless the loop's last step just saved it (the
+        # reference writes that snapshot a second time)
+        if start >= loop_cfg.total_steps \
+                or loop_cfg.total_steps % loop_cfg.ckpt_every:
+            writer.save(loop_cfg.total_steps,
+                        {"params": params, "opt": opt_state},
+                        extra={"stream": stream.state()})
         writer.wait()
     return params, opt_state, history

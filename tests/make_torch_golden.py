@@ -39,6 +39,21 @@ port's same run).  ``halo_loss``: the reference's ``gatedgcn_halo_loss``
 under ``shard_map`` on the 256-vertex ring of ``tests/test_distributed.py``
 at ``HALO_D`` shards (``halo_ring`` / ``halo_shards`` build its inputs
 from a package's partition module; made in the mesh subprocess).
+
+One more holds LM training: ``lm_train``.  Per LM smoke config of
+``LM_ARCHS``: the ``LM_STEPS`` batches of ``TokenStream(LM_BATCH,
+LM_SEQ)`` the reference draws, stored as tokens (``TokenStream``'s
+``zipf`` draws differ between numpy versions, so a run elsewhere reads
+them from the file: ``lm_batches``); weights from ``lm_leaf_values`` (one
+seeded numpy stream); the first batch's loss and every leaf's gradient
+(its largest magnitude, its value at ``LM_PICKS`` seeded flat indices and
+at its largest element); then ``LM_STEPS`` steps of ``train_loop.run``
+(``LM_MICROBATCHES`` microbatches) over the batches from the same
+weights: the loss history and each leaf's value, after the steps, at the
+element of its largest first gradient (where Adam's step has a definite
+sign) (``reference_lm_train`` / ``port_lm_train``).  ``python
+tests/make_torch_golden.py --lm-section`` adds or remakes this section
+alone, leaving the others byte for byte.
 """
 import hashlib
 import json
@@ -321,6 +336,149 @@ def port_gnn_losses(device) -> dict:
     return out
 
 
+LM_ARCHS = ("qwen3-1.7b", "qwen3-32b")
+LM_BATCH, LM_SEQ = 4, 64
+LM_STEPS, LM_MICROBATCHES = 3, 2
+LM_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=LM_STEPS)
+LM_PICKS = 4
+
+
+def lm_leaf_values(paths_shapes) -> dict:
+    """``{path: float32 array}`` of an LM parameter tree given as ``[(path,
+    shape)]`` in JAX's leaf order (``layers`` stacked), from one seeded
+    numpy stream: the embedding N(0, 0.02²), a norm's scale 1, a (stacked)
+    dense weight N(0, 1 / d_in)."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for path, shape in paths_shapes:
+        if path.endswith("['scale']"):
+            out[path] = np.ones(shape, np.float32)
+        elif path.endswith("['table']"):
+            out[path] = (rng.standard_normal(shape) * 0.02).astype(
+                np.float32)
+        else:
+            out[path] = (rng.standard_normal(shape)
+                         / np.sqrt(shape[-2])).astype(np.float32)
+    return out
+
+
+def lm_batches(tokens) -> list:
+    """The stored ``(LM_BATCH, LM_SEQ + 1)`` token arrays as
+    ``TokenStream`` batches (``tokens`` all but the last, ``labels`` all but
+    the first)."""
+    out = []
+    for t in tokens:
+        t = np.asarray(t, np.int32)
+        out.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    return out
+
+
+def lm_summary(tokens, loss, grads, losses, after) -> dict:
+    """The ``lm_train`` entry of one arch: ``tokens`` the batches' token
+    arrays, ``grads`` and ``after`` ``[(path, numpy array)]`` in leaf order
+    (the first gradient, the parameters after the steps)."""
+    rng = np.random.default_rng(1)
+    grad, post = {}, {}
+    for (path, g), (path2, p) in zip(grads, after, strict=True):
+        assert path == path2, (path, path2)
+        flat = np.asarray(g, np.float32).ravel()
+        top = int(np.argmax(np.abs(flat)))
+        idx = [int(i) for i in rng.integers(0, flat.size, LM_PICKS)] + [top]
+        grad[path] = {"absmax": float(np.abs(flat).max()), "index": idx,
+                      "values": [float(flat[i]) for i in idx]}
+        post[path] = float(np.asarray(p, np.float32).ravel()[top])
+    return {"tokens": [np.asarray(t).tolist() for t in tokens],
+            "loss": float(loss), "grad": grad, "losses": list(losses),
+            "after_steps": post}
+
+
+def reference_lm_train() -> dict:
+    """``{arch: lm_summary}`` of the reference (see the module doc)."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs
+    from repro.data import pipeline as DP
+    from repro.models import transformer as TF
+    from repro.training import train_loop as TL
+    from repro.training.optimizer import OptimizerConfig
+
+    out = {}
+    for arch in LM_ARCHS:
+        cfg = configs.get(arch).make_smoke()
+        params = TF.init_params(jax.random.PRNGKey(0), cfg)
+        flat, tdef = jax.tree_util.tree_flatten_with_path(params)
+        paths = [jax.tree_util.keystr(p) for p, _ in flat]
+        vals = lm_leaf_values([(k, np.shape(x))
+                               for k, (_, x) in zip(paths, flat)])
+        params = jax.tree_util.tree_unflatten(
+            tdef, [jnp.asarray(vals[k]) for k in paths])
+        loss_fn = jax.jit(lambda p, b, cfg=cfg: TF.train_step_loss(p, cfg, b))
+        stream = DP.TokenStream(batch=LM_BATCH, seq_len=LM_SEQ,
+                                vocab=cfg.vocab)
+        drawn = [next(stream) for _ in range(LM_STEPS)]
+        tokens = [np.concatenate([b["tokens"], b["labels"][:, -1:]], 1)
+                  for b in drawn]
+        batches = lm_batches(tokens)
+        loss, g = jax.value_and_grad(loss_fn)(
+            params, jax.tree.map(jnp.asarray, batches[0]))
+        grads = [(k, np.asarray(x)) for k, x in
+                 zip(paths, jax.tree_util.tree_leaves(g))]
+        new, _, hist = TL.run(
+            loss_fn, params, iter(batches), OptimizerConfig(**LM_OPT),
+            TL.TrainLoopConfig(total_steps=LM_STEPS, log_every=1,
+                               microbatches=LM_MICROBATCHES),
+            to_device=lambda b: jax.tree.map(jnp.asarray, b))
+        after = [(k, np.asarray(x)) for k, x in
+                 zip(paths, jax.tree_util.tree_leaves(new))]
+        out[arch] = lm_summary(tokens, loss, grads,
+                               [h["loss"] for h in hist], after)
+    return out
+
+
+def port_lm_train(device, section: dict) -> dict:
+    """``reference_lm_train`` of the port on ``device``, over the batches
+    stored in ``section`` (the file's ``lm_train``)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch import tree
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import transformer as TF
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    out = {}
+    for arch in LM_ARCHS:
+        cfg = configs.get(arch).make_smoke()
+        params = TF.init_params(torch.Generator(device=device).manual_seed(0),
+                                cfg, device, trainable=True)
+        flat = tree.flatten_with_paths(params)
+        vals = lm_leaf_values([(k, tuple(x.shape)) for k, x in flat])
+        with torch.no_grad():
+            for k, x in flat:
+                x.copy_(torch.from_numpy(vals[k]))
+        tokens = section[arch]["tokens"]
+        batches = lm_batches(tokens)
+        loss = TF.train_step_loss(params, cfg, to_device(batches[0], device))
+        g = torch.autograd.grad(loss, tree.leaves(params))
+        grads = [(k, x.detach().cpu().numpy()) for (k, _), x in zip(flat, g)]
+        _, _, hist = TL.run(
+            lambda p, b: TF.train_step_loss(p, cfg, b), params,
+            iter(batches), OptimizerConfig(**LM_OPT),
+            TL.TrainLoopConfig(total_steps=LM_STEPS, log_every=1,
+                               microbatches=LM_MICROBATCHES),
+            to_device=lambda b: to_device(b, device))
+        after = [(k, x.detach().cpu().numpy()) for k, x in flat]
+        out[arch] = lm_summary(tokens, loss.detach().cpu(), grads,
+                               [h["loss"] for h in hist], after)
+    return out
+
+
+def write(doc: dict) -> None:
+    with open(PATH, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def halo_ring(partition, csr):
     """The halo GatedGCN's inputs on the reference's ring, as numpy
     (``partition`` and ``csr`` are a package's ``core.partition`` and
@@ -469,10 +627,9 @@ def main() -> None:
                ColoringService(megabatch=True, **SVC_OPTS), generators),
            "distributed": mesh["distributed"], "sharded": mesh["sharded"],
            "gnn": {"losses": reference_gnn_losses(),
-                   "halo_loss": mesh["halo_loss"]}}
-    with open(PATH, "w") as f:
-        json.dump(doc, f, indent=1, sort_keys=True)
-        f.write("\n")
+                   "halo_loss": mesh["halo_loss"]},
+           "lm_train": reference_lm_train()}
+    write(doc)
     print(f"wrote {PATH} ({len(doc['results'])} entries, "
           f"{len(doc['incremental'])} incremental streams, "
           f"{len(doc['service'])} service steps, "
@@ -485,5 +642,12 @@ if __name__ == "__main__":
     import sys
     if sys.argv[1:] == ["--mesh-sections"]:
         print(json.dumps(mesh_sections()))
+    elif sys.argv[1:] == ["--lm-section"]:
+        with open(PATH) as f:
+            doc = json.load(f)
+        doc["lm_train"] = reference_lm_train()
+        write(doc)
+        print(f"wrote the lm_train section of {PATH} "
+              f"({len(doc['lm_train'])} LM smoke configs)")
     else:
         main()

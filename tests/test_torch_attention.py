@@ -144,6 +144,19 @@ def test_refusals():
         flash_attention(q.double(), k.double(), v.double())
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_80_matches_reference(causal):
+    """qwen3-32b's head dim: the wrapper admits D 80 and, on CPU tensors,
+    gives the reference's ``flash_attention_ref`` (GQA 64 / 8 cut to 8 / 1,
+    a ragged length)."""
+    q, k, v = _qkv(80, 1, 8, 1, 45, 70, 80)
+    want = np.asarray(jref.flash_attention_ref(
+        *(jnp.asarray(x) for x in (q, k, v)), causal=causal))
+    for name, got in _port_routes(q, k, v, causal).items():
+        assert got.shape == (1, 8, 45, 80)
+        np.testing.assert_allclose(got.numpy(), want, err_msg=name, **TOL)
+
+
 def test_dispatch_is_counted_on_the_cpu():
     obs_metrics.reset()
     q, k, v = (torch.from_numpy(x) for x in _qkv(2, 1, 2, 1, 8, 8, 16))
@@ -177,6 +190,37 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, causal):
                                    want.float().cpu().numpy(), **tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_head_dim_80_on_fma(cuda_device, dtype):
+    dt = getattr(torch, dtype)
+    for causal in (True, False):
+        q, k, v = (torch.from_numpy(x).to(cuda_device).to(dt)
+                   for x in _qkv(7, 1, 64, 8, 129, 257, 80))
+        before = flash_attention.launches_fma
+        got = ops.attention(q, k, v, causal=causal)
+        assert flash_attention.launches_fma == before + 1
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        tol = TOL if dt == torch.float32 else dict(rtol=1e-2, atol=2e-2)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_inputs_that_require_grad(cuda_device):
+    """A forward-only kernel never returns a tensor that silently drops the
+    gradient: under grad mode it raises, under no_grad it runs."""
+    q, k, v = (torch.from_numpy(x).to(cuda_device)
+               for x in _qkv(3, 1, 4, 2, 64, 64, 64))
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.attention(q, k, v, causal=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_attention(q, k, v, causal=True)
+    with torch.no_grad():
+        assert ops.attention(q, k, v, causal=True).shape == q.shape
+
+
 # --------------------------------------------------------------------------
 # the routing rule and the input checks of the wrapper (CPU)
 # --------------------------------------------------------------------------
@@ -186,6 +230,7 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, causal):
     ("bfloat16", 16, "fma"), ("bfloat16", 32, "fma"),
     ("float32", 16, "fma"), ("float32", 32, "fma"),
     ("float32", 64, "fma"), ("float32", 128, "fma"),
+    ("bfloat16", 80, "fma"), ("float32", 80, "fma"),
 ])
 def test_design_by_dtype_and_head_dim(dtype, D, want):
     # bfloat16 at D 64 / 128 on the tensor cores; float32 stays on the

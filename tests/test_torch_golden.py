@@ -4,7 +4,8 @@ JAX reference package produces today and what the port produces on the CPU.
 ``chip_smoke.py`` holds the port's output on a GPU against the same file,
 which is how the card's results are tied to the reference's without JAX on
 that machine.  Integer results and a SHA-256 of the color bytes: the bar is
-equality; the ``gnn`` section's float losses are held to stated tolerances.
+equality; the ``gnn`` and ``lm_train`` sections' float values are held to
+stated tolerances.
 Regenerate with ``tests/make_torch_golden.py``.
 """
 import importlib.util
@@ -200,6 +201,55 @@ def test_golden_halo_loss_equals_port():
                       for s in shards], _cpu_mesh(make_torch_golden.HALO_D))
     np.testing.assert_allclose(float(loss.detach()), GOLDEN_GNN["halo_loss"],
                                rtol=1e-5)
+
+
+GOLDEN_LM = _DOC["lm_train"]
+# the port's LM training against the reference's (float32 in another order;
+# measured on the CPU at about 1e-7 on the losses, 1e-6 of a leaf's largest
+# gradient, 1e-8 on the values after the steps)
+LM_TOL = dict(loss_rtol=1e-5, grad_atol=1e-4, after_atol=1e-5)
+
+
+def check_lm_train(got: dict, want: dict, tol: dict, who: str):
+    """``got`` (``lm_summary`` of each arch) against the file's entries:
+    losses within ``loss_rtol``, each picked gradient value within
+    ``grad_atol`` of its leaf's largest reference gradient, each value
+    after the steps within ``after_atol``."""
+    assert sorted(got) == sorted(want), who
+    for arch, w in want.items():
+        g = got[arch]
+        assert g["tokens"] == w["tokens"], (who, arch)
+        np.testing.assert_allclose(g["loss"], w["loss"],
+                                   rtol=tol["loss_rtol"], err_msg=who)
+        np.testing.assert_allclose(g["losses"], w["losses"],
+                                   rtol=tol["loss_rtol"], err_msg=who)
+        assert sorted(g["grad"]) == sorted(w["grad"]), who
+        for path, wg in w["grad"].items():
+            assert g["grad"][path]["index"] == wg["index"], (who, path)
+            np.testing.assert_allclose(
+                g["grad"][path]["values"], wg["values"], rtol=0,
+                atol=tol["grad_atol"] * wg["absmax"],
+                err_msg=f"{who} {arch} {path}")
+            np.testing.assert_allclose(
+                g["after_steps"][path], w["after_steps"][path], rtol=0,
+                atol=tol["after_atol"], err_msg=f"{who} {arch} {path}")
+
+
+def test_golden_lm_train_equals_reference():
+    """The reference today gives the file's ``lm_train`` section (1e-6: the
+    same program)."""
+    assert sorted(GOLDEN_LM) == sorted(make_torch_golden.LM_ARCHS)
+    check_lm_train(make_torch_golden.reference_lm_train(), GOLDEN_LM,
+                   dict(loss_rtol=1e-6, grad_atol=1e-6, after_atol=1e-7),
+                   "reference package")
+
+
+def test_golden_lm_train_equals_port():
+    """The port on the CPU within ``LM_TOL`` of the file's section: loss and
+    gradient of the first batch, three steps' losses and values, from
+    ``lm_leaf_values`` weights over the file's batches."""
+    check_lm_train(make_torch_golden.port_lm_train("cpu", GOLDEN_LM),
+                   GOLDEN_LM, LM_TOL, "port")
 
 
 # the last test of this file: it waits for the subprocess started with the

@@ -99,7 +99,7 @@ def test_every_module_is_found():
               "repro_torch.models.gnn", "repro_torch.configs.gat_cora",
               "repro_torch.configs.gatedgcn",
               "repro_torch.configs.meshgraphnet",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.configs.qwen3_32b"):
         assert m in mods, m
 
 
@@ -197,6 +197,61 @@ def test_training_module_imports_first(first, training_imports):
     leaves the GNN archs in the registry."""
     out, err = training_imports[first].communicate(timeout=240)
     assert training_imports[first].returncode == 0, err
+    assert out.startswith("ok")
+
+
+# the reference's package-level names that the port's packages re-export,
+# and the modules of the LM training slice
+EXPORTS = tuple(("repro_torch.core", n) for n in (
+    "ALGORITHMS", "color_rsoc", "color_cat", "color_gm", "color_jp",
+    "color_rsoc_compact", "color_distance2", "color_distance_d",
+    "color_bipartite_partial", "is_distance_d_proper",
+    "is_bipartite_partial_proper")) + (
+    ("repro_torch.serving", "ColoringService"),
+    ("repro_torch.configs.qwen3_32b", "ARCH"),
+    ("repro_torch.models.transformer", "train_step_loss"),
+    ("repro_torch.models.layers", "FlashAttention"))
+
+
+@pytest.fixture(scope="module")
+def export_imports():
+    """One fresh interpreter per export, importing it first, all started at
+    once and read by the cases below."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("REPRO_FAULTS", None)
+    procs = {}
+    for mod, name in EXPORTS:
+        code = (f"from {mod} import {name}\n"
+                "import sys\n"
+                "from repro_torch import configs, core, serving\n"
+                "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+                "('jax', 'jaxlib', 'repro'))\n"
+                "assert not bad, bad\n"
+                "assert sorted(core.ALGORITHMS) == ['cat', 'gm', 'jp', "
+                "'rsoc', 'rsoc_compact']\n"
+                "assert serving.ColoringService.__name__ == "
+                "'ColoringService'\n"
+                "assert {'qwen3-1.7b', 'qwen3-32b'} <= set(configs.ARCHS)\n"
+                "print('ok')\n")
+        procs[mod, name] = subprocess.Popen(
+            [sys.executable, "-c", code], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    yield procs
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+@pytest.mark.parametrize("mod,name", EXPORTS,
+                         ids=[f"{m}.{n}" for m, n in EXPORTS])
+def test_export_imports_first(mod, name, export_imports):
+    """Each re-export of ``repro_torch.core`` / ``repro_torch.serving`` (the
+    reference's package-level names) and each new name of the LM training
+    slice imports first in a fresh interpreter with no import cycle,
+    pulling in neither ``jax`` nor the reference package."""
+    out, err = export_imports[mod, name].communicate(timeout=240)
+    assert export_imports[mod, name].returncode == 0, err
     assert out.startswith("ok")
 
 

@@ -369,8 +369,8 @@ def test_launcher_trains_each_gnn(arch, tmp_path, capsys):
     assert open(tmp_path / "LATEST").read() == "step_00000003"
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen3-32b", "nequip",
-                                  "dcn-v2"])
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen2-moe-a2.7b",
+                                  "nequip", "dcn-v2"])
 def test_launcher_refuses_what_is_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlaunch.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
