@@ -43,7 +43,9 @@ ends the run with a non-zero exit code:
               x the tiny suite x seeds 0-2; mesh2d(24, 24)'s sharded
               streams); its lm_train section (the two LM smoke configs'
               loss, gradients and three training steps) within
-              LM_GOLDEN_TOL
+              LM_GOLDEN_TOL; its models section (the smoke nequip's and
+              dcn-v2's forward, one leaf's gradient, nequip's through the
+              forces, and three training steps) within MODELS_GOLDEN_TOL
   5. main     repro_torch.api.color(g), default spec, on the paper's graph
               classes at real size; launch counters zeroed before, read
               after, launches per design logged per graph (B1: vec16 on the
@@ -140,6 +142,27 @@ ends the run with a non-zero exit code:
               requests: exactly 8 x 4 attention launches, all on the fma
               design (head dim 80), prefill logits against the plain
               attention within LOGITS_ATOL
+  5l. models  dcn-v2 and nequip at full width (no kernel of the port on
+              this path, as the reference computes both in jnp; counts
+              zeroed before, read after, all 0): (a) dcn-v2 make_full()
+              (26 tables of 1,000,000 x 16, 418,568,643 parameters)
+              through launch.train.build_recsys, 6 AdamW steps of 65,536
+              examples: ms a step, examples/s, peak memory, model FLOPs
+              (launch.analysis) as a share of the float32 and bf16 peaks,
+              one more step split into the host's batch, the forward and
+              backward and the AdamW update (torch.profiler's kernel time
+              in each, the card's idle share of a step);
+              (c) predict at 512 and 262,144 examples, the candidate tower
+              over 1,000,000 candidates and a top-100 retrieval (held to a
+              host sort of the scores), 512 examples' logits against the
+              card host's CPU within RECSYS_CPU_REL; (b) tables cut to
+              65,536 rows, a restart from LATEST bit for bit; (d) nequip
+              make_full() on 128 molecules of 30 atoms: the E(3) check
+              within the reference test's tolerances, a double backward
+              (energy_loss with forces) against the card host's CPU, 6
+              AdamW steps and one split as in (a), segment_sum bit-equal
+              to the sorted scatter;
+              the phase's seconds logged
   (5, 5c: each row's prepare_ms + solve_ms must not pass e2e_traced_ms,
   the wall time of the call they split, by more than SPLIT_SLACK)
   6. times    per-kernel device time (device_ms; the back-to-back call time
@@ -2316,26 +2339,35 @@ GNN_CPU_RTOL = 1e-4
 COLORED_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def gnn_train(loss_fn, cfg, stream_of, device, total: int, opt,
-              ckpt_dir=None, init=None):
-    """``train_loop.run`` of a GNN from ``init`` (a ``ParamTree``; None:
-    ``gatedgcn_init`` from seed 0 on ``device``) on a fresh stream; returns
-    (params, losses, per-step wall times in ms: the metrics of every step
-    are read, which waits for the card)."""
+def train_steps(loss_fn, params, stream, device, total: int, opt,
+                ckpt_dir=None, ckpt_every: int = 1):
+    """``train_loop.run`` of ``params`` on ``stream``; returns (params,
+    losses, per-step wall ms: every step's metrics are read, which waits
+    for the card)."""
     from repro_torch.launch.train import to_device
-    from repro_torch.models import gnn as GNN
     from repro_torch.training import train_loop as TL
-    params = init if init is not None else GNN.gatedgcn_init(
-        torch.Generator(device=device).manual_seed(0), cfg, device)
     stamps = [time.perf_counter()]
     params, _, hist = TL.run(
-        loss_fn, params, stream_of(), opt,
+        loss_fn, params, stream, opt,
         TL.TrainLoopConfig(total_steps=total, log_every=1,
-                           ckpt_every=GNN_CKPT_EVERY, ckpt_dir=ckpt_dir),
+                           ckpt_every=ckpt_every, ckpt_dir=ckpt_dir),
         to_device=lambda b: to_device(b, device),
         on_metrics=lambda m: stamps.append(time.perf_counter()))
     ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
     return params, [h["loss"] for h in hist], ms
+
+
+def gnn_train(loss_fn, cfg, stream_of, device, total: int, opt,
+              ckpt_dir=None, init=None):
+    """``train_steps`` of a GNN from ``init`` (a ``ParamTree``; None:
+    ``gatedgcn_init`` from seed 0 on ``device``) on a fresh stream,
+    checkpointing every ``GNN_CKPT_EVERY``; returns (params, losses,
+    per-step wall times in ms)."""
+    from repro_torch.models import gnn as GNN
+    params = init if init is not None else GNN.gatedgcn_init(
+        torch.Generator(device=device).manual_seed(0), cfg, device)
+    return train_steps(loss_fn, params, stream_of(), device, total, opt,
+                       ckpt_dir, GNN_CKPT_EVERY)
 
 
 def median_after_first(ms: list) -> float:
@@ -3181,6 +3213,479 @@ def phase_golden_lm(device) -> dict:
         fail(f"golden lm_train: the card's smoke LM training is {worst} "
              f"from the reference's (tolerances {tol})")
     return worst
+
+
+def phase_golden_models(device) -> dict:
+    """The card's smoke ``nequip`` and ``dcn-v2`` against ``tests/
+    torch_golden.json``'s ``models`` section (made by the reference, over
+    the batches it stores): the forward, one leaf's whole gradient (nequip's
+    through the forces: a double backward on the card) and three steps'
+    losses, within ``MODELS_GOLDEN_TOL``."""
+    gm = golden_module()
+    with open(gm.PATH) as f:
+        want = json.load(f)["models"]
+    got = gm.port_models(device, want)
+    worst = {"forward_rel": 0.0, "grad_rel": 0.0, "loss_rel": 0.0}
+    for arch, w in want.items():
+        g = got[arch]
+        worst["forward_rel"] = max(worst["forward_rel"], float(
+            np.abs(np.subtract(g["forward"], w["forward"])).max()
+            / np.abs(w["forward"]).max()))
+        worst["grad_rel"] = max(worst["grad_rel"], float(
+            np.abs(np.subtract(g["grad"]["values"], w["grad"]["values"])).max()
+            / w["grad"]["absmax"]))
+        worst["loss_rel"] = max(worst["loss_rel"], float(
+            np.max(np.abs(np.subtract(g["losses"], w["losses"]))
+                   / np.abs(w["losses"]))))
+    if not all(worst[k] <= MODELS_GOLDEN_TOL[k] for k in worst):
+        fail(f"golden models: the card's smoke nequip / dcn-v2 are {worst} "
+             f"from the reference's (tolerances {MODELS_GOLDEN_TOL})")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# phase 5l: dcn-v2 and nequip at full width (no kernel of the port)
+# --------------------------------------------------------------------------
+
+# (a) dcn-v2 make_full() on RECSYS_SHAPES["train_batch"], the launcher's
+# optimizer at --steps 6
+RECSYS_STEPS = 6
+RECSYS_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=RECSYS_STEPS)
+# (b) the restart: every width full, the tables cut to this many rows a
+# field so that a checkpoint is 0.36 GB, not 5 GB
+RECSYS_RESTART_ROWS = 65_536
+RECSYS_RESTART_STEPS, RECSYS_CKPT_EVERY = 4, 2
+# (c) serving: the examples held against the card host's CPU, and their
+# logits' tolerance (float32 products in another order; a fraction of the
+# largest logit); the retrieval's top-k
+RECSYS_CPU_EXAMPLES = 512
+RECSYS_CPU_REL = 1e-4
+RETRIEVAL_TOP_K = 100
+# (d) nequip make_full() on GNN_SHAPES["molecule"]; the E(3) check's
+# tolerances are the reference's test's (tests/test_models_smoke.py)
+NEQUIP_STEPS = 6
+NEQUIP_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=NEQUIP_STEPS)
+E3_TOL = dict(energy_rtol=1e-4, force_rtol=1e-3, force_atol=1e-5)
+# the double backward's loss and gradients on the card against the card
+# host's CPU (a fraction of each leaf's largest CPU gradient)
+NEQUIP_CPU_REL = 1e-4
+# the golden phase: the card's smoke nequip / dcn-v2 against the file's
+# models section (float32 in another order; the CPU is within 1e-6)
+MODELS_GOLDEN_TOL = dict(forward_rel=1e-4, grad_rel=1e-3, loss_rel=1e-4)
+
+
+def step_split(loss_fn, params, stream, device, opt, step_ms: float) -> dict:
+    """One more training step, outside ``train_loop.run``, by part: the
+    host's batch (the stream's numpy and the copy to the card; host clock),
+    then the forward and backward and the AdamW update under
+    ``torch.profiler``: each part's wall ms (host clock to a sync, the
+    profiler's own cost included) and the card's kernel time in it (the
+    update's kernels are those under its ``record_function`` range; the
+    forward's and backward's split into matrix products, named as GEMMs,
+    and the rest); and the card's idle share of an unprofiled step of
+    ``step_ms`` (``train_loop.run``'s median), 1 - kernel time / step_ms.
+    On the CPU rehearsal the CPU time of each op stands in for the
+    kernels'.  The parameters take the step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch import tree
+    from repro_torch.launch.train import to_device
+    from repro_torch.training.optimizer import adamw_update, init_opt_state
+    state = init_opt_state(params)
+    sync(device)
+    t0 = time.perf_counter()
+    batch = to_device(next(stream), device)
+    sync(device)
+    t1 = time.perf_counter()
+    cuda = device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        loss = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, tree.leaves(params),
+                                    allow_unused=True, materialize_grads=True)
+        sync(device)
+        t2 = time.perf_counter()
+        with record_function("step.adamw"):
+            adamw_update(opt, params, tree.unflatten(params, grads), state)
+        sync(device)
+        t3 = time.perf_counter()
+    ms = {"fwd_bwd_matmul": 0.0, "fwd_bwd_rest": 0.0, "adamw": 0.0}
+    for e in prof.events():
+        x = e
+        while x is not None and x.name != "step.adamw":
+            x = x.cpu_parent
+        parts = ([(k.name, k.duration / 1e3) for k in e.kernels] if cuda
+                 else [(e.name, e.self_cpu_time_total / 1e3)])
+        for name, t in parts:
+            key = ("adamw" if x is not None else "fwd_bwd_matmul"
+                   if GEMM_KERNEL.search(name) else "fwd_bwd_rest")
+            ms[key] += t
+    return {"batch_host_ms": 1e3 * (t1 - t0),
+            "fwd_bwd_wall_ms": 1e3 * (t2 - t1),
+            "adamw_wall_ms": 1e3 * (t3 - t2),
+            "busy_ms": ms, "busy_total_ms": sum(ms.values()),
+            "idle_share_of_step": 1 - sum(ms.values()) / step_ms,
+            "what": "device kernel time" if cuda
+            else "CPU op time (rehearsal)"}
+
+
+def peak_shares(flops: float, ms: float) -> dict:
+    """Achieved FLOP/s of ``flops`` in ``ms`` and its share of the card's
+    float32 and bf16 peaks (``launch.mesh``)."""
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16, PEAK_FLOPS_F32
+    rate = flops / (ms * 1e-3)
+    return {"model_flops": flops, "achieved_flops_per_s": rate,
+            "share_of_f32_peak": rate / PEAK_FLOPS_F32,
+            "share_of_bf16_peak": rate / PEAK_FLOPS_BF16}
+
+
+def recsys_arch(rehearse: bool, rows=None):
+    """``dcn-v2``'s ArchDef, its full config's tables cut to ``rows`` a
+    field (the rehearsal: 1000 rows, a narrower tower)."""
+    from repro_torch import configs
+    arch = configs.get("dcn-v2")
+    cfg = arch.make_full()
+    if rehearse:
+        cfg = dataclasses.replace(cfg, mlp_dims=(64, 64, 32))
+        rows = rows or 1000
+    if rows:
+        cfg = dataclasses.replace(cfg, vocab_sizes=(rows,) * cfg.n_sparse)
+    return dataclasses.replace(arch, make_full=lambda: cfg), cfg
+
+
+def models_recsys_train(device, rehearse: bool) -> tuple:
+    """(a) ``dcn-v2`` at full width (26 tables of 1,000,000 x 16, d_x0 429,
+    3 full-rank cross layers, MLP 1024-1024-512) through the launcher's
+    ``build_recsys``: ``RECSYS_STEPS`` AdamW steps of ``train_loop.run``
+    on ``RecsysStream`` batches of ``RECSYS_SHAPES["train_batch"]``
+    examples.  Returns (row, params, cfg)."""
+    from repro_torch import tree
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.launch.analysis import recsys_model_flops
+    from repro_torch.launch.train import build_recsys
+    from repro_torch.models import recsys as RS
+    from repro_torch.training.optimizer import OptimizerConfig
+    arch, cfg = recsys_arch(rehearse)
+    B = 1024 if rehearse else RECSYS_SHAPES["train_batch"]["batch"]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    params, stream, loss = build_recsys(arch, False, B, device)
+    sync(device)
+    init_s = time.perf_counter() - t
+    n = sum(x.numel() for x in tree.leaves(params))
+    if n != RS.n_params(cfg):
+        fail(f"dcn-v2 (a): {n} parameters, n_params says {RS.n_params(cfg)}")
+    opt = OptimizerConfig(**RECSYS_OPT)
+    params, losses, ms = train_steps(loss, params, stream, device,
+                                     RECSYS_STEPS, opt)
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    split = step_split(loss, params, stream, device, opt,
+                       median_after_first(ms))
+    if not all(np.isfinite(losses)):
+        fail(f"dcn-v2 (a): a loss is not finite: {losses}")
+    step_ms = median_after_first(ms)
+    row = {"params": n, "tables": [cfg.n_sparse, cfg.vocabs[0],
+                                   cfg.embed_dim],
+           "d_x0": cfg.d_x0, "cross_layers": cfg.n_cross_layers,
+           "mlp_dims": list(cfg.mlp_dims), "batch": B,
+           "init_s": init_s, "losses": losses, "step_ms": ms,
+           "ms_per_step": step_ms, "examples_per_s": B / (step_ms * 1e-3),
+           "peak_memory_bytes": int(peak), "step_split": split,
+           **peak_shares(recsys_model_flops(cfg, "train", B), step_ms)}
+    return row, params, cfg
+
+
+def models_recsys_restart(device, rehearse: bool) -> dict:
+    """(b) ``dcn-v2`` at full width but for its tables, cut to
+    ``RECSYS_RESTART_ROWS`` rows a field: ``RECSYS_RESTART_STEPS`` steps
+    uninterrupted, and a run that checkpoints every ``RECSYS_CKPT_EVERY``
+    into a temporary directory, stops after ``RECSYS_CKPT_EVERY`` steps and
+    is rerun to the end from LATEST: every parameter leaf and every loss
+    bit-equal to the uninterrupted run's (the tables' gradients are the
+    sorted scatter, so repeated ids add in one order)."""
+    import tempfile
+    from repro_torch import tree
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.launch.train import build_recsys
+    from repro_torch.training.optimizer import OptimizerConfig
+    arch, cfg = recsys_arch(rehearse, RECSYS_RESTART_ROWS)
+    B = 1024 if rehearse else RECSYS_SHAPES["train_batch"]["batch"]
+    opt = OptimizerConfig(lr=3e-4, warmup_steps=1,
+                          total_steps=RECSYS_RESTART_STEPS)
+
+    def run(total, ckpt_dir):
+        params, stream, loss = build_recsys(arch, False, B, device)
+        t = time.perf_counter()
+        params, losses, _ = train_steps(loss, params, stream, device, total,
+                                        opt, ckpt_dir, RECSYS_CKPT_EVERY)
+        return params, losses, time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as d:
+        p_full, l_full, _ = run(RECSYS_RESTART_STEPS, None)
+        _, l_a, s_a = run(RECSYS_CKPT_EVERY, d)
+        p_res, l_b, s_b = run(RECSYS_RESTART_STEPS, d)
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(d) for f in fs)
+    if l_a + l_b != l_full:
+        fail(f"dcn-v2 (b): the restarted run's losses {l_a + l_b} are not "
+             f"the uninterrupted run's {l_full} bit for bit")
+    for (k, a), b in zip(tree.flatten_with_paths(p_full), tree.leaves(p_res)):
+        if not torch.equal(a, b):
+            fail(f"dcn-v2 (b): parameter {k} after the restart differs from "
+                 f"the uninterrupted run's")
+    return {"cut": {"table_rows": cfg.vocabs[0], "from": 1_000_000,
+                    "why": "a checkpoint of the full tables is 5 GB"},
+            "params": sum(x.numel() for x in tree.leaves(p_full)),
+            "steps": RECSYS_RESTART_STEPS, "ckpt_every": RECSYS_CKPT_EVERY,
+            "losses": l_full, "restart_bit_equal": True,
+            "kept_ckpt_bytes": ckpt_bytes, "crashed_run_s": s_a,
+            "resumed_run_s": s_b}
+
+
+def models_recsys_serve(device, params, cfg, rehearse: bool) -> dict:
+    """(c) ``predict`` at ``serve_p99`` and ``serve_bulk``; ``make_candidate
+    _tower`` over ``retrieval_cand``'s 1,000,000 candidates and
+    ``retrieval_scores`` of one query against them (top ``RETRIEVAL_TOP_K``,
+    held to a sort of the scores on the host); ms a call (``time_ms``);
+    ``RECSYS_CPU_EXAMPLES`` examples' logits against the same parameters
+    and module on the card host's CPU."""
+    from repro_torch import tree
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.data import pipeline as DP
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import recsys as RS
+
+    def stream(batch, seed):
+        return next(DP.RecsysStream(batch=batch, n_dense=cfg.n_dense,
+                                    n_sparse=cfg.n_sparse, vocabs=cfg.vocabs,
+                                    max_hots=cfg.max_hots, seed=seed))
+    shapes = {k: RECSYS_SHAPES[k]["batch"] for k in ("serve_p99",
+                                                     "serve_bulk")}
+    n_cand = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    if rehearse:
+        shapes, n_cand = {"serve_p99": 512, "serve_bulk": 4096}, 8192
+    out = {"card": {}}
+    bulk = to_device(stream(shapes["serve_bulk"], 1), device)
+    with torch.no_grad():
+        for name, B in shapes.items():
+            b = {k: v[:B] for k, v in bulk.items()}
+            ms = time_ms(lambda: RS.predict(params, cfg, b), device, 1, 3)
+            out["card"][name] = {"batch": B, "ms": ms,
+                                 "examples_per_s": B / (ms * 1e-3)}
+        cand_in = to_device(stream(n_cand, 2), device)
+        cand = None
+
+        def tower():
+            nonlocal cand
+            cand = RS.make_candidate_tower(params, cfg, cand_in["dense"],
+                                           cand_in["sparse"])
+        tower_ms = time_ms(tower, device, 1, 3)
+        q = to_device(stream(1, 3), device)
+        res = None
+
+        def score():
+            nonlocal res
+            res = RS.retrieval_scores(params, cfg, q["dense"], q["sparse"],
+                                      cand, top_k=RETRIEVAL_TOP_K)
+        score_ms = time_ms(score, device, 1, 3)
+        scores, top_v, top_i = (x.cpu().numpy() for x in res)
+        logits = RS.dcnv2_forward(params, cfg,
+                                  bulk["dense"][:RECSYS_CPU_EXAMPLES],
+                                  bulk["sparse"][:RECSYS_CPU_EXAMPLES]).cpu()
+        host = tree.tree_map(lambda t: t.detach().cpu(), params)
+        cpu_b = {k: v[:RECSYS_CPU_EXAMPLES].cpu() for k, v in bulk.items()}
+        logits_cpu = RS.dcnv2_forward(host, cfg, cpu_b["dense"],
+                                      cpu_b["sparse"])
+    want = np.sort(scores)[::-1][:RETRIEVAL_TOP_K]
+    if not (np.array_equal(top_v, want) and np.array_equal(scores[top_i],
+                                                            top_v)
+            and len(set(top_i.tolist())) == RETRIEVAL_TOP_K):
+        fail("dcn-v2 (c): the top-k is not the top of a host sort of the "
+             "scores")
+    if cand.shape != (n_cand, cfg.mlp_dims[-1]) or not torch.isfinite(
+            cand).all():
+        fail(f"dcn-v2 (c): candidate tower {tuple(cand.shape)} or not finite")
+    rel = float((logits - logits_cpu).abs().max() / logits_cpu.abs().max())
+    if not rel <= RECSYS_CPU_REL:
+        fail(f"dcn-v2 (c): {RECSYS_CPU_EXAMPLES} examples' logits on the card "
+             f"are {rel} (of the largest) from the CPU's, over "
+             f"{RECSYS_CPU_REL}")
+    out["card"]["retrieval_cand"] = {
+        "n_candidates": n_cand, "candidate_tower_ms": tower_ms,
+        "retrieval_scores_ms": score_ms, "top_k": RETRIEVAL_TOP_K,
+        "top_k_equals_host_sort": True}
+    out["cpu_examples"] = RECSYS_CPU_EXAMPLES
+    out["cpu_logits_rel_err"] = rel
+    return out
+
+
+def models_nequip(device, rehearse: bool) -> dict:
+    """(d) ``nequip`` at full width (5 layers, 32 channels, l_max 2, 8
+    radial functions, 15 paths) on ``GNN_SHAPES["molecule"]`` (128
+    molecules of 30 atoms and 64 edges: 3,841 nodes with the sink, 8,192
+    edges): the E(3) check under a rotation and a translation within the
+    reference's test tolerances (``E3_TOL``); one ``energy_loss`` with a
+    ``forces`` label and its gradient (a double backward) on the card
+    against the card host's CPU (``NEQUIP_CPU_REL``); ``NEQUIP_STEPS``
+    AdamW steps of ``energy_loss`` (as the launcher trains); and
+    ``gnn.segment_sum`` with every id in range bit-equal to the plain
+    sorted scatter into n rows."""
+    from repro_torch import configs, tree
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.data import pipeline as DP
+    from repro_torch.launch.analysis import gnn_model_flops
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import equivariant as EQ
+    from repro_torch.models import gnn as GNN
+    from repro_torch.training.optimizer import OptimizerConfig
+    cfg = configs.get("nequip").make_full()
+    shp = GNN_SHAPES["molecule"]
+    mol = dict(n_nodes=shp["n_nodes"], n_edges=shp["n_edges"],
+               batch=8 if rehearse else shp["batch"], n_species=16, d_feat=0)
+    p_cpu = EQ.nequip_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    host = tree.tree_map(lambda t: t.detach().numpy(), p_cpu)
+    params = EQ.params_from_reference(host, device)
+    b = next(DP.MoleculeStream(**mol))
+    n = b["species"].shape[0]
+    bt = to_device(b, device)
+    # the E(3) check: the reference test's rotation, a translation
+    a, c, d = 0.3, 1.1, -0.7
+    Rz = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                   [0, 0, 1]])
+    Ry = np.array([[np.cos(c), 0, np.sin(c)], [0, 1, 0],
+                   [-np.sin(c), 0, np.cos(c)]])
+    Rx = np.array([[1, 0, 0], [0, np.cos(d), -np.sin(d)],
+                   [0, np.sin(d), np.cos(d)]])
+    R = (Rz @ Ry @ Rx).astype(np.float32)
+    pos2 = (b["positions"] @ R.T + np.float32([1.0, -2.0, 0.5])).astype(
+        np.float32)
+    with torch.no_grad():
+        e1, f1 = EQ.energy_and_forces(params, cfg, bt["species"],
+                                      bt["positions"], bt["src"], bt["dst"],
+                                      n)
+        e2, f2 = EQ.energy_and_forces(params, cfg, bt["species"],
+                                      dev(pos2, device), bt["src"], bt["dst"],
+                                      n)
+    e1, e2 = float(e1), float(e2)
+    f1r, f2 = f1.cpu().numpy() @ R.T, f2.cpu().numpy()
+    e_rel = abs(e1 - e2) / abs(e2)
+    f_err = np.abs(f1r - f2)
+    f_ratio = float((f_err / (E3_TOL["force_atol"]
+                              + E3_TOL["force_rtol"] * np.abs(f2))).max())
+    if not (e_rel <= E3_TOL["energy_rtol"] and f_ratio <= 1.0
+            and np.isfinite(f2).all()):
+        fail(f"nequip (d): the E(3) check failed: energy relative {e_rel}, "
+             f"forces at {f_ratio} of their tolerance ({E3_TOL})")
+    # the double backward, card against the card host's CPU
+    rng = np.random.default_rng(3)
+    mask = np.ones(n, np.float32)
+    mask[-1] = 0.0
+    lb = {k: b[k] for k in ("species", "positions", "src", "dst",
+                            "graph_id", "energy")}
+    lb["forces"] = rng.standard_normal((n, 3)).astype(np.float32)
+    lb["node_mask"] = mask
+    def double_backward(where):
+        dv = torch.device("cpu") if where == "cpu" else device
+        p = p_cpu if where == "cpu" else params
+        t = time.perf_counter()
+        loss = EQ.energy_loss(p, cfg, to_device(lb, dv))
+        g = torch.autograd.grad(loss, tree.leaves(p), allow_unused=True,
+                                materialize_grads=True)
+        sync(dv)
+        return (float(loss.detach()), [x.cpu() for x in g],
+                1e3 * (time.perf_counter() - t))
+
+    def worst(got, want):
+        """(largest error of a leaf over its largest CPU gradient, the
+        leaf), over the leaves the loss reaches."""
+        return max((float((a - b).abs().max() / b.abs().max()), k)
+                   for k, a, b in zip(tree.flatten_with_paths(p_cpu), got,
+                                      want) if b.abs().max() > 0)
+
+    grads = {w: double_backward(w) for w in ("cpu", "card")}
+    loss_rel = abs(grads["card"][0] - grads["cpu"][0]) / abs(grads["cpu"][0])
+    grad_rel, grad_leaf = worst(grads["card"][1], grads["cpu"][1])
+    if not (loss_rel <= NEQUIP_CPU_REL and grad_rel <= NEQUIP_CPU_REL):
+        # which side moved: each computed again, its bits compared
+        again = {w: double_backward(w) for w in grads}
+        same = {w: again[w][0] == grads[w][0] and all(
+            torch.equal(a, b) for a, b in zip(again[w][1], grads[w][1]))
+            for w in grads}
+        fail(f"nequip (d): the double backward on the card is {loss_rel} "
+             f"(loss: card {grads['card'][0]}, CPU {grads['cpu'][0]}) / "
+             f"{grad_rel} (gradients, of a leaf's largest, at {grad_leaf[0]}) "
+             f"from the CPU's, over {NEQUIP_CPU_REL}; computed again, each "
+             f"side repeats its bits: {same}")
+    # training steps, as the launcher's energy_loss (no forces)
+    stream = DP.MoleculeStream(**mol)
+    opt = OptimizerConfig(**NEQUIP_OPT)
+
+    def loss_fn(p, bb):
+        return EQ.energy_loss(p, cfg, bb)
+    params, losses, ms = train_steps(loss_fn, params, stream, device,
+                                     NEQUIP_STEPS, opt)
+    split = step_split(loss_fn, params, stream, device, opt,
+                       median_after_first(ms))
+    if not all(np.isfinite(losses)):
+        fail(f"nequip (d): a loss is not finite: {losses}")
+    step_ms = median_after_first(ms)
+    E = int(b["src"].shape[0])
+    # the segment sum with every id in range: the sorted scatter's bits
+    x = torch.randn((E, cfg.channels, 5), generator=torch.Generator(
+        device=device).manual_seed(1), device=device)
+    ids = bt["dst"]
+    plain = x.new_zeros((n,) + tuple(x.shape[1:]))
+    if device.type == "cuda":
+        plain.index_put_((ids.long(),), x, accumulate=True)
+    else:
+        plain.index_add_(0, ids, x)
+    if not torch.equal(GNN.segment_sum(x, ids, n), plain):
+        fail("nequip (d): segment_sum with every id in range is not the "
+             "plain sorted scatter bit for bit")
+    return {"layers": cfg.n_layers, "channels": cfg.channels,
+            "l_max": cfg.l_max, "n_rbf": cfg.n_rbf, "paths": len(cfg.paths),
+            "molecules": mol["batch"], "n_nodes": n, "n_edges": E,
+            "e3": {"energy": e1, "energy_rel_err": e_rel,
+                   "force_max_abs_err": float(f_err.max()),
+                   "force_max": float(np.abs(f2).max()),
+                   "force_share_of_tolerance": f_ratio},
+            "double_backward": {"loss_card": grads["card"][0],
+                                "loss_cpu": grads["cpu"][0],
+                                "loss_rel_err": loss_rel,
+                                "grad_rel_err": grad_rel,
+                                "grad_worst_leaf": grad_leaf[0],
+                                "card_ms_first_call": grads["card"][2]},
+            "losses": losses, "step_ms": ms, "ms_per_step": step_ms,
+            "step_split": split, "segment_sum_bit_equal": True,
+            **peak_shares(gnn_model_flops("nequip", cfg, n, E), step_ms)}
+
+
+def phase_models(device, card: str, rehearse: bool) -> tuple:
+    """Phase 5l: (a)-(c) ``dcn-v2`` and (d) ``nequip`` at full width on the
+    card.  No kernel of the port lies on this path (the reference computes
+    both models in jnp): the launch counts are zeroed before and read
+    after, and must be all 0.  Returns (row, counts)."""
+    t0 = time.perf_counter()
+    zero_counts()
+    train, params, cfg = models_recsys_train(device, rehearse)
+    log("models", json.dumps({"dcn_v2_train": train, "card": card}))
+    serve = models_recsys_serve(device, params, cfg, rehearse)
+    log("models", json.dumps({"dcn_v2_serve": serve, "card": card}))
+    del params
+    restart = models_recsys_restart(device, rehearse)
+    log("models", json.dumps({"dcn_v2_restart": restart, "card": card}))
+    nequip = models_nequip(device, rehearse)
+    log("models", json.dumps({"nequip": nequip, "card": card}))
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"models: the dcn-v2 / nequip path launched kernels {counts}")
+    row = {"card": card, "dcn_v2_train": train, "dcn_v2_serve": serve,
+           "dcn_v2_restart": restart, "nequip": nequip, "launches": counts,
+           "seconds": time.perf_counter() - t0}
+    log("models", f"phase 5l: {row['seconds']} s, launches of the port's "
+                  f"kernels {counts}")
+    return row, counts
 
 
 def exact_launch_counts(what: str, res):
@@ -4841,6 +5346,10 @@ def main() -> int:
         log("golden", f"LM smoke training within {LM_GOLDEN_TOL} of "
                       f"tests/torch_golden.json's lm_train: "
                       f"{json.dumps(lm_golden)}")
+        models_golden = phase_golden_models(device)
+        log("golden", f"smoke nequip / dcn-v2 within {MODELS_GOLDEN_TOL} of "
+                      f"tests/torch_golden.json's models: "
+                      f"{json.dumps(models_golden)}")
 
         # ---- phase 5: main path ----
         if args.rmat_scale != 24:
@@ -4938,6 +5447,9 @@ def main() -> int:
         lm_row, counts_lm_train, counts_lm_32b = phase_lm(
             device, card, args.rehearse)
 
+        # ---- phase 5l: dcn-v2 and nequip at full width ----
+        models_row, counts_models = phase_models(device, card, args.rehearse)
+
         # ---- phase 6: kernel times ----
         slot_row = phase_times_slots(device, svc_states, cmp, launch)
         del svc_states
@@ -4955,7 +5467,8 @@ def main() -> int:
              "distributed": dist_path.counts,
              "distance2_compact": counts_d2,
              "serve": counts_serve, "aggregate": counts_agg, **counts_svc,
-             "lm_train": counts_lm_train, "lm_serve_32b": counts_lm_32b}
+             "lm_train": counts_lm_train, "lm_serve_32b": counts_lm_32b,
+             "models": counts_models}
     kernels = kernels_line(kept, time_rows, model_rows, paths, designs, cmp,
                            t1_path, slot_row, svc_path)
     if args.rehearse:
@@ -4974,6 +5487,7 @@ def main() -> int:
     print(json.dumps({"aggregate_path": agg_row}), flush=True)
     print(json.dumps({"gnn_train_path": gnn_row}), flush=True)
     print(json.dumps({"lm_path": lm_row}), flush=True)
+    print(json.dumps({"models_path": models_row}), flush=True)
     print(json.dumps({"kernel_times": time_rows + model_rows + [slot_row]}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

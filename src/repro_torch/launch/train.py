@@ -4,15 +4,19 @@
 Runs real training on one device: config registry -> data pipeline ->
 train step -> checkpointing -> watchdog.  An LM trains its smoke config, or
 with ``--full`` its published one, on a ``TokenStream`` of ``--batch``
-sequences of ``--seq-len`` tokens (``build_lm``).  As in the reference,
-``--full``, ``--batch`` and ``--seq-len`` do not change the GNN path (it
-always trains the smoke config on ``mesh2d(24, 24)``); a full-width GNN run
-goes through the module functions.  ``--device`` defaults to the card
+sequences of ``--seq-len`` tokens (``build_lm``); ``dcn-v2`` its smoke or
+full config on a ``RecsysStream`` of ``--batch`` examples
+(``build_recsys``).  As in the reference, ``--full`` and ``--seq-len`` do
+not change the GNN path: ``gat-cora``, ``meshgraphnet`` and ``gatedgcn``
+train their smoke config on ``mesh2d(24, 24)``, ``nequip`` its smoke
+config on a ``MoleculeStream`` of ``--batch`` molecules, one batch of which
+is drawn before training starts (the reference's ``b0``); a full-width GNN
+run goes through the module functions.  ``--device`` defaults to the card
 (CUDA, or an error without one); ``--device cpu`` runs on the CPU.
 
-Ported families: the LMs ``qwen3-1.7b`` and ``qwen3-32b`` and the GNNs
-``gat-cora``, ``meshgraphnet`` and ``gatedgcn``.  Recsys training and
-``nequip`` raise ``NotImplementedError`` naming their ROADMAP item.
+Ported: every arch of the reference but MoE / MLA (``minicpm3-4b``,
+``phi3.5-moe-42b-a6.6b``, ``qwen2-moe-a2.7b``), which raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Fault-tolerance wiring (the reference's):
   * checkpoint every --ckpt-every steps (async, atomic) + data-stream state;
@@ -35,15 +39,12 @@ import torch
 from repro_torch import configs
 from repro_torch.api import _resolve_device
 from repro_torch.data import pipeline as DP
+from repro_torch.models import equivariant as EQ
 from repro_torch.models import gnn as GNN
+from repro_torch.models import recsys as RS
 from repro_torch.models import transformer as TF
 from repro_torch.training import train_loop as TL
 from repro_torch.training.optimizer import OptimizerConfig
-
-_NOT_PORTED_FAMILIES = {
-    "recsys": "recsys training is not ported yet (ROADMAP queue A.5.3: "
-              "models/recsys.py with dcn_v2)",
-}
 
 
 def build_lm(arch_def, smoke: bool, batch: int, seq_len: int, device):
@@ -57,14 +58,36 @@ def build_lm(arch_def, smoke: bool, batch: int, seq_len: int, device):
     return params, stream, lambda p, b: TF.train_step_loss(p, cfg, b)
 
 
-def build_gnn(arch_def, device):
-    """(params, stream, loss) of a GNN arch: its smoke config on
-    ``mesh2d(24, 24)``, as the reference's ``build_gnn`` gives for any
-    ``smoke`` / ``batch``."""
+def build_recsys(arch_def, smoke: bool, batch: int, device):
+    """(params, stream, loss) of ``dcn-v2`` (the reference's
+    ``build_recsys``): its smoke or full config, weights from
+    ``torch.Generator`` seed 0 on ``device``, a ``RecsysStream`` of
+    ``batch`` examples, the click loss."""
+    cfg = arch_def.make_smoke() if smoke else arch_def.make_full()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = RS.dcnv2_init(gen, cfg, device)
+    stream = DP.RecsysStream(batch=batch, n_dense=cfg.n_dense,
+                             n_sparse=cfg.n_sparse, vocabs=cfg.vocabs,
+                             max_hots=cfg.max_hots)
+    return params, stream, lambda p, b: RS.ctr_loss(p, cfg, b)
+
+
+def build_gnn(arch_def, device, batch: int = 8):
+    """(params, stream, loss) of a GNN arch, as the reference's
+    ``build_gnn`` gives for any ``smoke``: its smoke config, on
+    ``mesh2d(24, 24)``, or for ``nequip`` on a ``MoleculeStream`` of
+    ``batch`` molecules whose first batch is drawn here (the reference's
+    ``b0 = next(stream)``: training starts at stream step 1)."""
     from repro_torch.graphs.generators import mesh2d
     model = arch_def.extras["model"]
+    gen = torch.Generator(device=device).manual_seed(0)
     if model == "nequip":
-        raise NotImplementedError(configs.NOT_PORTED["nequip"])
+        cfg = arch_def.make_smoke()
+        stream = DP.MoleculeStream(n_nodes=10, n_edges=24, batch=batch,
+                                   n_species=cfg.n_species, d_feat=0)
+        next(stream)
+        params = EQ.nequip_init(gen, cfg, device)
+        return params, stream, lambda p, b: EQ.energy_loss(p, cfg, b)
     cfg = arch_def.make_smoke()
     g = mesh2d(24, 24)
     stream = DP.FullGraphStream(g, d_feat=cfg.d_in,
@@ -73,7 +96,6 @@ def build_gnn(arch_def, device):
                                 pad_edges_to=1024)
     init = {"gat": GNN.gat_init, "mgn": GNN.mgn_init,
             "gatedgcn": GNN.gatedgcn_init}[model]
-    gen = torch.Generator(device=device).manual_seed(0)
     params = init(gen, cfg, device)
     shp = {"mode": "full", "d_feat": cfg.d_in, "n_classes": 3}
     loss_fn = GNN.gnn_loss_fn(arch_def, shp, cfg, g.n_vertices + 1)
@@ -96,7 +118,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=50)
-    # --batch and --seq-len size the LM stream
+    # --batch sizes the LM, recsys and nequip streams, --seq-len the LM's
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -104,8 +126,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--full", action="store_true",
-                    help="full config (LMs; the GNN path trains the smoke "
-                         "config either way, as the reference's)")
+                    help="full config (LMs, dcn-v2; the GNN path trains the "
+                         "smoke config either way, as the reference's)")
     ap.add_argument("--step-timeout", type=float, default=10.0,
                     help="abort (exit 75) if a step exceeds this many x the "
                          "trailing-median step time (straggler watchdog)")
@@ -117,9 +139,6 @@ def main(argv=None) -> int:
         raise NotImplementedError(f"{args.arch}: "
                                   f"{configs.NOT_PORTED[args.arch]}")
     arch_def = configs.get(args.arch)
-    if arch_def.family in _NOT_PORTED_FAMILIES:
-        raise NotImplementedError(f"{args.arch}: "
-                                  f"{_NOT_PORTED_FAMILIES[arch_def.family]}")
     if args.device is None and not torch.cuda.is_available():
         raise RuntimeError("repro_torch.launch.train runs on CUDA by default "
                            "and no GPU is available; pass --device cpu")
@@ -127,8 +146,11 @@ def main(argv=None) -> int:
     if arch_def.family == "lm":
         params, stream, loss = build_lm(arch_def, not args.full, args.batch,
                                         args.seq_len, device)
+    elif arch_def.family == "recsys":
+        params, stream, loss = build_recsys(arch_def, not args.full,
+                                            args.batch, device)
     else:
-        params, stream, loss = build_gnn(arch_def, device)
+        params, stream, loss = build_gnn(arch_def, device, args.batch)
 
     opt_cfg = OptimizerConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                               total_steps=args.steps)

@@ -92,10 +92,14 @@ def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def segment_sum(data: torch.Tensor, seg: torch.Tensor, n: int):
-    """``jax.ops.segment_sum(data, seg, n)`` for ids in [0, n); the sum is
-    deterministic (see the module's docstring).  Its gradient is a row
-    gather, which has no collisions."""
-    return _scatter_add(data, seg, n, _ATOMIC.get())
+    """``jax.ops.segment_sum(data, seg, n)``: an id outside [0, n)
+    contributes nothing (``MoleculeStream``'s sink has ``graph_id`` n).
+    Such ids go to an extra row n, dropped after the scatter, so there is no
+    host sync, and where every id is in range the rows get the same adds
+    in the same order.  The sum is deterministic (see the module's
+    docstring).  Its gradient is a row gather, which has no collisions."""
+    seg = torch.where((seg >= 0) & (seg < n), seg, n)
+    return _scatter_add(data, seg, n + 1, _ATOMIC.get())[:n]
 
 
 def segment_max(data: torch.Tensor, seg: torch.Tensor, n: int):
@@ -405,14 +409,13 @@ def node_regression_loss(pred, target, mask=None):
 def gnn_loss_fn(arch_def, shp: dict, cfg, n_nodes: int):
     """``loss(params, batch)`` of a GNN train cell (the reference's
     ``launch/cells.py::_gnn_loss_fn``): node classification for the full
-    and sampled modes, a per-graph energy regression for batched molecules.
-    ``nequip`` is not ported (ROADMAP A.5, item 2)."""
+    and sampled modes, a per-graph energy regression for batched molecules
+    (the sink's ``graph_id``, outside the graphs, is dropped); ``nequip``'s
+    scalar head regresses ``labels % 2`` outside the batched mode."""
     model = arch_def.extras["model"]
     mode = shp["mode"]
-    if model not in ("gat", "mgn", "gatedgcn"):
-        raise NotImplementedError(
-            f"GNN model {model!r} is not ported yet (ROADMAP queue A.5: "
-            f"models/equivariant.py with nequip)")
+    if model not in ("gat", "mgn", "gatedgcn", "nequip"):
+        raise ValueError(model)
 
     def forward(params, batch):
         if model == "gat":
@@ -422,6 +425,13 @@ def gnn_loss_fn(arch_def, shp: dict, cfg, n_nodes: int):
             return mgn_apply(params, cfg, batch["feats"],
                              batch["edge_feats"], batch["src"], batch["dst"],
                              n_nodes)
+        if model == "nequip":
+            from repro_torch.models import equivariant as EQ
+            e = EQ.nequip_apply(params, cfg, batch["species"],
+                                batch["positions"], batch["src"],
+                                batch["dst"], n_nodes,
+                                scalar_feats=batch.get("feats"))
+            return e[:, None]                     # (N, 1) scalar head
         return gatedgcn_apply(params, cfg, batch["feats"], batch["src"],
                               batch["dst"], n_nodes)
 
@@ -431,6 +441,10 @@ def gnn_loss_fn(arch_def, shp: dict, cfg, n_nodes: int):
             e_graph = segment_sum(out.mean(-1), batch["graph_id"],
                                   batch["energy"].shape[0])
             return ((e_graph - batch["energy"]) ** 2).mean()
+        if model == "nequip":                     # regression head elsewhere
+            tgt = (batch["labels"] % 2).to(torch.float32)
+            pred = out[: tgt.shape[0], 0]
+            return ((pred - tgt) ** 2).mean()
         n_lab = batch["labels"].shape[0]
         mask = batch.get("train_mask")
         mask = mask[:n_lab] if mask is not None else None

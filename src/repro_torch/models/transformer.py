@@ -107,6 +107,16 @@ class TransformerConfig:
             ffn = 3 * d * self.d_ff
         return self.n_layers * (attn + ffn + 2 * d) + self.vocab * d + d
 
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if not self.moe:
+            return self.n_params()
+        d = self.d_model
+        full = self.n_params()
+        E, k = self.moe.n_experts, self.moe.top_k
+        expert_p = 3 * d * self.moe.d_ff_expert
+        return full - self.n_layers * (E - k) * expert_p
+
 
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise for a setting the port does not have yet (no silent stand-in)."""

@@ -54,6 +54,17 @@ element of its largest first gradient (where Adam's step has a definite
 sign) (``reference_lm_train`` / ``port_lm_train``).  ``python
 tests/make_torch_golden.py --lm-section`` adds or remakes this section
 alone, leaving the others byte for byte.
+
+One more holds the smoke ``nequip`` and ``dcn-v2``: ``models``.  Per arch
+of ``MODELS_ARCHS``: the ``MODELS_STEPS`` batches its smoke stream draws,
+stored (``models_draw``; a molecule batch without its sink -> sink
+padding, which ``models_batches`` restores, and with a seeded ``forces``
+label and ``node_mask``); weights from ``gnn_leaf_values``; the first
+batch's forward, the whole gradient of one leaf (``MODELS_GRAD_LEAF``;
+nequip's through the forces, a double backward) and ``MODELS_STEPS`` steps
+of ``train_loop.run``'s losses (``reference_models`` / ``port_models``).
+``python tests/make_torch_golden.py --models-section`` adds or remakes
+this section alone, leaving the others byte for byte.
 """
 import hashlib
 import json
@@ -473,6 +484,209 @@ def port_lm_train(device, section: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# nequip and dcn-v2: the smoke models' forward, one gradient, three steps
+# --------------------------------------------------------------------------
+
+MODELS_ARCHS = ("nequip", "dcn-v2")
+MODELS_STEPS = 3
+MODELS_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=MODELS_STEPS)
+MOL_STREAM = dict(n_nodes=6, n_edges=12, batch=3)   # + sink, 8192 edges
+DCN_BATCH = 16
+# the leaf whose whole gradient the section keeps
+MODELS_GRAD_LEAF = {"nequip": "['species_embed']", "dcn-v2": "['mlp_w'][1]"}
+
+
+def models_draw(arch: str, dp) -> list:
+    """The ``MODELS_STEPS`` batches of ``arch``'s smoke stream (``dp``: a
+    package's ``data.pipeline``) in the section's stored form: lists, and a
+    molecule batch's edges without the sink -> sink padding, with a
+    ``forces`` label and a ``node_mask`` (0 on the sink) from seed 3."""
+    out = []
+    if arch == "nequip":
+        stream = dp.MoleculeStream(n_species=4, d_feat=0, **MOL_STREAM)
+        n_real = MOL_STREAM["batch"] * MOL_STREAM["n_edges"]
+        rng = np.random.default_rng(3)
+        for _ in range(MODELS_STEPS):
+            b = next(stream)
+            n = b["species"].shape[0]
+            assert (b["src"][n_real:] == n - 1).all()
+            mask = np.ones(n, np.float32)
+            mask[-1] = 0.0
+            out.append({
+                "positions": b["positions"].tolist(),
+                "species": b["species"].tolist(),
+                "src": b["src"][:n_real].tolist(),
+                "dst": b["dst"][:n_real].tolist(),
+                "n_edges_padded": int(b["src"].shape[0]),
+                "graph_id": b["graph_id"].tolist(),
+                "energy": b["energy"].tolist(),
+                "forces": rng.standard_normal((n, 3)).astype(
+                    np.float32).tolist(),
+                "node_mask": mask.tolist()})
+        return out
+    stream = dp.RecsysStream(batch=DCN_BATCH, n_dense=13, n_sparse=6,
+                             vocabs=[1000] * 6, max_hots=2)
+    for _ in range(MODELS_STEPS):
+        out.append({k: v.tolist() for k, v in next(stream).items()})
+    return out
+
+
+def models_batches(arch: str, stored: list) -> list:
+    """The stored batches as numpy stream batches (a molecule batch's
+    sink -> sink padding restored); the ``forces`` label and ``node_mask``
+    are kept apart: ``(batch, extra)`` pairs."""
+    out = []
+    for e in stored:
+        if arch == "nequip":
+            n = len(e["species"])
+            pad = e["n_edges_padded"] - len(e["src"])
+            b = {"positions": np.asarray(e["positions"], np.float32),
+                 "species": np.asarray(e["species"], np.int32),
+                 "src": np.asarray(e["src"] + [n - 1] * pad, np.int32),
+                 "dst": np.asarray(e["dst"] + [n - 1] * pad, np.int32),
+                 "graph_id": np.asarray(e["graph_id"], np.int32),
+                 "energy": np.asarray(e["energy"], np.float32)}
+            extra = {"forces": np.asarray(e["forces"], np.float32),
+                     "node_mask": np.asarray(e["node_mask"], np.float32)}
+        else:
+            b = {"dense": np.asarray(e["dense"], np.float32),
+                 "sparse": np.asarray(e["sparse"], np.int32),
+                 "labels": np.asarray(e["labels"], np.int32)}
+            extra = {}
+        out.append((b, extra))
+    return out
+
+
+def models_summary(stored, forward, grad, losses) -> dict:
+    """The ``models`` entry of one arch: the stored batches, the first
+    batch's forward, the whole gradient of its ``MODELS_GRAD_LEAF`` (with
+    its largest magnitude), the loss history."""
+    g = np.asarray(grad, np.float32)
+    return {"batches": stored,
+            "forward": np.asarray(forward, np.float32).ravel().tolist(),
+            "grad": {"values": g.ravel().tolist(),
+                     "absmax": float(np.abs(g).max())},
+            "losses": [float(x) for x in losses]}
+
+
+def reference_models() -> dict:
+    """``{arch: models_summary}`` of the reference for ``MODELS_ARCHS``: the
+    smoke config, weights from ``gnn_leaf_values``; the first batch's
+    forward (nequip: per-node energies, the sink's masked: its 8,156
+    self-loops make it thousands of times the others; dcn-v2: logits), the
+    gradient of
+    the loss (nequip: ``energy_loss`` with the ``forces`` label and
+    ``node_mask``, a double backward; dcn-v2: ``ctr_loss``) at
+    ``MODELS_GRAD_LEAF``, then ``MODELS_STEPS`` steps of ``train_loop.run``
+    over the batches (nequip: ``energy_loss`` without forces, as the
+    launcher trains)."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs
+    from repro.data import pipeline as DP
+    from repro.models import equivariant as EQ
+    from repro.models import recsys as RS
+    from repro.training import train_loop as TL
+    from repro.training.optimizer import OptimizerConfig
+
+    out = {}
+    for arch in MODELS_ARCHS:
+        cfg = configs.get(arch).make_smoke()
+        if arch == "nequip":
+            params = EQ.nequip_init(jax.random.PRNGKey(0), cfg)
+            fwd = jax.jit(lambda p, b, cfg=cfg: EQ.nequip_apply(
+                p, cfg, b["species"], b["positions"], b["src"], b["dst"],
+                b["species"].shape[0], node_mask=b["node_mask"]))
+            loss_fn = jax.jit(lambda p, b, cfg=cfg: EQ.energy_loss(p, cfg, b))
+        else:
+            params = RS.dcnv2_init(jax.random.PRNGKey(0), cfg)
+            fwd = jax.jit(lambda p, b, cfg=cfg: RS.dcnv2_forward(
+                p, cfg, b["dense"], b["sparse"]))
+            loss_fn = jax.jit(lambda p, b, cfg=cfg: RS.ctr_loss(p, cfg, b))
+        flat, tdef = jax.tree_util.tree_flatten_with_path(params)
+        paths = [jax.tree_util.keystr(p) for p, _ in flat]
+        vals = gnn_leaf_values([(k, np.shape(x))
+                                for k, (_, x) in zip(paths, flat)])
+        params = jax.tree_util.tree_unflatten(
+            tdef, [jnp.asarray(vals[k]) for k in paths])
+        stored = models_draw(arch, DP)
+        batches = models_batches(arch, stored)
+        b0, extra = batches[0]
+        b0 = jax.tree.map(jnp.asarray, dict(b0, **extra))
+        g = jax.grad(loss_fn)(params, b0)
+        grad = dict(zip(paths, jax.tree_util.tree_leaves(g)))[
+            MODELS_GRAD_LEAF[arch]]
+        forward = np.asarray(fwd(params, b0))   # the run donates params
+        _, _, hist = TL.run(
+            loss_fn, params, iter([b for b, _ in batches]),
+            OptimizerConfig(**MODELS_OPT),
+            TL.TrainLoopConfig(total_steps=MODELS_STEPS, log_every=1),
+            to_device=lambda b: jax.tree.map(jnp.asarray, b))
+        out[arch] = models_summary(stored, forward, grad,
+                                   [h["loss"] for h in hist])
+    return out
+
+
+def port_models(device, section: dict) -> dict:
+    """``reference_models`` of the port on ``device``, over the batches
+    stored in ``section`` (the file's ``models``)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch import tree
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import equivariant as EQ
+    from repro_torch.models import recsys as RS
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    out = {}
+    for arch in MODELS_ARCHS:
+        cfg = configs.get(arch).make_smoke()
+        gen = torch.Generator(device=device).manual_seed(0)
+        if arch == "nequip":
+            params = EQ.nequip_init(gen, cfg, device)
+
+            def fwd(p, b, cfg=cfg):
+                return EQ.nequip_apply(p, cfg, b["species"], b["positions"],
+                                       b["src"], b["dst"],
+                                       b["species"].shape[0],
+                                       node_mask=b["node_mask"])
+
+            def loss_fn(p, b, cfg=cfg):
+                return EQ.energy_loss(p, cfg, b)
+        else:
+            params = RS.dcnv2_init(gen, cfg, device)
+
+            def fwd(p, b, cfg=cfg):
+                return RS.dcnv2_forward(p, cfg, b["dense"], b["sparse"])
+
+            def loss_fn(p, b, cfg=cfg):
+                return RS.ctr_loss(p, cfg, b)
+        flat = tree.flatten_with_paths(params)
+        vals = gnn_leaf_values([(k, tuple(x.shape)) for k, x in flat])
+        with torch.no_grad():
+            for k, x in flat:
+                x.copy_(torch.from_numpy(vals[k]))
+        stored = section[arch]["batches"]
+        batches = models_batches(arch, stored)
+        b0, extra = batches[0]
+        b0 = to_device(dict(b0, **extra), device)
+        loss = loss_fn(params, b0)
+        leaf = dict(flat)[MODELS_GRAD_LEAF[arch]]
+        (grad,) = torch.autograd.grad(loss, [leaf])
+        with torch.no_grad():
+            forward = fwd(params, b0).cpu()
+        _, _, hist = TL.run(
+            loss_fn, params, iter([b for b, _ in batches]),
+            OptimizerConfig(**MODELS_OPT),
+            TL.TrainLoopConfig(total_steps=MODELS_STEPS, log_every=1),
+            to_device=lambda b: to_device(b, device))
+        out[arch] = models_summary(stored, forward, grad.cpu(),
+                                   [h["loss"] for h in hist])
+    return out
+
+
 def write(doc: dict) -> None:
     with open(PATH, "w") as f:
         json.dump(doc, f, indent=1, sort_keys=True)
@@ -628,7 +842,8 @@ def main() -> None:
            "distributed": mesh["distributed"], "sharded": mesh["sharded"],
            "gnn": {"losses": reference_gnn_losses(),
                    "halo_loss": mesh["halo_loss"]},
-           "lm_train": reference_lm_train()}
+           "lm_train": reference_lm_train(),
+           "models": reference_models()}
     write(doc)
     print(f"wrote {PATH} ({len(doc['results'])} entries, "
           f"{len(doc['incremental'])} incremental streams, "
@@ -642,6 +857,13 @@ if __name__ == "__main__":
     import sys
     if sys.argv[1:] == ["--mesh-sections"]:
         print(json.dumps(mesh_sections()))
+    elif sys.argv[1:] == ["--models-section"]:
+        with open(PATH) as f:
+            doc = json.load(f)
+        doc["models"] = reference_models()
+        write(doc)
+        print(f"wrote the models section of {PATH} "
+              f"({len(doc['models'])} smoke models)")
     elif sys.argv[1:] == ["--lm-section"]:
         with open(PATH) as f:
             doc = json.load(f)

@@ -287,7 +287,53 @@ def test_scatter_mode_scope():
     assert not torch.are_deterministic_algorithms_enabled()
 
 
-@pytest.mark.parametrize("arch", ["gat-cora", "meshgraphnet", "gatedgcn"])
+def test_segment_sum_drops_ids_outside_the_segments():
+    """Ids outside [0, n) contribute nothing, as in ``jax.ops.segment_sum``
+    (and their rows get no gradient); with every id in range the sum is bit
+    for bit the plain scatter into n rows."""
+    rng = np.random.default_rng(5)
+    n = 9
+    x = rng.standard_normal((60, 3)).astype(np.float32)
+    seg = rng.integers(-3, n + 3, 60).astype(np.int32)
+    want = jax.jit(lambda d, i: jax.ops.segment_sum(d, i, n))(x, seg)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = TG.segment_sum(xt, torch.from_numpy(seg), n)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
+    (g,) = torch.autograd.grad(got.sum(), [xt])
+    inside = (seg >= 0) & (seg < n)
+    assert (g.numpy()[~inside] == 0).all() and (g.numpy()[inside] == 1).all()
+    ok = torch.from_numpy(np.where(inside, seg, 0))
+    plain = torch.zeros(n, 3).index_add_(0, ok, torch.from_numpy(x))
+    assert torch.equal(TG.segment_sum(torch.from_numpy(x), ok, n), plain)
+
+
+def test_batched_loss_on_a_molecule_batch_equals_the_reference():
+    """``gnn_loss_fn``'s "batched" mode on ``MoleculeStream``'s own layout:
+    its sink node has ``graph_id`` B, outside the B graphs, which the
+    reference's segment sum drops (the port raised ``IndexError`` on it)."""
+    from repro import configs as jconfigs
+    from repro.launch.cells import _gnn_loss_fn
+    from repro_torch import configs as tconfigs
+    cfg = jconfigs.get("gatedgcn").make_smoke()
+    b = next(JDP.MoleculeStream(n_nodes=8, n_edges=16, batch=4, n_species=4,
+                                d_feat=cfg.d_in))
+    assert b["graph_id"][-1] == 4
+    n = b["species"].shape[0]
+    shp = {"mode": "batched", "d_feat": cfg.d_in, "n_classes": 3}
+    pj = JG.gatedgcn_init(jax.random.PRNGKey(0), cfg)
+    want = float(jax.jit(_gnn_loss_fn(jconfigs.get("gatedgcn"), shp, cfg, n))(
+        pj, jax.tree.map(jnp.asarray, b)))
+    assert want == pytest.approx(108.454, abs=1e-3)
+    pt = TG.params_from_reference("gatedgcn", jax.tree.map(np.asarray, pj))
+    got = TG.gnn_loss_fn(tconfigs.get("gatedgcn"), shp,
+                         TG.GatedGCNConfig(**vars(cfg)), n)(
+        pt, {k: torch.from_numpy(v) for k, v in b.items()})
+    np.testing.assert_allclose(float(got.detach()), want, **FWD_TOL)
+
+
+@pytest.mark.parametrize("arch", ["gat-cora", "meshgraphnet", "gatedgcn",
+                                  "nequip"])
 def test_gnn_configs_equal_the_reference(arch):
     from repro import configs as jconfigs
     from repro_torch import configs as tconfigs

@@ -4,8 +4,8 @@ JAX reference package produces today and what the port produces on the CPU.
 ``chip_smoke.py`` holds the port's output on a GPU against the same file,
 which is how the card's results are tied to the reference's without JAX on
 that machine.  Integer results and a SHA-256 of the color bytes: the bar is
-equality; the ``gnn`` and ``lm_train`` sections' float values are held to
-stated tolerances.
+equality; the ``gnn``, ``lm_train`` and ``models`` sections' float values
+are held to stated tolerances.
 Regenerate with ``tests/make_torch_golden.py``.
 """
 import importlib.util
@@ -250,6 +250,55 @@ def test_golden_lm_train_equals_port():
     ``lm_leaf_values`` weights over the file's batches."""
     check_lm_train(make_torch_golden.port_lm_train("cpu", GOLDEN_LM),
                    GOLDEN_LM, LM_TOL, "port")
+
+
+GOLDEN_MODELS = _DOC["models"]
+# the port's smoke nequip / dcn-v2 against the reference's (float32 in
+# another order; measured on the CPU at about 1e-7 on the forward and the
+# losses, 1e-7 of the leaf's largest gradient)
+MODELS_TOL = dict(forward_rel=1e-5, grad_rel=1e-4, loss_rtol=1e-4)
+
+
+def check_models(got: dict, want: dict, tol: dict, who: str):
+    """``got`` (``models_summary`` of each arch) against the file's
+    entries: the forward within ``forward_rel`` of its largest magnitude,
+    the leaf's gradient within ``grad_rel`` of its largest, the losses
+    within ``loss_rtol``."""
+    assert sorted(got) == sorted(want), who
+    for arch, w in want.items():
+        g = got[arch]
+        assert g["batches"] == w["batches"], (who, arch)
+        fwd = np.abs(w["forward"]).max()
+        np.testing.assert_allclose(g["forward"], w["forward"], rtol=0,
+                                   atol=tol["forward_rel"] * fwd,
+                                   err_msg=f"{who} {arch} forward")
+        np.testing.assert_allclose(g["grad"]["values"], w["grad"]["values"],
+                                   rtol=0,
+                                   atol=tol["grad_rel"] * w["grad"]["absmax"],
+                                   err_msg=f"{who} {arch} gradient")
+        assert len(w["losses"]) == make_torch_golden.MODELS_STEPS
+        np.testing.assert_allclose(g["losses"], w["losses"],
+                                   rtol=tol["loss_rtol"],
+                                   err_msg=f"{who} {arch} losses")
+
+
+def test_golden_models_equal_reference():
+    """The reference today gives the file's ``models`` section (1e-6: the
+    same program), its batches drawn anew equal to the stored ones."""
+    assert sorted(GOLDEN_MODELS) == sorted(make_torch_golden.MODELS_ARCHS)
+    check_models(make_torch_golden.reference_models(), GOLDEN_MODELS,
+                 dict(forward_rel=1e-6, grad_rel=1e-6, loss_rtol=1e-6),
+                 "reference package")
+
+
+def test_golden_models_equal_port():
+    """The port on the CPU within ``MODELS_TOL`` of the file's section:
+    the smoke nequip's per-node energies, its ``species_embed`` gradient
+    through the forces and three steps' losses; the smoke dcn-v2's logits,
+    a deep-tower gradient and three steps' losses; over the stored
+    batches, from ``gnn_leaf_values`` weights."""
+    check_models(make_torch_golden.port_models("cpu", GOLDEN_MODELS),
+                 GOLDEN_MODELS, MODELS_TOL, "port")
 
 
 # the last test of this file: it waits for the subprocess started with the

@@ -99,7 +99,8 @@ def test_every_module_is_found():
               "repro_torch.models.gnn", "repro_torch.configs.gat_cora",
               "repro_torch.configs.gatedgcn",
               "repro_torch.configs.meshgraphnet",
-              "repro_torch.launch.train", "repro_torch.configs.qwen3_32b"):
+              "repro_torch.launch.train", "repro_torch.configs.qwen3_32b",
+              *MODELS_MODULES):
         assert m in mods, m
 
 
@@ -197,6 +198,50 @@ def test_training_module_imports_first(first, training_imports):
     leaves the GNN archs in the registry."""
     out, err = training_imports[first].communicate(timeout=240)
     assert training_imports[first].returncode == 0, err
+    assert out.startswith("ok")
+
+
+MODELS_MODULES = (
+    "repro_torch.models.equivariant", "repro_torch.models.recsys",
+    "repro_torch.configs.nequip", "repro_torch.configs.dcn_v2",
+    "repro_torch.launch.analysis", "repro_torch.launch.mesh")
+
+
+@pytest.fixture(scope="module")
+def models_imports():
+    """One fresh interpreter per module of the nequip / dcn-v2 / roofline
+    slice, all started at once, read by the cases below."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("REPRO_FAULTS", None)
+    procs = {}
+    for first in MODELS_MODULES:
+        code = (f"import {first}\n"
+                "import sys\n"
+                "from repro_torch import configs\n"
+                "from repro_torch.launch import analysis, train\n"
+                "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+                "('jax', 'jaxlib', 'repro'))\n"
+                "assert not bad, bad\n"
+                "assert {'nequip', 'dcn-v2'} <= set(configs.ARCHS)\n"
+                "assert len(configs.get('nequip').make_full().paths) == 15\n"
+                "print('ok')\n")
+        procs[first] = subprocess.Popen(
+            [sys.executable, "-c", code], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    yield procs
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+@pytest.mark.parametrize("first", MODELS_MODULES)
+def test_models_module_imports_first(first, models_imports):
+    """Each module of the nequip / dcn-v2 / roofline slice imports first in
+    a fresh interpreter, with no import cycle, pulling in neither ``jax``
+    nor the reference package, and leaves both archs in the registry."""
+    out, err = models_imports[first].communicate(timeout=240)
+    assert models_imports[first].returncode == 0, err
     assert out.startswith("ok")
 
 

@@ -74,7 +74,7 @@ def test_unported_archs_and_settings_raise():
     with pytest.raises(KeyError, match="ROADMAP"):
         tconfigs.get("minicpm3-4b")
     with pytest.raises(KeyError, match="ROADMAP"):
-        tconfigs.get("nequip")
+        tconfigs.get("qwen2-moe-a2.7b")
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get("no-such-arch")
     assert set(tconfigs.NOT_PORTED) | set(tconfigs.ARCHS) == set(

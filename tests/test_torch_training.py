@@ -370,10 +370,62 @@ def test_launcher_trains_each_gnn(arch, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen2-moe-a2.7b",
-                                  "nequip", "dcn-v2"])
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_launcher_refuses_what_is_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlaunch.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
+
+
+LAUNCH_STEPS = 3
+
+
+def _launcher_loss_history(arch):
+    """(reference, port) loss histories of the launchers' ``build_*`` for
+    ``arch`` at the launcher's defaults (batch 8; ``--steps 3``: lr 3e-4,
+    one warm-up step), every step logged, from the reference's weights."""
+    from repro.launch import train as jlaunch
+    ja, ta = jconfigs.get(arch), tconfigs.get(arch)
+    if ja.family == "recsys":
+        pj, sj, lj = jlaunch.build_recsys(ja, True, 8)
+        pt, st, lt = tlaunch.build_recsys(ta, True, 8, "cpu")
+    else:
+        pj, sj, lj = jlaunch.build_gnn(ja, True, 8)
+        pt, st, lt = tlaunch.build_gnn(ta, "cpu", 8)
+    assert st.state() == sj.state()     # nequip: one batch drawn already
+    vals = dict(zip([jax.tree_util.keystr(k) for k, _ in
+                     jax.tree_util.tree_flatten_with_path(pj)[0]],
+                    jax.tree_util.tree_leaves(jax.tree.map(np.asarray, pj))))
+    with torch.no_grad():
+        for k, x in T.flatten_with_paths(pt):
+            x.copy_(torch.from_numpy(np.array(vals[k])))
+    opt = dict(lr=3e-4, warmup_steps=1, total_steps=LAUNCH_STEPS)
+    loop = dict(total_steps=LAUNCH_STEPS, log_every=1)
+    _, _, hj = JTL.run(lj, pj, sj, JOPT.OptimizerConfig(**opt),
+                       JTL.TrainLoopConfig(**loop),
+                       to_device=lambda b: jax.tree.map(jnp.asarray, b))
+    _, _, ht = TTL.run(lt, pt, st, TOPT.OptimizerConfig(**opt),
+                       TTL.TrainLoopConfig(**loop),
+                       to_device=lambda b: tlaunch.to_device(b, "cpu"))
+    return [h["loss"] for h in hj], [h["loss"] for h in ht]
+
+
+@pytest.mark.parametrize("arch", ["nequip", "dcn-v2"])
+def test_launcher_builds_train_as_the_reference(arch):
+    """``build_gnn`` (nequip) and ``build_recsys`` (dcn-v2) against the
+    reference's, loss for loss over three steps (rtol 1e-4, as the GatedGCN
+    history above)."""
+    want, got = _launcher_loss_history(arch)
+    assert len(got) == LAUNCH_STEPS
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["nequip", "dcn-v2"])
+def test_launcher_trains_nequip_and_dcn_v2(arch, tmp_path, capsys):
+    assert tlaunch.main(["--arch", arch, "--steps", "3", "--device", "cpu",
+                         "--ckpt-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "final loss" in out and "device=cpu" in out
+    assert open(tmp_path / "LATEST").read() == "step_00000003"
 
 
 def test_launcher_watchdog_exits_75():
