@@ -20,7 +20,8 @@ ends the run with a non-zero exit code:
               tolerances (FA_TOL, SPMM_TOL; attention also row by row,
               ROW_TOL); attention at the tile edges of its sm90 design
               too, each call checked to have launched the design its dtype
-              and head dim name; B1, B2 and B3 at the tile edges of their
+              and head dim name (D 80, 96 and 12 on fma: qwen3-32b's and
+              minicpm3-4b's heads); B1, B2 and B3 at the tile edges of their
               staged designs (phase_kernels_staged); B4 at its edges (d
               1-300, W 1-44, max over non-finite features); B2's
               detect-only form on both designs and CAT's phase A route
@@ -41,8 +42,9 @@ ends the run with a non-zero exit code:
               service run (8 tenants, 2 steps), entry for entry; its
               distributed sections (rsoc / cat on meshes of 1 and 4 shards
               x the tiny suite x seeds 0-2; mesh2d(24, 24)'s sharded
-              streams); its lm_train section (the two LM smoke configs'
-              loss, gradients and three training steps) within
+              streams); its lm_train section (the five LM smoke configs'
+              — qwen3-1.7b, qwen3-32b, minicpm3-4b, phi3.5-moe,
+              qwen2-moe — loss, gradients and three training steps) within
               LM_GOLDEN_TOL; its models section (the smoke nequip's and
               dcn-v2's forward, one leaf's gradient, nequip's through the
               forces, and three training steps) within MODELS_GOLDEN_TOL
@@ -163,6 +165,29 @@ ends the run with a non-zero exit code:
               AdamW steps and one split as in (a), segment_sum bit-equal
               to the sorted scatter;
               the phase's seconds logged
+  5m. moe/mla MoE and MLA (ROADMAP A.5.4): (a) ServeEngine at full width
+              on qwen2-moe-a2.7b (24 layers, 64 experts allocated for 60),
+              minicpm3-4b (62 layers, MLA) and phi3.5-moe-42b-a6.6b (full
+              width, depth cut from 32 to 8 layers: 83.5 GB of bfloat16
+              weights do not fit), random weights from seed 0, each freed
+              before the next: 4 requests of 128-1024 tokens, 8 new tokens;
+              counts zeroed before, read after: exactly n_layers x 4 B5
+              launches, all on sm90 (MoE, D 128) or fma (MLA, D 96); TTFT
+              p50, decode ms a step, peak memory, parameter count;
+              (b) every layer's attention of one prefill held to the plain
+              version on its own q, k, v (FA_TOL, ROW_TOL); minicpm3-4b's
+              prefill logits against the plain route within LOGITS_ATOL;
+              the MoE configs' routing share and logits difference between
+              the routes printed (a near-tied top-k may flip); layer 0's
+              MoE of each MoE config in float32 on 512 tokens, the card
+              against the card host's CPU (routing equal but for near-ties
+              within MM_TIE, the output within MM_MOE_OUT_REL);
+              (c) qwen2-moe-a2.7b and minicpm3-4b at full width cut to 2
+              layers, 3 steps of 2 x 4096 tokens (memory reckoned before;
+              ms a step, tokens/s, peak, model FLOPs as a share of the
+              bf16 peak), qwen2-moe twice, the same bits in losses and
+              parameters; no kernel launched; the phase's seconds against
+              MM_BUDGET_S
   (5, 5c: each row's prepare_ms + solve_ms must not pass e2e_traced_ms,
   the wall time of the call they split, by more than SPLIT_SLACK)
   6. times    per-kernel device time (device_ms; the back-to-back call time
@@ -175,8 +200,9 @@ ends the run with a non-zero exit code:
               the gather floor; attention at L 512, 2048 and
               8192 in bfloat16 and at L 2048 in float32, each with its
               ratio to SDPA; attention at qwen3-32b's prefill (64 / 8
-              heads, D 80, L 2048, bfloat16: the fma design) beside its
-              bound and SDPA; one compacted repair pass per
+              heads, D 80, L 2048, bfloat16: the fma design) and at
+              minicpm3-4b's (40 / 40 heads, D 96, L 2048, fma) beside their
+              bounds and SDPA; one compacted repair pass per
               compacted path (detect_recolor with row_ids, forb0 and
               extra_defect on RMAT-B; twohop with row_ids on RMAT-ER),
               kernels against plain versions on the same inputs; B2's
@@ -196,6 +222,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import multiprocessing
 import os
@@ -1048,7 +1075,9 @@ def phase_kernels_attention(device, launch: bool, cmp: Cmp):
     255, 257, 2049, and Lk > Lq with a ragged offset at GQA ratios 1, 2 and
     8, B = 2); causal and not, float32 and bfloat16; a few in the serving
     prefill's layout (views of (B, L, H, D) tensors, no copy); qwen3-32b's
-    heads (64 / 8) at head dim 80, ragged and with Lk > Lq.  Each case
+    heads (64 / 8) at head dim 80, ragged and with Lk > Lq; minicpm3-4b's
+    MLA heads (40 / 40) at head dim 96 and 12, ragged and with Lk > Lq.
+    Each case
     is held to ``FA_TOL`` and, row by row, to ``ROW_TOL``, and checks that
     the launch went to the design ``design(dtype, D)`` names."""
     from repro_torch.kernels import ops, ref
@@ -1069,6 +1098,10 @@ def phase_kernels_attention(device, launch: bool, cmp: Cmp):
     # lengths, Lk > Lq
     shapes += [(1, 64, 8, L, L, 80) for L in (1, 63, 65, 300)]
     shapes += [(1, 64, 8, 129, 257, 80), (2, 64, 8, 33, 700, 80)]
+    # minicpm3-4b's MLA heads (40 / 40) at head dim 96 (64 + 32) and its
+    # smoke config's 12 (8 + 4, zero-padded to 16 by the wrapper), fma
+    shapes += [(1, 40, 40, L, L, 96) for L in (1, 63, 65, 300)]
+    shapes += [(1, 40, 40, 129, 257, 96), (2, 40, 40, 33, 70, 12)]
     views = {(1, 16, 8, 300, 300, 128), (2, 8, 4, 65, 300, 128),
              (2, 16, 2, 255, 383, 64)}
 
@@ -2761,8 +2794,9 @@ GEMM_KERNEL = re.compile(r"gemm|cutlass|xmma|sm90_|cublas|matmul|nvjet",
 def lm_memory_reckoning(cfg, micro: int) -> dict:
     """Bytes the step holds, reckoned before the run: bfloat16 weights and
     gradients, float32 moments and gradient accumulator, and one
-    microbatch's float32 logits."""
-    n = cfg.n_params() + cfg.n_layers * 2 * cfg.head_dim
+    microbatch's float32 logits; the weights as ``init_params`` allocates
+    them (``allocated_params``)."""
+    n = allocated_params(cfg)
     return {"params": n, "bf16_weights": 2 * n, "bf16_grads": 2 * n,
             "f32_moments": 8 * n, "f32_grad_accumulator": 4 * n,
             "f32_logits_one_microbatch": 4 * micro * LM_SEQ * cfg.vocab}
@@ -3686,6 +3720,444 @@ def phase_models(device, card: str, rehearse: bool) -> tuple:
     log("models", f"phase 5l: {row['seconds']} s, launches of the port's "
                   f"kernels {counts}")
     return row, counts
+
+
+# --------------------------------------------------------------------------
+# phase 5m: MoE and MLA — qwen2-moe-a2.7b, phi3.5-moe and minicpm3-4b served
+# at full width (B5 at D 128 on sm90, at D 96 on fma), two trained at depth 2
+# --------------------------------------------------------------------------
+
+MM_REQUESTS, MM_NEW_TOKENS = 4, 8
+MM_PROMPT_LENS = (128, 1024)          # drawn uniformly, both ends included
+# (arch, layers kept or None for all): phi3.5-moe-42b-a6.6b's 41.74e9
+# parameters are 83.5 GB in bfloat16, more than the card holds; at full
+# width its depth is cut from 32 to 8 layers (10.6e9 parameters, 21 GB)
+MM_SERVE = (("qwen2-moe-a2.7b", None), ("minicpm3-4b", None),
+            ("phi3.5-moe-42b-a6.6b", 8))
+# (b) one MoE layer at full width on MM_MOE_TOKENS tokens, float32 (no
+# TF32), the card against the card host's CPU: the routing equal; a choice
+# that differs must be a near-tie of the router's float32 product (its two
+# probabilities within MM_TIE); the output within MM_MOE_OUT_REL of its
+# largest magnitude (float32 products of 2048-6400 terms in another order,
+# three in a row: about 1e-6 expected), the aux loss within MM_MOE_AUX_RTOL
+MM_MOE_TOKENS = 512
+MM_TIE = 1e-6
+MM_MOE_OUT_REL = 1e-4
+MM_MOE_AUX_RTOL = 1e-5
+# (c) training at full width, depth cut to 2 layers, train_4k's 4096 tokens
+# with the batch cut as 5k cuts it (LM_BATCH x LM_SEQ, LM_MICROBATCHES)
+MM_TRAIN = ("qwen2-moe-a2.7b", "minicpm3-4b")
+MM_TRAIN_LAYERS, MM_TRAIN_STEPS = 2, 3
+MM_TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=MM_TRAIN_STEPS)
+MM_BUDGET_S = 60.0                    # the phase's share of the time limit
+
+
+def allocated_params(cfg) -> int:
+    """Parameters ``init_params`` allocates for ``cfg``: ``n_params()``
+    with the padded expert count (qwen2-moe allocates 64 experts for its
+    60), plus the norms it leaves out (qk-norm's, MLA's ``q_norm`` and
+    ``kv_norm``)."""
+    n_cfg = cfg
+    if cfg.moe:
+        n_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=cfg.moe.e_pad))
+    n = n_cfg.n_params()
+    if cfg.qk_norm:
+        n += cfg.n_layers * 2 * cfg.head_dim
+    if cfg.attn_type == "mla":
+        n += cfg.n_layers * (cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank)
+    return n
+
+
+def mm_config(name: str, layers, rehearse: bool):
+    """The config a 5m sub-phase runs: ``make_full()`` (depth cut to
+    ``layers`` where given); in the rehearsal the smoke config in
+    bfloat16."""
+    from repro_torch import configs
+    arch = configs.get(name)
+    if rehearse:
+        return dataclasses.replace(arch.make_smoke(), dtype="bfloat16")
+    cfg = arch.make_full()
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def mm_attention_on_path(params, cfg, prompt, device, cmp: Cmp) -> dict:
+    """One kernel-route prefill of ``prompt`` with every layer's attention
+    watched (``layers.prefill_attention``, through which GQA and MLA
+    reach the kernel): each layer's output held against
+    ``ref.flash_attention_ref`` on the same q, k and v within ``FA_TOL``
+    and, row by row, ``ROW_TOL``.  Returns the worst errors."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    orig, errs = L.prefill_attention, []
+
+    def watched(q, k, v, **kw):
+        out = orig(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, causal=kw["causal"])
+        label = (f"5m {cfg.name} layer {len(errs)} Hq{q.shape[1]} "
+                 f"Hkv{k.shape[1]} L{q.shape[2]} D{q.shape[3]}")
+        cmp.close("flash_attention", label, out, want, *FA_TOL[q.dtype])
+        cmp.rows("flash_attention", label, out, want, ROW_TOL[q.dtype])
+        errs.append(float((out.float() - want.float()).abs().max()))
+        return out
+
+    L.prefill_attention = watched
+    try:
+        with torch.inference_mode():
+            TF.prefill(params, cfg, torch.from_numpy(prompt).to(device)[None])
+    finally:
+        L.prefill_attention = orig
+    if len(errs) != cfg.n_layers:
+        fail(f"5m {cfg.name}: {len(errs)} watched attention calls in a "
+             f"prefill of {cfg.n_layers} layers")
+    return {"layers_checked": len(errs), "max_abs_err": max(errs),
+            "head_dim": (cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim
+                         if cfg.attn_type == "mla" else cfg.head_dim)}
+
+
+def mm_routes_and_logits(params, cfg, prompts, device) -> dict:
+    """Each prompt's prefill through the kernel route and the plain route
+    (``kernel.fallback``): the largest logits difference, and for MoE the
+    share of (layer, token) routing choices (a token's top-k in order)
+    that the two routes share (watched at ``moe.moe_route``)."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TF
+    from repro_torch.resilience import faults
+    orig, seen = MOE.moe_route, []
+
+    def watched(*a):
+        res = orig(*a)
+        seen.append(res[2])
+        return res
+
+    worst, same, total = 0.0, 0, 0
+    MOE.moe_route = watched
+    try:
+        with torch.inference_mode():
+            for p in prompts:
+                tokens = torch.from_numpy(p).to(device)[None]
+                seen.clear()
+                before = launch_counts()
+                with faults.inject("kernel.fallback"):
+                    plain = TF.prefill(params, cfg, tokens)[0].float()
+                if launch_counts() != before:
+                    fail(f"5m {cfg.name}: the plain route launched a kernel")
+                plain_routes = list(seen)
+                seen.clear()
+                kern = TF.prefill(params, cfg, tokens)[0].float()
+                if kern.shape != (1, cfg.vocab) or not bool(
+                        torch.isfinite(kern).all()):
+                    fail(f"5m {cfg.name}: prefill logits "
+                         f"{tuple(kern.shape)} are not (1, {cfg.vocab}) "
+                         f"finite values")
+                worst = max(worst, float((kern - plain).abs().max()))
+                for a, b in zip(seen, plain_routes, strict=True):
+                    same += int((a == b).all(-1).sum())
+                    total += a.shape[0]
+    finally:
+        MOE.moe_route = orig
+    out = {"logits_max_abs_err_vs_plain": worst}
+    if cfg.moe:
+        out["routing_share_equal_vs_plain"] = same / total
+    return out
+
+
+def mm_moe_layer_vs_cpu(params, cfg, device, rehearse: bool) -> dict:
+    """(b) Layer 0's MoE of the served weights, in float32, on
+    ``MM_MOE_TOKENS`` random tokens: ``moe_route`` / ``moe_apply`` on the
+    card against the same calls on the card host's CPU."""
+    from repro_torch.models import moe as MOE
+    ffn = params.layer_views()[0]["ffn"]
+
+    def f32(t, dev):
+        if isinstance(t, dict):
+            return {k: f32(v, dev) for k, v in t.items()}
+        return t.detach().float().to(dev)
+
+    T = 64 if rehearse else MM_MOE_TOKENS
+    x = torch.randn((T, cfg.d_model),
+                    generator=torch.Generator().manual_seed(3))
+    res = {}
+    for dev in (device, torch.device("cpu")):
+        p = f32(ffn, dev)
+        with torch.inference_mode():
+            probs, _, eidx, pos, keep, cap = MOE.moe_route(p, cfg.moe,
+                                                           x.to(dev))
+            out, aux = MOE.moe_apply(p, cfg.moe, x.to(dev))
+        res[dev.type] = [t.cpu() for t in (probs, eidx, pos, keep, out)] + [
+            float(aux)]
+        del p
+    (pr_d, e_d, pos_d, k_d, o_d, a_d) = res[device.type]
+    (pr_c, e_c, pos_c, k_c, o_c, a_c) = res["cpu"]
+    rows = (e_d == e_c).all(-1) & (pos_d == pos_c).all(-1) & (
+        k_d == k_c).all(-1)
+    ties = []
+    for t in torch.nonzero(~(e_d == e_c).all(-1))[:, 0].tolist():
+        j = int(torch.nonzero(e_d[t] != e_c[t])[0, 0])
+        a, b = int(e_d[t, j]), int(e_c[t, j])
+        gap = abs(float(pr_c[t, a]) - float(pr_c[t, b]))
+        ties.append({"token": t, "choice": j, "experts": [a, b],
+                     "probs_cpu": [float(pr_c[t, a]), float(pr_c[t, b])],
+                     "probs_card": [float(pr_d[t, a]), float(pr_d[t, b])],
+                     "gap": gap})
+        if not gap <= MM_TIE:
+            fail(f"5m {cfg.name}: the card routes token {t}'s choice {j} "
+                 f"to expert {a}, the CPU to {b}, probabilities "
+                 f"{ties[-1]['probs_cpu']} (not a near-tie within {MM_TIE})")
+    if not ties and not (bool((pos_d == pos_c).all())
+                         and bool((k_d == k_c).all())):
+        fail(f"5m {cfg.name}: the card's pos / keep differ from the CPU's "
+             f"with equal expert choices")
+    scale = float(o_c.abs().max())
+    err = float((o_d[rows] - o_c[rows]).abs().max()) if bool(rows.any()) \
+        else 0.0
+    if not err <= MM_MOE_OUT_REL * scale:
+        fail(f"5m {cfg.name}: the MoE layer's output on the card is {err} "
+             f"from the CPU's (tolerance {MM_MOE_OUT_REL} x {scale})")
+    aux_rel = abs(a_d - a_c) / abs(a_c)
+    first_equal = bool((e_d[:, 0] == e_c[:, 0]).all())
+    if first_equal and not aux_rel <= MM_MOE_AUX_RTOL:
+        fail(f"5m {cfg.name}: the MoE aux loss on the card {a_d} against "
+             f"the CPU's {a_c} (relative {aux_rel})")
+    return {"tokens": T, "cap": MOE.capacity(cfg.moe, T),
+            "routing_equal": not ties, "near_ties": ties,
+            "kept_pairs": int(k_c.sum()), "pairs": int(k_c.numel()),
+            "out_max_abs_err": err, "out_absmax": scale,
+            "out_rel_tol": MM_MOE_OUT_REL, "aux_card": a_d, "aux_cpu": a_c,
+            "aux_rel_err": aux_rel}
+
+
+def mm_serve(device, name: str, layers, cmp: Cmp, rehearse: bool) -> tuple:
+    """(a) + (b) for one config: ``ServeEngine``, ``MM_REQUESTS`` requests
+    (prompts of 128-1024 tokens, ``default_rng(2)``), ``MM_NEW_TOKENS``
+    new tokens each; counts zeroed before, read after: exactly one
+    attention launch per layer per prefill, all on ``sm90`` (MoE, D 128)
+    or ``fma`` (MLA, D 96).  Then the kernel held on its path
+    (``mm_attention_on_path``), the kernel route against the plain one
+    (``mm_routes_and_logits``: for MLA the logits within ``LOGITS_ATOL``),
+    and for MoE layer 0's MoE against the CPU; a decode step with 4 live
+    slots and the longest prefill timed and traced (``device_time``: the
+    card's busy and idle shares, the largest kernels).  Returns (row,
+    counts, designs)."""
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving import Request, ServeEngine
+    cfg = mm_config(name, layers, rehearse)
+    full_layers = mm_config(name, None, rehearse).n_layers
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    params = TF.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg, device)
+    sync(device)
+    init_s = time.perf_counter() - t
+    n_alloc = sum(p.numel() for p in params.parameters())
+    if n_alloc != allocated_params(cfg):
+        fail(f"5m {cfg.name}: {n_alloc} parameters allocated, "
+             f"{allocated_params(cfg)} reckoned")
+    rng = np.random.default_rng(2)
+    lo, hi = (8, 64) if rehearse else MM_PROMPT_LENS
+    lens = rng.integers(lo, hi + 1, MM_REQUESTS)
+    prompts = [rng.integers(1, cfg.vocab, L).astype(np.int32) for L in lens]
+    eng = ServeEngine(params, cfg, batch=MM_REQUESTS,
+                      max_len=hi + MM_NEW_TOKENS, device=device)
+    # warm-up (this config's shapes of the library calls): not counted
+    eng.run([Request(prompt=prompts[0][:16], max_new_tokens=2)])
+    ttft, steps = [], []
+    submit, step_all = eng.submit, eng.step_all
+
+    def timed_submit(req):
+        sync(device)
+        t0 = time.perf_counter()
+        ok = submit(req)
+        sync(device)
+        if ok:
+            ttft.append((time.perf_counter() - t0) * 1e3)
+        return ok
+
+    def timed_step():
+        sync(device)
+        t0 = time.perf_counter()
+        n = step_all()
+        sync(device)
+        steps.append((time.perf_counter() - t0) * 1e3)
+        return n
+
+    eng.submit, eng.step_all = timed_submit, timed_step
+    reqs = [Request(prompt=p, max_new_tokens=MM_NEW_TOKENS) for p in prompts]
+    # counts to 0 just before this config's serving path is driven ...
+    zero_counts()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    sync(device)
+    wall_s = time.perf_counter() - t0
+    # ... and read just after
+    counts, designs = launch_counts(), attention_designs()
+    n_fa = cfg.n_layers * len(reqs)
+    route = "fma" if cfg.attn_type == "mla" else "sm90"
+    if device.type == "cuda":
+        want = dict({k: 0 for k in KERNELS}, flash_attention=n_fa)
+        if counts != want:
+            fail(f"5m {cfg.name}: launches {counts}, expected {want}")
+        if designs != dict({"sm90": 0, "fma": 0}, **{route: n_fa}):
+            fail(f"5m {cfg.name}: attention launches by design {designs}, "
+                 f"expected all {n_fa} on {route}")
+    for r in reqs:
+        if not r.done or len(r.out_tokens) != MM_NEW_TOKENS or not all(
+                0 <= x < cfg.vocab for x in r.out_tokens):
+            fail(f"5m {cfg.name}: a request ended with {len(r.out_tokens)} "
+                 f"tokens (done={r.done}), or with a token outside the "
+                 f"vocabulary")
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    # where the time goes: a decode step with every slot live, and the
+    # longest prompt's prefill, each timed, then traced (as 5d's)
+    for p in prompts:
+        submit(Request(prompt=p, max_new_tokens=MM_NEW_TOKENS))
+    step_all()
+    longest = torch.from_numpy(prompts[int(np.argmax(lens))]).to(device)[None]
+    with torch.inference_mode():
+        breakdown = {"decode_step_4_live": device_time(step_all, device),
+                     f"prefill_{int(lens.max())}": device_time(
+                         lambda: TF.prefill(params, cfg, longest), device)}
+    on_path = mm_attention_on_path(params, cfg, prompts[0], device, cmp)
+    vs_plain = mm_routes_and_logits(
+        params, cfg, prompts if cfg.attn_type == "mla" else prompts[:1],
+        device)
+    if cfg.attn_type == "mla" and not (
+            vs_plain["logits_max_abs_err_vs_plain"] <= LOGITS_ATOL):
+        fail(f"5m {cfg.name}: prefill logits differ by "
+             f"{vs_plain['logits_max_abs_err_vs_plain']} between the kernel "
+             f"and the plain route (tolerance {LOGITS_ATOL})")
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "cut_from_layers": full_layers if layers else None,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "attention_head_dim": on_path["head_dim"],
+           "params": n_alloc, "params_n_params": cfg.n_params(),
+           "init_s": init_s, "prompt_lens": [int(x) for x in lens],
+           "ttft_ms": ttft, "ttft_ms_p50": statistics.median(ttft),
+           "decode_ms_per_step": steps,
+           "decode_ms_per_step_p50": statistics.median(steps),
+           "wall_s": wall_s, "peak_memory_bytes": int(peak),
+           "attention_designs": designs, "attention_on_path": on_path,
+           "vs_plain_route": vs_plain, "breakdown": breakdown}
+    if cfg.moe:
+        row["moe_layer_vs_cpu"] = mm_moe_layer_vs_cpu(params, cfg, device,
+                                                      rehearse)
+    # the timed methods close over the engine (a cycle): collect it, so
+    # the next config's peak does not hold this one's weights
+    del eng, params, submit, step_all
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return row, counts, designs
+
+
+def mm_train(device, name: str, rehearse: bool, repeat: bool) -> dict:
+    """(c) ``name`` at full width, depth cut to ``MM_TRAIN_LAYERS``,
+    through ``launch.train.build_lm``'s pieces and ``train_loop.run``:
+    ``MM_TRAIN_STEPS`` steps of ``LM_BATCH`` x ``LM_SEQ`` tokens in
+    ``LM_MICROBATCHES`` microbatches, weights from seed 0.  The peak
+    reckoned before the run (``lm_memory_reckoning`` of the allocated
+    count); losses finite; with ``repeat`` a second run from the same seed
+    must give the same bits in the losses and every parameter."""
+    from repro_torch import tree
+    from repro_torch.data import pipeline as DP
+    from repro_torch.launch.analysis import lm_model_flops
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import transformer as TF
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.optimizer import OptimizerConfig
+    cfg = mm_config(name, MM_TRAIN_LAYERS, rehearse)
+    if rehearse:
+        cfg = dataclasses.replace(cfg, remat=True)
+    seq = 128 if rehearse else LM_SEQ
+    reckoned = lm_memory_reckoning(cfg, LM_BATCH // LM_MICROBATCHES)
+
+    def run():
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        params = TF.init_params(
+            torch.Generator(device=device).manual_seed(0), cfg, device,
+            trainable=True)
+        stamps = [time.perf_counter()]
+        params, _, hist = TL.run(
+            lambda p, b: TF.train_step_loss(p, cfg, b), params,
+            DP.TokenStream(batch=LM_BATCH, seq_len=seq, vocab=cfg.vocab),
+            OptimizerConfig(**MM_TRAIN_OPT),
+            TL.TrainLoopConfig(total_steps=MM_TRAIN_STEPS,
+                               microbatches=LM_MICROBATCHES, log_every=1,
+                               ckpt_dir=None),
+            to_device=lambda b: to_device(b, device),
+            on_metrics=lambda m: stamps.append(time.perf_counter()))
+        sync(device)
+        peak = (torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else 0)
+        ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+        return params, [h["loss"] for h in hist], ms, peak
+
+    params, losses, ms, peak = run()
+    if not all(np.isfinite(losses)):
+        fail(f"5m train {cfg.name}: a loss is not finite: {losses}")
+    step_ms = median_after_first(ms)
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": LM_BATCH, "seq_len": seq, "microbatches": LM_MICROBATCHES,
+           "steps": MM_TRAIN_STEPS, "losses": losses, "step_ms": ms,
+           "ms_per_step": step_ms,
+           "tokens_per_s": LM_BATCH * seq / (step_ms / 1e3),
+           "peak_memory_bytes": int(peak), "memory_reckoned_bytes": reckoned,
+           **peak_shares(lm_model_flops(cfg, "train", LM_BATCH, seq),
+                         step_ms)}
+    if repeat:
+        again, losses2, ms2, _ = run()
+        if losses2 != losses:
+            fail(f"5m train {cfg.name}: the second run's losses {losses2} "
+                 f"are not the first's {losses} bit for bit")
+        for (k, a), b in zip(tree.flatten_with_paths(params),
+                             tree.leaves(again)):
+            if not torch.equal(a, b):
+                fail(f"5m train {cfg.name}: parameter {k} after the second "
+                     f"run differs from the first's")
+        row.update(repeat_bit_equal=True, repeat_step_ms=ms2)
+    del params
+    return row
+
+
+def phase_moe_mla(device, card: str, cmp: Cmp, rehearse: bool) -> tuple:
+    """Phase 5m: (a) + (b) the three MoE / MLA configs served at full width
+    (``mm_serve``, each freed before the next), (c) two of them trained at
+    depth 2 (``mm_train``; no kernel of the port on that path: counts
+    zeroed before, read after, all 0).  The phase's seconds against
+    ``MM_BUDGET_S``.  Returns (row, serving counts summed over the
+    configs, their launches per attention design, training counts)."""
+    t0 = time.perf_counter()
+    serve, counts_serve = {}, dict.fromkeys(KERNELS, 0)
+    designs = {"sm90": 0, "fma": 0}
+    for name, layers in MM_SERVE:
+        row, counts, des = mm_serve(device, name, layers, cmp, rehearse)
+        log("moe_mla", json.dumps({"serve": row, "card": card}))
+        serve[name] = row
+        counts_serve = {k: counts_serve[k] + counts[k] for k in KERNELS}
+        designs = {k: designs[k] + des[k] for k in designs}
+    zero_counts()
+    train = {name: mm_train(device, name, rehearse,
+                            repeat=name == "qwen2-moe-a2.7b")
+             for name in MM_TRAIN}
+    counts_train = launch_counts()
+    if any(counts_train.values()):
+        fail(f"5m: the training path launched kernels {counts_train}")
+    for name, r in train.items():
+        log("moe_mla", json.dumps({"train": r, "card": card}))
+    seconds = time.perf_counter() - t0
+    row = {"card": card, "serve": serve, "train": train,
+           "launches_serve": counts_serve, "attention_designs": designs,
+           "launches_train": counts_train, "seconds": seconds,
+           "budget_s": MM_BUDGET_S}
+    log("moe_mla", f"phase 5m: {seconds} s (budget {MM_BUDGET_S} s: "
+                   f"{'within' if seconds <= MM_BUDGET_S else 'PAST'} it)")
+    return row, counts_serve, designs, counts_train
 
 
 def exact_launch_counts(what: str, res):
@@ -4890,6 +5362,7 @@ F32_TFLOPS = 67e12       # H100 SXM float32 rate outside the tensor cores
 FA_TIME_LENS = (512, 2048, 8192)
 FA_F32_LEN = 2048        # the float32 row (the unchanged CUDA-core kernel)
 FA_D80_LEN = 2048        # qwen3-32b's prefill row (head dim 80, fma design)
+FA_D96_LEN = 2048        # minicpm3-4b's prefill row (head dim 96, fma design)
 
 
 def attention_pairs(Lq: int, Lk: int, causal: bool) -> int:
@@ -4909,7 +5382,8 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
     Hkv=8, D=128, causal): bfloat16 at L = 512, 2048 and 8192 (the sm90
     design), and float32 at L = 2048 (the CUDA-core design, unchanged);
     and at qwen3-32b's prefill (Hq=64, Hkv=8, D=80, L=2048, bfloat16: the
-    fma design); each held to ``FA_TOL`` and ``ROW_TOL``.  Bound: the larger
+    fma design) and minicpm3-4b's (Hq=Hkv=40, D=96, L=2048, bfloat16:
+    fma); each held to ``FA_TOL`` and ``ROW_TOL``.  Bound: the larger
     of 4 * Hq * D FLOPs per visible (query, key) pair at the type's rate
     (bf16 tensor cores; float32 outside them) and q, k, v, out read /
     written once at the memory rate — operations bound it.  Library:
@@ -4944,6 +5418,9 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
     # qwen3-32b's prefill: 64 / 8 heads at head dim 80 (the fma design)
     cases.append((64 if rehearse else FA_D80_LEN, torch.bfloat16,
                   (1, 8, 1, 80) if rehearse else (1, 64, 8, 80)))
+    # minicpm3-4b's MLA prefill: 40 / 40 heads at head dim 96 (fma)
+    cases.append((64 if rehearse else FA_D96_LEN, torch.bfloat16,
+                  (1, 8, 8, 96) if rehearse else (1, 40, 40, 96)))
     for L, dt, (B, Hq, Hkv, D) in cases:
         q, k, v = (torch.randn((B, H, L, D), generator=gen, device=device,
                                dtype=torch.float32).to(dt)
@@ -4970,7 +5447,8 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
                "L": L, "D": D, "dtype": name, "causal": True,
                # the kernels line's row: the serving prefill's longest prompt
                "kernels_line": dt == torch.bfloat16 and L == lens[1]
-               and D != 80, "head_dim_80": D == 80,
+               and D not in (80, 96), "head_dim_80": D == 80,
+               "head_dim_96": D == 96,
                "design": route, "flops": flops, "bytes": nbytes,
                "ms": device_ms(fn, device, 10),
                "call_ms": time_ms(fn, device, 10),
@@ -5194,6 +5672,7 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
         "cases_checked": len(cmp.cases[SLOT_STRIDE])}
     fa = next(r for r in model_rows if r.get("kernels_line"))
     d80 = next(r for r in model_rows if r.get("head_dim_80"))
+    d96 = next(r for r in model_rows if r.get("head_dim_96"))
     sp = next(r for r in model_rows
               if r["kernel"] == "ell_spmm" and r["kernels_line"])
     fa_src = {"sm90": "flash_attention_sm90.cu",
@@ -5234,6 +5713,17 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
         "bound_ms": d80["bound_ms"], "bound_by": d80["bound_by"],
         "library_ms": d80["library_ms"],
         "shape": {k: d80[k] for k in ("B", "Hq", "Hkv", "L", "D", "dtype",
+                                       "causal")}}
+    next(k for k in kernels if k["name"] == "flash_attention")[
+        "head_dim_96"] = {
+        "source": csrc + "flash_attention.cu", "path": "moe_mla_serve",
+        "launches": designs["moe_mla_serve"].get(
+            "flash_attention", {}).get("fma", 0),
+        "design": d96["design"], "ms": d96["ms"], "ms_method": "device",
+        "call_ms": d96["call_ms"], "plain_ms": d96["plain_ms"],
+        "bound_ms": d96["bound_ms"], "bound_by": d96["bound_by"],
+        "library_ms": d96["library_ms"],
+        "shape": {k: d96[k] for k in ("B", "Hq", "Hkv", "L", "D", "dtype",
                                        "causal")}}
     return kernels
 
@@ -5450,6 +5940,13 @@ def main() -> int:
         # ---- phase 5l: dcn-v2 and nequip at full width ----
         models_row, counts_models = phase_models(device, card, args.rehearse)
 
+        # ---- phase 5m: MoE and MLA served at full width, trained ----
+        (mm_row, counts_mm_serve, mm_designs,
+         counts_mm_train) = phase_moe_mla(device, card, cmp, args.rehearse)
+        designs["moe_mla_serve"] = design_delta(
+            zeros, dict(zeros, flash_attention=mm_designs), counts_mm_serve,
+            "the MoE / MLA serving path")
+
         # ---- phase 6: kernel times ----
         slot_row = phase_times_slots(device, svc_states, cmp, launch)
         del svc_states
@@ -5468,7 +5965,8 @@ def main() -> int:
              "distance2_compact": counts_d2,
              "serve": counts_serve, "aggregate": counts_agg, **counts_svc,
              "lm_train": counts_lm_train, "lm_serve_32b": counts_lm_32b,
-             "models": counts_models}
+             "models": counts_models, "moe_mla_serve": counts_mm_serve,
+             "moe_mla_train": counts_mm_train}
     kernels = kernels_line(kept, time_rows, model_rows, paths, designs, cmp,
                            t1_path, slot_row, svc_path)
     if args.rehearse:
@@ -5488,6 +5986,7 @@ def main() -> int:
     print(json.dumps({"gnn_train_path": gnn_row}), flush=True)
     print(json.dumps({"lm_path": lm_row}), flush=True)
     print(json.dumps({"models_path": models_row}), flush=True)
+    print(json.dumps({"moe_mla_path": mm_row}), flush=True)
     print(json.dumps({"kernel_times": time_rows + model_rows + [slot_row]}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

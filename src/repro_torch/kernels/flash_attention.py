@@ -24,11 +24,17 @@ Two designs on the card, chosen by dtype and head dim (``design``):
   strides: any view whose last dimension is contiguous and whose other
   strides and address are 16-byte multiples runs without a copy (the
   serving prefill's (B, L, H, D)-ordered projections, for one).
-* ``"fma"`` — float32 at every D, and bfloat16 with D in {16, 32, 80}:
-  the CUDA-core kernel of ``csrc/flash_attention.cu`` (wgmma on float32 is
-  TF32, which would break the float32 tolerance; D 80, qwen3-32b's head
-  dim, is no multiple of the sm90 design's 64-element panels).  It reads
-  contiguous rows: the wrapper copies a strided view first.
+* ``"fma"`` — float32 at every D, and bfloat16 with D in {12, 16, 32,
+  80, 96}: the CUDA-core kernel of ``csrc/flash_attention.cu`` (wgmma on
+  float32 is TF32, which would break the float32 tolerance; D 80,
+  qwen3-32b's head dim, and D 96, minicpm3-4b's MLA head dim 64 + 32, are
+  no multiple of the sm90 design's 64-element panels).  It reads
+  contiguous rows: the wrapper copies a strided view first.  D 12 (the MLA
+  head dim 8 + 4 of minicpm3-4b's smoke config) is no multiple of the
+  kernel's 16-column thread grid: the wrapper zero-pads q, k and v to 16
+  columns, passes the scale 1 / sqrt(12), and slices the output back to
+  12.  The zero columns add exact zeros to every score, and the padded
+  output columns are zeros: the same function, one launch of the kernel.
 
 Bound on the card: operations at prefill shapes, 4 * B * Hq * Lq * Lk * D
 FLOPs (about half of it when causal) against the card's bf16 tensor-core
@@ -52,7 +58,7 @@ from repro_torch.kernels.firstfit import check_launch, check_tensor, ptr
 # the plain version, as a module attribute (see kernels/firstfit.py)
 from repro_torch.kernels import ref
 
-HEAD_DIMS = (16, 32, 64, 80, 128)        # compiled into the library
+HEAD_DIMS = (12, 16, 32, 64, 80, 96, 128)    # D 12 is padded to 16
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DESIGNS = ("fma", "sm90")                # the C entry point's design ids
 SM90_HEAD_DIMS = (64, 128)
@@ -66,8 +72,10 @@ def design(dtype, D: int) -> str:
 
 
 def check_attention(q, k, v, causal: bool):
-    """Checks shared by the wrapper and ``ops.attention``; returns
-    (B, Hq, Hkv, Lq, Lk, D)."""
+    """Checks shared by the wrapper and ``ops.attention``; returns the
+    tensors the kernel reads (q, k, v, or at D 12 their zero-padded
+    copies, whose layout is the one checked) and (B, Hq, Hkv, Lq, Lk,
+    D)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"{name} must be a 4-D tensor (B, H, L, D)")
@@ -86,12 +94,15 @@ def check_attention(q, k, v, causal: bool):
         raise ValueError(
             f"causal attention needs Lk >= Lq (got Lq={Lq}, Lk={Lk}): the "
             f"first {Lq - Lk} query rows would see no key")
-    check_tensor("q", q, q.dtype, (B, Hq, Lq, D), q.device, views=True)
-    check_tensor("k", k, q.dtype, (B, Hkv, Lk, D), q.device, views=True)
-    check_tensor("v", v, q.dtype, (B, Hkv, Lk, D), q.device, views=True)
+    if D == 12:     # zero columns: exact zeros in every q . k and p . v
+        q, k, v = (torch.nn.functional.pad(t, (0, 4)) for t in (q, k, v))
+    Dk = q.shape[-1]
+    check_tensor("q", q, q.dtype, (B, Hq, Lq, Dk), q.device, views=True)
+    check_tensor("k", k, q.dtype, (B, Hkv, Lk, Dk), q.device, views=True)
+    check_tensor("v", v, q.dtype, (B, Hkv, Lk, Dk), q.device, views=True)
     if B > 65535 or Hq > 65535:
         raise ValueError(f"B={B} and Hq={Hq} must be <= 65535 (grid limit)")
-    return B, Hq, Hkv, Lq, Lk, D
+    return (q, k, v), (B, Hq, Hkv, Lq, Lk, D)
 
 
 def row_strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -110,12 +121,13 @@ def row_strides(t: torch.Tensor) -> tuple[int, int, int]:
 def flash_attention(q, k, v, *, causal: bool = True):
     """Forward attention; q (B, Hq, Lq, D), k / v (B, Hkv, Lk, D), one type
     (float32 or bfloat16), each contiguous or a view that ``check_tensor``
-    admits (last dimension contiguous, 16-byte strides).  Returns a
-    contiguous (B, Hq, Lq, D) in q's type.  The scale is 1 / sqrt(D), as in
-    the reference."""
-    B, Hq, Hkv, Lq, Lk, D = check_attention(q, k, v, causal)
+    admits (last dimension contiguous, 16-byte strides; any layout at
+    D 12, which is padded into new tensors).  Returns a contiguous (B, Hq,
+    Lq, D) in q's type.  The scale is 1 / sqrt(D), as in the reference."""
+    (qk, kk, vk), (B, Hq, Hkv, Lq, Lk, D) = check_attention(q, k, v, causal)
     if q.device.type != "cuda":
         return ref.flash_attention_ref(q, k, v, causal=causal)
+    q, k, v = qk, kk, vk
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention is a forward-only kernel: its inputs require "
@@ -123,14 +135,15 @@ def flash_attention(q, k, v, *, causal: bool = True):
             "(train through models.layers.chunked_attention, or call it "
             "under torch.no_grad)")
     route = design(q.dtype, D)
+    Dk = q.shape[-1]
     if route == "fma":
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lib = _build.library()
-    out = torch.empty((B, Hq, Lq, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Hq, Lq, Dk), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.attn_flash_forward(
-            ptr(q), ptr(k), ptr(v), ptr(out), B, Hq, Hkv, Lq, Lk, D,
+            ptr(q), ptr(k), ptr(v), ptr(out), B, Hq, Hkv, Lq, Lk, Dk,
             int(bool(causal)), DTYPES[q.dtype], DESIGNS.index(route),
             *row_strides(q), *row_strides(k), *row_strides(v),
             1.0 / (D ** 0.5), stream)
@@ -140,7 +153,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
         flash_attention.launches_sm90 += 1
     else:
         flash_attention.launches_fma += 1
-    return out
+    return out if Dk == D else out[..., :D].contiguous()
 
 
 flash_attention.launches = 0

@@ -14,9 +14,9 @@ is drawn before training starts (the reference's ``b0``); a full-width GNN
 run goes through the module functions.  ``--device`` defaults to the card
 (CUDA, or an error without one); ``--device cpu`` runs on the CPU.
 
-Ported: every arch of the reference but MoE / MLA (``minicpm3-4b``,
-``phi3.5-moe-42b-a6.6b``, ``qwen2-moe-a2.7b``), which raise
-``NotImplementedError`` naming their ROADMAP item.
+Ported: every arch of the reference, the MoE / MLA LMs
+(``minicpm3-4b``, ``phi3.5-moe-42b-a6.6b``, ``qwen2-moe-a2.7b``) among
+them.
 
 Fault-tolerance wiring (the reference's):
   * checkpoint every --ckpt-every steps (async, atomic) + data-stream state;
@@ -135,9 +135,6 @@ def main(argv=None) -> int:
                     help="cuda (the default; an error without a GPU) or cpu")
     args = ap.parse_args(argv)
 
-    if args.arch in configs.NOT_PORTED:
-        raise NotImplementedError(f"{args.arch}: "
-                                  f"{configs.NOT_PORTED[args.arch]}")
     arch_def = configs.get(args.arch)
     if args.device is None and not torch.cuda.is_available():
         raise RuntimeError("repro_torch.launch.train runs on CUDA by default "

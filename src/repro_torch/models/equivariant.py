@@ -17,8 +17,8 @@ basis with the standard unitary U^l.
 
 Indexing follows the reference's.  A row gather wraps a negative id (-1 is
 the last row, as NumPy's and JAX's indexing do) and clamps the rest
-(``_take``); its gradient is ``gnn.gather``'s deterministic scatter.
-``gnn.segment_sum`` drops ids outside [0, n), as ``jax.ops.segment_sum``
+(``_take``); its gradient is ``scatter.gather``'s deterministic scatter.
+``scatter.segment_sum`` drops ids outside [0, n), as ``jax.ops.segment_sum``
 does; invalid edges (an id < 0) are masked by ``edge_valid`` and sent to
 node 0 with zero weight.
 
@@ -38,8 +38,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree as T
-from repro_torch.models.gnn import gather, mlp_apply, mlp_init, segment_sum
+from repro_torch.models.gnn import mlp_apply, mlp_init
 from repro_torch.models.layers import _init_dense
+from repro_torch.models.scatter import gather, segment_sum
 from repro_torch.models.transformer import ParamTree, _tensor
 
 

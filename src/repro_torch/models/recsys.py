@@ -5,8 +5,8 @@ Multi-hot sparse fields are looked up with the reference's EmbeddingBag
 contract (``embedding_bag``): ids clipped into the table, -1 pads masked,
 the rows summed (``mean`` divides by the count of real ids, at least 1).
 ``F.embedding_bag`` is not that contract (it neither clips nor masks -1),
-so the lookup is a row gather (``gnn.gather``) and a masked sum.  The
-gather's gradient is ``gnn.gather``'s scatter: on the card an accumulating
+so the lookup is a row gather (``scatter.gather``) and a masked sum.  The
+gather's gradient is ``scatter.gather``'s scatter: on the card an accumulating
 ``index_put_`` over sorted ids, so a training step, and a restart from a
 checkpoint, repeat bit for bit however many ids repeat.
 
@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
-from repro_torch.models.gnn import gather
 from repro_torch.models.layers import _init_dense
+from repro_torch.models.scatter import gather
 from repro_torch.models.transformer import ParamTree, _tensor
 
 

@@ -1,4 +1,5 @@
-"""Config-driven decoder-only LM: the dense GQA variant (+ optional qk-norm).
+"""Config-driven decoder-only LM: dense GQA (+ optional qk-norm), MLA and
+MoE (+ shared experts) variants.
 
 Port of ``src/repro/models/transformer.py``:
 
@@ -19,24 +20,29 @@ layout (a dense weight is ``(d_in, d_out)``, applied as ``x @ w``), so
 transposing them.
 
 ``forward`` is the training route: its attention is ``chunked_attention``
-on every device, with the FA-2 backward when ``flash_bwd`` is set, and with
-``remat`` each layer runs under ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint`` of its scan body).  ``prefill`` is the serving route: on
-CUDA tensors each layer's attention is one launch of the attention kernel.
-Caches are fixed-capacity; ``decode_step`` writes the step's K / V at
-position ``length`` **in place** (the reference returns a new cache; the
-port saves the copy) and returns the same dict.
+on every device (MLA's too), with the FA-2 backward when ``flash_bwd`` is
+set, and with ``remat`` each layer runs under ``torch.utils.checkpoint``
+(the reference's ``jax.checkpoint`` of its scan body).  MoE layers add
+their aux loss, summed over the layers, to what ``forward`` returns.
+``prefill`` is the serving route: on CUDA tensors each layer's attention is
+one launch of the attention kernel (MLA's at head dim ``qk_nope_dim +
+qk_rope_dim``).  MoE runs over the flattened ``(B·L, d)`` tokens in
+``prefill`` and over the ``B`` slots in ``decode_step``, as in the
+reference.  Caches are fixed-capacity (GQA: ``k`` / ``v`` of ``(n_layers,
+B, Hkv, S, Dh)``; MLA: ``c_kv`` / ``k_rope`` of ``(n_layers, B, S, r)``);
+``decode_step`` writes the step's K / V or latents at position ``length``
+**in place** (the reference returns a new cache; the port saves the copy)
+and returns the same dict.
 
-Only ``attn_type="gqa"`` without ``moe`` is ported; MLA and MoE raise
-``NotImplementedError`` naming their ROADMAP item, and the reference's mesh
-knobs (``wire_barrier``, ``act_shard``, ``fsdp_inner``,
-``decode_seq_axis``) and ``decode_write_then_attend`` raise as settings
-this single-device port does not have.
+The reference's mesh knobs (``wire_barrier``, ``act_shard``,
+``fsdp_inner``, ``decode_seq_axis``, ``MoEConfig.ep_axes``) and
+``decode_write_then_attend`` raise as settings this single-device port does
+not have.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,6 +50,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +67,8 @@ class TransformerConfig:
     attn_type: str = "gqa"              # gqa | mla
     qk_norm: bool = False
     rope_theta: float = 10000.0
-    moe: Optional[Any] = None
-    mla: Optional[Any] = None
+    moe: Optional[MOE.MoEConfig] = None
+    mla: Optional[MLA.MLAConfig] = None
     dtype: str = "bfloat16"
     remat: bool = True
     chunk_q: int = 1024
@@ -119,14 +127,9 @@ class TransformerConfig:
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for a setting the port does not have yet (no silent stand-in)."""
-    if cfg.attn_type != "gqa" or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: attn_type={cfg.attn_type!r} (MLA) is not ported "
-            f"yet (ROADMAP queue A.5)")
+    """Raise for a mesh knob of the reference (no silent stand-in)."""
     if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP queue A.5)")
+        MOE.check_moe(cfg.moe)
     for knob in ("wire_barrier", "act_shard", "fsdp_inner",
                  "decode_write_then_attend"):
         if getattr(cfg, knob):
@@ -257,11 +260,19 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     dt = cfg.torch_dtype
 
     def layer():
-        return {"ln1": L.rmsnorm_init(cfg.d_model, device),
-                "ln2": L.rmsnorm_init(cfg.d_model, device),
-                "attn": L.gqa_init(generator, cfg.attn_cfg(), dt, device),
-                "ffn": L.swiglu_init(generator, cfg.d_model, cfg.d_ff, dt,
-                                     device)}
+        p = {"ln1": L.rmsnorm_init(cfg.d_model, device),
+             "ln2": L.rmsnorm_init(cfg.d_model, device)}
+        if cfg.attn_type == "mla":
+            p["attn"] = MLA.mla_init(generator, cfg.mla, dt, device)
+        else:
+            p["attn"] = L.gqa_init(generator, cfg.attn_cfg(), dt, device)
+        if cfg.moe:
+            p["ffn"] = MOE.moe_init(generator, cfg.d_model, cfg.moe, dt,
+                                    device)
+        else:
+            p["ffn"] = L.swiglu_init(generator, cfg.d_model, cfg.d_ff, dt,
+                                     device)
+        return p
     layers = _stacked(layer, cfg.n_layers)
     return TransformerParams(
         L.embedding_init(generator, cfg.vocab, cfg.d_model, dt, device),
@@ -317,6 +328,14 @@ def params_to_reference(params: TransformerParams) -> dict:
 
 def _attend(cfg, lp, xn, positions, kv_cache=None, cache_length=None,
             training: bool = False):
+    if cfg.attn_type == "mla":
+        if kv_cache is not None and xn.shape[1] == 1:
+            return MLA.mla_attend_decode(lp["attn"], cfg.mla, xn, positions,
+                                         kv_cache, cache_length)
+        return MLA.mla_attend_prefill(lp["attn"], cfg.mla, xn, positions,
+                                      chunk_q=cfg.chunk_q,
+                                      chunk_k=cfg.chunk_k, training=training,
+                                      flash_bwd=cfg.flash_bwd)
     return L.gqa_attend(lp["attn"], cfg.attn_cfg(), xn, positions,
                         kv_cache=kv_cache, cache_length=cache_length,
                         chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k,
@@ -328,33 +347,48 @@ def _positions(B: int, Lq: int, device) -> torch.Tensor:
         B, Lq)
 
 
+def _ffn(cfg, lp, x):
+    """The layer's FFN on the residual stream x (B, L, d): (y, aux), aux
+    None without MoE; MoE runs over the flattened (B·L, d) tokens."""
+    xn = L.rmsnorm(lp["ln2"], x)
+    if not cfg.moe:
+        return L.swiglu(lp["ffn"], xn), None
+    B, Lq, d = x.shape
+    y, aux = MOE.moe_apply(lp["ffn"], cfg.moe, xn.reshape(B * Lq, d))
+    return y.reshape(B, Lq, d), aux
+
+
 def _layer_fwd(cfg, lp, x, positions):
-    """One layer of the training route."""
+    """One layer of the training route: (x, the layer's aux loss or
+    None)."""
     h, _ = _attend(cfg, lp, L.rmsnorm(lp["ln1"], x), positions,
                    training=True)
     x = x + h
-    return x + L.swiglu(lp["ffn"], L.rmsnorm(lp["ln2"], x))
+    y, aux = _ffn(cfg, lp, x)
+    return x + y, aux
 
 
 def forward(params: TransformerParams, cfg: TransformerConfig, tokens):
-    """tokens (B, L) -> logits (B, L, vocab), aux loss (0: no MoE).  The
-    training route: ``chunked_attention`` on every device; with ``remat``
-    (and grad mode on) each layer's activations are recomputed in the
-    backward."""
+    """tokens (B, L) -> logits (B, L, vocab), aux loss (float32: the MoE
+    layers' sum in layer order; 0 without MoE).  The training route:
+    ``chunked_attention`` on every device; with ``remat`` (and grad mode
+    on) each layer's activations are recomputed in the backward."""
     check_supported(cfg)
     B, Lq = tokens.shape
     x = L.embed(params["embed"], tokens)
     positions = _positions(B, Lq, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params.layer_views():
         if remat:
-            x = checkpoint(_layer_fwd, cfg, lp, x, positions,
-                           use_reentrant=False)
+            x, a = checkpoint(_layer_fwd, cfg, lp, x, positions,
+                              use_reentrant=False)
         else:
-            x = _layer_fwd(cfg, lp, x, positions)
+            x, a = _layer_fwd(cfg, lp, x, positions)
+        if a is not None:
+            aux = aux + a
     x = L.rmsnorm(params["final_norm"], x)
-    return (L.unembed(params["embed"], x),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return L.unembed(params["embed"], x), aux
 
 
 def train_step_loss(params: TransformerParams, cfg: TransformerConfig,
@@ -372,6 +406,13 @@ def train_step_loss(params: TransformerParams, cfg: TransformerConfig,
 def make_empty_cache(cfg: TransformerConfig, batch: int, max_len: int,
                      device=None) -> dict:
     check_supported(cfg)
+    if cfg.attn_type == "mla":
+        m, dt = cfg.mla, cfg.torch_dtype
+        return {"c_kv": torch.zeros((cfg.n_layers, batch, max_len,
+                                     m.kv_lora_rank), dtype=dt, device=device),
+                "k_rope": torch.zeros((cfg.n_layers, batch, max_len,
+                                       m.qk_rope_dim), dtype=dt,
+                                      device=device)}
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
@@ -379,8 +420,10 @@ def make_empty_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 def prefill(params: TransformerParams, cfg: TransformerConfig, tokens):
     """tokens (B, L) -> (last-position logits (B, vocab), caches filled to
-    L: {"k", "v"} of shape (n_layers, B, Hkv, L, Dh)).  On CUDA tensors each
-    layer's attention is one launch of the attention kernel."""
+    L: GQA's {"k", "v"} of shape (n_layers, B, Hkv, L, Dh), MLA's
+    {"c_kv", "k_rope"} of (n_layers, B, L, r) / (n_layers, B, L, dr)).  On
+    CUDA tensors each layer's attention is one launch of the attention
+    kernel."""
     check_supported(cfg)
     B, Lq = tokens.shape
     x = L.embed(params["embed"], tokens)
@@ -389,31 +432,37 @@ def prefill(params: TransformerParams, cfg: TransformerConfig, tokens):
     for lp in params.layer_views():
         h, (k, v) = _attend(cfg, lp, L.rmsnorm(lp["ln1"], x), positions)
         x = x + h
-        x = x + L.swiglu(lp["ffn"], L.rmsnorm(lp["ln2"], x))
+        x = x + _ffn(cfg, lp, x)[0]
         ks.append(k)
         vs.append(v)
     x = L.rmsnorm(params["final_norm"], x[:, -1:])
     logits = L.unembed(params["embed"], x)[:, 0]
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    keys = ("c_kv", "k_rope") if cfg.attn_type == "mla" else ("k", "v")
+    return logits, {keys[0]: torch.stack(ks), keys[1]: torch.stack(vs)}
 
 
 def decode_step(params: TransformerParams, cfg: TransformerConfig, token,
                 cache: dict, length):
-    """token (B,) int; cache dict of (n_layers, B, Hkv, S, Dh); length (B,)
-    current valid cache entries.  Returns (logits (B, vocab), cache) — the
-    step's K / V are written into ``cache`` in place at ``length``."""
+    """token (B,) int; cache dict of (n_layers, B, ...) (``make_empty_
+    cache``); length (B,) current valid cache entries.  Returns (logits (B,
+    vocab), cache) — the step's K / V (MLA: latents) are written into
+    ``cache`` in place at ``length``."""
     check_supported(cfg)
     x = L.embed(params["embed"], token[:, None])
     positions = length[:, None]
+    mla = cfg.attn_type == "mla"
+    keys = ("c_kv", "k_rope") if mla else ("k", "v")
     for i, lp in enumerate(params.layer_views()):
-        kvc = (cache["k"][i], cache["v"][i])
-        h, (k, v) = _attend(cfg, lp, L.rmsnorm(lp["ln1"], x), positions,
-                            kv_cache=kvc, cache_length=length)
+        kvc = (cache[keys[0]][i], cache[keys[1]][i])
+        h, new = _attend(cfg, lp, L.rmsnorm(lp["ln1"], x), positions,
+                         kv_cache=kvc, cache_length=length)
         x = x + h
-        x = x + L.swiglu(lp["ffn"], L.rmsnorm(lp["ln2"], x))
-        # (B, Hkv, 1, Dh) -> written at [b, :, length[b]]
-        _write_at(cache["k"][i], k[:, :, 0], length, axis=2)
-        _write_at(cache["v"][i], v[:, :, 0], length, axis=2)
+        x = x + _ffn(cfg, lp, x)[0]
+        for key, val in zip(keys, new):
+            if mla:     # (B, 1, r) -> written at [b, length[b]]
+                _write_at(cache[key][i], val[:, 0], length, axis=1)
+            else:       # (B, Hkv, 1, Dh) -> written at [b, :, length[b]]
+                _write_at(cache[key][i], val[:, :, 0], length, axis=2)
     x = L.rmsnorm(params["final_norm"], x)
     return L.unembed(params["embed"], x)[:, 0], cache
 

@@ -82,9 +82,13 @@ class ServeEngine:
                                  device=self.device)[None]
         with torch.inference_mode():
             logits, kv = TF.prefill(self.params, self.cfg, tokens)
-        # the prefill caches go into the slot's fixed-capacity buffers
+        # the prefill caches go into the slot's fixed-capacity buffers,
+        # along their sequence axis: (layers, 1, L, r) for MLA's latents,
+        # (layers, 1, Hkv, L, Dh) for GQA's K / V
         for k, v in kv.items():
-            self.cache[k][:, slot, :, :L] = v[:, 0].to(self.cache[k].dtype)
+            dst = self.cache[k][:, slot]
+            dst = dst[:, :L] if self.cfg.attn_type == "mla" else dst[:, :, :L]
+            dst.copy_(v[:, 0])
         tok = int(self._pick(logits)[0])
         req.out_tokens.append(tok)
         req.slot = slot

@@ -347,7 +347,8 @@ def port_gnn_losses(device) -> dict:
     return out
 
 
-LM_ARCHS = ("qwen3-1.7b", "qwen3-32b")
+LM_ARCHS = ("qwen3-1.7b", "qwen3-32b", "minicpm3-4b", "phi3.5-moe-42b-a6.6b",
+            "qwen2-moe-a2.7b")
 LM_BATCH, LM_SEQ = 4, 64
 LM_STEPS, LM_MICROBATCHES = 3, 2
 LM_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=LM_STEPS)

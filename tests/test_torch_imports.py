@@ -245,6 +245,56 @@ def test_models_module_imports_first(first, models_imports):
     assert out.startswith("ok")
 
 
+MOE_MLA_MODULES = (
+    "repro_torch.models.moe", "repro_torch.models.mla",
+    "repro_torch.models.scatter",
+    "repro_torch.configs.minicpm3_4b", "repro_torch.configs.phi35_moe",
+    "repro_torch.configs.qwen2_moe")
+
+
+@pytest.fixture(scope="module")
+def moe_mla_imports():
+    """One fresh interpreter per module of the MoE / MLA slice, all started
+    at once, read by the cases below."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("REPRO_FAULTS", None)
+    procs = {}
+    for first in MOE_MLA_MODULES:
+        code = (f"import {first}\n"
+                "import sys\n"
+                "from repro_torch import configs\n"
+                "from repro_torch.models import transformer\n"
+                "from repro_torch.serving import ServeEngine\n"
+                "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+                "('jax', 'jaxlib', 'repro'))\n"
+                "assert not bad, bad\n"
+                "assert {'minicpm3-4b', 'phi3.5-moe-42b-a6.6b', "
+                "'qwen2-moe-a2.7b'} <= set(configs.ARCHS)\n"
+                "assert len(configs.ARCHS) == 10\n"
+                "assert configs.get('qwen2-moe-a2.7b').make_full().moe.e_pad "
+                "== 64\n"
+                "print('ok')\n")
+        procs[first] = subprocess.Popen(
+            [sys.executable, "-c", code], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    yield procs
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+@pytest.mark.parametrize("first", MOE_MLA_MODULES)
+def test_moe_mla_module_imports_first(first, moe_mla_imports):
+    """Each module of the MoE / MLA slice imports first in a fresh
+    interpreter, with no import cycle (``moe``, ``gnn``, ``recsys`` and
+    ``equivariant`` share ``scatter``, which imports only torch), pulling in neither
+    ``jax`` nor the reference package."""
+    out, err = moe_mla_imports[first].communicate(timeout=240)
+    assert moe_mla_imports[first].returncode == 0, err
+    assert out.startswith("ok")
+
+
 # the reference's package-level names that the port's packages re-export,
 # and the modules of the LM training slice
 EXPORTS = tuple(("repro_torch.core", n) for n in (

@@ -11,10 +11,13 @@ The reference's functions are ``jax.jit``'d.  Tolerances (float32):
   reference's with the same flag: outputs 1e-5, gradients of
   ``(o ** 2).sum()`` 2e-4 (absolute, as the reference's own
   ``tests/test_perf_variants.py`` holds its two backwards);
-* ``train_step_loss`` of the two LM smoke configs, ``flash_bwd`` and
-  ``remat`` each on and off: the loss 1e-5 relative, each leaf's gradient
-  within 1e-4 of that leaf's largest reference gradient (measured about
-  1.3e-6: XLA's and PyTorch's products and sums in another order);
+* ``train_step_loss`` of the LM smoke configs — the two qwen3s with
+  ``flash_bwd`` and ``remat`` each on and off, the MLA / MoE ones with
+  both off and both on — the loss (the MoE aux loss included) 1e-5
+  relative, each leaf's gradient within 1e-4 of that leaf's largest
+  reference gradient (measured about 1.3e-6: XLA's and PyTorch's products
+  and sums in another order; MoE routing is a discrete choice, equal in
+  both packages here);
 * one AdamW step on bfloat16 leaves: bit for bit (the gradient norm under
   ``clip_norm``, so the clipping scale is exactly 1: the global norm is a
   reduction whose order differs between XLA and PyTorch, which
@@ -53,7 +56,14 @@ from repro_torch.training import train_loop as TTL
 
 torch.set_num_threads(1)
 
-LM_ARCHS = ("qwen3-1.7b", "qwen3-32b")
+LM_ARCHS = ("qwen3-1.7b", "qwen3-32b", "minicpm3-4b",
+            "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b")
+MOE_MLA_ARCHS = LM_ARCHS[2:]
+# (arch, flash_bwd, remat): every pair for the qwen3s; both off and both on
+# for the MLA / MoE archs (MLA's head dim 12 takes the flash backward too)
+TRAIN_CASES = [(a, f, r) for a in LM_ARCHS[:2] for f in (False, True)
+               for r in (False, True)] + [
+    (a, f, f) for a in MOE_MLA_ARCHS for f in (False, True)]
 SEQ = 128            # two 64-token tiles of the smoke configs' chunks
 
 
@@ -179,9 +189,7 @@ def _reference_loss_and_grads(arch, flash):
             [(jax.tree_util.keystr(p), np.asarray(x)) for p, x in flat])
 
 
-@pytest.mark.parametrize("remat", [False, True])
-@pytest.mark.parametrize("flash", [False, True])
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("arch,flash,remat", TRAIN_CASES)
 def test_train_step_loss_and_gradients_equal_the_reference(arch, flash,
                                                            remat):
     tree, want_loss, want_g = _reference_loss_and_grads(arch, flash)
@@ -203,11 +211,12 @@ def test_train_step_loss_and_gradients_equal_the_reference(arch, flash,
                                    err_msg=path)
 
 
-def test_training_route_never_reaches_the_kernel(monkeypatch):
+@pytest.mark.parametrize("arch", ("qwen3-1.7b",) + MOE_MLA_ARCHS)
+def test_training_route_never_reaches_the_kernel(arch, monkeypatch):
     """``forward`` (training) takes ``chunked_attention`` and never
     ``prefill_attention``, the serving route that sends a CUDA tensor to
     the kernel; ``prefill`` takes that route once a layer."""
-    cfg = tconfigs.get("qwen3-1.7b").make_smoke()
+    cfg = tconfigs.get(arch).make_smoke()
     pt = TTF.init_params(torch.Generator().manual_seed(0), cfg,
                          trainable=True)
     toks = torch.randint(1, cfg.vocab, (2, 40),
@@ -226,10 +235,14 @@ def test_training_route_never_reaches_the_kernel(monkeypatch):
     obs_metrics.reset()
 
 
-def test_params_cross_the_packages_both_ways():
-    cfg_j = dataclasses.replace(jconfigs.get("qwen3-32b").make_smoke(),
+@pytest.mark.parametrize("arch", ("qwen3-32b",) + MOE_MLA_ARCHS)
+def test_params_cross_the_packages_both_ways(arch):
+    """Every leaf (MoE's float32 router and nested ``shared`` experts,
+    MLA's ``q_norm`` / ``kv_norm`` among them) crosses with its path, order,
+    shape and values; the port's own init draws the same tree."""
+    cfg_j = dataclasses.replace(jconfigs.get(arch).make_smoke(),
                                 dtype="bfloat16")
-    cfg_t = dataclasses.replace(tconfigs.get("qwen3-32b").make_smoke(),
+    cfg_t = dataclasses.replace(tconfigs.get(arch).make_smoke(),
                                 dtype="bfloat16")
     tree = jax.tree.map(np.asarray, JTF.init_params(jax.random.PRNGKey(2),
                                                     cfg_j))
@@ -242,6 +255,10 @@ def test_params_cross_the_packages_both_ways():
     for (p, w), (_, b) in zip(flat_w, flat_b):
         assert b.shape == w.shape
         np.testing.assert_array_equal(b.astype(w.dtype), w)
+    own = T.flatten_with_paths(TTF.init_params(
+        torch.Generator().manual_seed(0), cfg_t))
+    assert [(k, tuple(v.shape), str(v.dtype)) for k, v in own] == [
+        (k, tuple(v.shape), str(v.dtype)) for k, v in T.flatten_with_paths(pt)]
     with pytest.raises(ValueError, match="layers"):
         TTF.params_from_reference(dataclasses.replace(cfg_t, n_layers=3),
                                   tree)

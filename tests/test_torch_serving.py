@@ -1,4 +1,6 @@
-"""Port vs reference: the serving path on the ``qwen3-1.7b`` smoke config.
+"""Port vs reference: the serving path on the ``qwen3-1.7b`` smoke config,
+and on the smoke configs of the MLA / MoE archs (``minicpm3-4b``,
+``phi3.5-moe-42b-a6.6b``, ``qwen2-moe-a2.7b``).
 
 The reference's weights (``repro.models.transformer.init_params(PRNGKey)``)
 are carried into the port by ``params_from_reference``; then ``forward``,
@@ -10,9 +12,12 @@ the attention kernel, held to its plain version by ``chip_smoke.py``).
 Tolerance 1e-4 (absolute and relative) on logits and caches: the same
 float32 arithmetic in another order (XLA's and PyTorch's matrix products
 and reductions sum differently), through two layers, measured at about
-1e-6 here.  Greedy tokens must be equal.
+1e-6 here.  Greedy tokens must be equal.  The MoE smoke configs route
+without drops (capacity factor 8), so a token's route does not depend on
+the batch it prefills or decodes in.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -34,17 +39,35 @@ torch.set_num_threads(1)
 TOL = dict(rtol=1e-4, atol=1e-4)
 CFG_J = jconfigs.get("qwen3-1.7b").make_smoke()
 CFG_T = tconfigs.get("qwen3-1.7b").make_smoke()
+# the served LM archs: qwen3-1.7b (GQA + qk-norm), MLA, the two MoEs
+ARCHS = ("qwen3-1.7b", "minicpm3-4b", "phi3.5-moe-42b-a6.6b",
+         "qwen2-moe-a2.7b")
 
-_j_forward = jax.jit(lambda p, t: JTF.forward(p, CFG_J, t))
-_j_prefill = jax.jit(lambda p, t: JTF.prefill(p, CFG_J, t))
-_j_decode = jax.jit(lambda p, t, c, l: JTF.decode_step(p, CFG_J, t, c, l))
+
+@functools.lru_cache(maxsize=None)
+def _smoke(arch):
+    """(reference config, port config, jitted reference forward, prefill
+    and decode_step) of ``arch``'s smoke config."""
+    cj = jconfigs.get(arch).make_smoke()
+    return (cj, tconfigs.get(arch).make_smoke(),
+            jax.jit(lambda p, t: JTF.forward(p, cj, t)),
+            jax.jit(lambda p, t: JTF.prefill(p, cj, t)),
+            jax.jit(lambda p, t, c, l: JTF.decode_step(p, cj, t, c, l)))
 
 
-def _params(seed):
+def _params(seed, arch="qwen3-1.7b"):
     """(reference params, the same weights as port params)."""
-    pj = JTF.init_params(jax.random.PRNGKey(seed), CFG_J)
+    cfg_j, cfg_t = _smoke(arch)[:2]
+    pj = JTF.init_params(jax.random.PRNGKey(seed), cfg_j)
     tree = jax.tree_util.tree_map(np.asarray, pj)
-    return pj, TTF.params_from_reference(CFG_T, tree, "cpu")
+    return pj, TTF.params_from_reference(cfg_t, tree, "cpu")
+
+
+def _seq(cfg, buf):
+    """``buf``'s (n_layers, B, ...) view with the sequence axis next:
+    MLA's latents are (n_layers, B, S, r), GQA's K / V (n_layers, B, Hkv,
+    S, Dh)."""
+    return buf if cfg.attn_type == "mla" else buf.swapaxes(2, 3)
 
 
 def _close(got, want, what):
@@ -52,8 +75,9 @@ def _close(got, want, what):
                                err_msg=what, **TOL)
 
 
-def test_configs_equal_the_reference_field_by_field():
-    ja, ta = jconfigs.get("qwen3-1.7b"), tconfigs.get("qwen3-1.7b")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_equal_the_reference_field_by_field(arch):
+    ja, ta = jconfigs.get(arch), tconfigs.get(arch)
     for f in ("name", "family", "notes", "extras"):
         assert getattr(ja, f) == getattr(ta, f), f
     for make in ("make_full", "make_smoke"):
@@ -61,29 +85,36 @@ def test_configs_equal_the_reference_field_by_field():
         jf = [f.name for f in dataclasses.fields(jc)]
         assert jf == [f.name for f in dataclasses.fields(tc)], make
         for name in jf:
-            assert getattr(jc, name) == getattr(tc, name), (make, name)
+            a, b = getattr(jc, name), getattr(tc, name)
+            if name in ("moe", "mla") and a is not None:
+                # each package's own config class: field by field
+                assert type(a).__name__ == type(b).__name__, (make, name)
+                a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+            assert a == b, (make, name)
+        if jc.moe is not None:
+            assert jc.moe.e_pad == tc.moe.e_pad
         assert jc.n_params() == tc.n_params()
+        assert jc.n_active_params() == tc.n_active_params()
         assert dataclasses.asdict(jc.attn_cfg()) == dataclasses.asdict(
             tc.attn_cfg())
-    assert ja.make_full().n_params() == 1_720_567_808
+    if arch == "qwen3-1.7b":
+        assert ja.make_full().n_params() == 1_720_567_808
     for shapes in ("LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES"):
         assert getattr(jconfigs, shapes) == getattr(tconfigs, shapes)
 
 
 def test_unported_archs_and_settings_raise():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        tconfigs.get("minicpm3-4b")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        tconfigs.get("qwen2-moe-a2.7b")
+    """Every arch of the reference is in the registry; an unknown name and
+    the reference's mesh knobs (no counterpart in the single-device port)
+    raise."""
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get("no-such-arch")
-    assert set(tconfigs.NOT_PORTED) | set(tconfigs.ARCHS) == set(
-        jconfigs.ARCHS)
+    assert set(tconfigs.ARCHS) == set(jconfigs.ARCHS)
+    assert not hasattr(tconfigs, "NOT_PORTED")
     base = CFG_T
-    # MLA and MoE name their ROADMAP item; the mesh knobs have no
-    # counterpart in the single-device port
-    for change, why in ((dict(attn_type="mla"), "ROADMAP"),
-                        (dict(moe=object()), "ROADMAP"),
+    moe = tconfigs.get("qwen2-moe-a2.7b").make_smoke().moe
+    for change, why in ((dict(moe=dataclasses.replace(
+                            moe, ep_axes=("model", "data"))), "not ported"),
                         (dict(wire_barrier=True), "not ported"),
                         (dict(act_shard=True), "not ported"),
                         (dict(fsdp_inner=True), "not ported"),
@@ -96,43 +127,53 @@ def test_unported_archs_and_settings_raise():
             TTF.make_empty_cache(cfg, 1, 8)
 
 
-def test_forward_prefill_match_the_reference():
-    pj, pt = _params(0)
-    toks = np.random.default_rng(0).integers(1, CFG_J.vocab, (2, 37)).astype(
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_prefill_match_the_reference(arch):
+    cfg_j, cfg_t, j_forward, j_prefill, _ = _smoke(arch)
+    pj, pt = _params(0, arch)
+    toks = np.random.default_rng(0).integers(1, cfg_j.vocab, (2, 37)).astype(
         np.int32)
-    lj, aux_j = _j_forward(pj, jnp.asarray(toks))
-    lt, aux_t = TTF.forward(pt, CFG_T, torch.from_numpy(toks))
+    lj, aux_j = j_forward(pj, jnp.asarray(toks))
+    lt, aux_t = TTF.forward(pt, cfg_t, torch.from_numpy(toks))
     _close(lt, lj, "forward logits")
-    assert float(aux_t) == float(aux_j) == 0.0
-    lj, cj = _j_prefill(pj, jnp.asarray(toks))
-    lt, ct = TTF.prefill(pt, CFG_T, torch.from_numpy(toks))
+    if cfg_j.moe is None:
+        assert float(aux_t) == float(aux_j) == 0.0
+    else:       # the MoE layers' aux losses, summed over the layers
+        assert float(aux_j) > 0
+        np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=1e-5)
+    lj, cj = j_prefill(pj, jnp.asarray(toks))
+    lt, ct = TTF.prefill(pt, cfg_t, torch.from_numpy(toks))
     _close(lt, lj, "prefill logits")
-    for k in ("k", "v"):
+    assert sorted(ct) == sorted(cj)
+    for k in cj:
         assert tuple(ct[k].shape) == cj[k].shape
         _close(ct[k], cj[k], f"prefill cache {k}")
 
 
-def test_decode_step_matches_the_reference():
-    pj, pt = _params(1)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_step_matches_the_reference(arch):
+    cfg_j, cfg_t, _, j_prefill, j_decode = _smoke(arch)
+    pj, pt = _params(1, arch)
     rng = np.random.default_rng(1)
     B, S, L0 = 3, 24, 9
-    toks = rng.integers(1, CFG_J.vocab, (B, L0)).astype(np.int32)
-    _, cj = _j_prefill(pj, jnp.asarray(toks))
-    _, ct = TTF.prefill(pt, CFG_T, torch.from_numpy(toks))
-    cache_j = {k: v.at[:, :, :, :L0].set(cj[k])
-               for k, v in JTF.make_empty_cache(CFG_J, B, S).items()}
-    cache_t = TTF.make_empty_cache(CFG_T, B, S)
+    toks = rng.integers(1, cfg_j.vocab, (B, L0)).astype(np.int32)
+    _, cj = j_prefill(pj, jnp.asarray(toks))
+    _, ct = TTF.prefill(pt, cfg_t, torch.from_numpy(toks))
+    cache_j = {k: _seq(cfg_j, _seq(cfg_j, v).at[:, :, :L0].set(
+                   _seq(cfg_j, cj[k])))
+               for k, v in JTF.make_empty_cache(cfg_j, B, S).items()}
+    cache_t = TTF.make_empty_cache(cfg_t, B, S)
     for k in cache_t:
-        cache_t[k][:, :, :, :L0] = ct[k]
+        _seq(cfg_t, cache_t[k])[:, :, :L0] = _seq(cfg_t, ct[k])
     length = np.array([L0, 4, S + 3], np.int32)   # the last one is clipped
     for step in range(3):
-        tok = rng.integers(1, CFG_J.vocab, B).astype(np.int32)
-        lj, cache_j = _j_decode(pj, jnp.asarray(tok), cache_j,
-                                jnp.asarray(length))
-        lt, cache_t = TTF.decode_step(pt, CFG_T, torch.from_numpy(tok),
+        tok = rng.integers(1, cfg_j.vocab, B).astype(np.int32)
+        lj, cache_j = j_decode(pj, jnp.asarray(tok), cache_j,
+                               jnp.asarray(length))
+        lt, cache_t = TTF.decode_step(pt, cfg_t, torch.from_numpy(tok),
                                       cache_t, torch.from_numpy(length))
         _close(lt, lj, f"decode logits, step {step}")
-        for k in ("k", "v"):
+        for k in cache_j:
             _close(cache_t[k], cache_j[k], f"decode cache {k}, step {step}")
         length = length + 1
 
@@ -149,45 +190,51 @@ def test_write_at_matches_the_reference():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def _serve_both(seed, batch, max_len, reqs):
+def _serve_both(seed, batch, max_len, reqs, arch="qwen3-1.7b"):
     """Run the request set through both engines; returns both lists."""
-    pj, pt = _params(seed)
+    cfg_j, cfg_t, _, j_prefill, _ = _smoke(arch)
+    pj, pt = _params(seed, arch)
     jr = [JRequest(prompt=p, max_new_tokens=m) for p, m in reqs]
     tr = [Request(prompt=p, max_new_tokens=m) for p, m in reqs]
-    JServeEngine(pj, CFG_J, batch=batch, max_len=max_len).run(jr)
-    ServeEngine(pt, CFG_T, batch=batch, max_len=max_len, device="cpu").run(tr)
+    JServeEngine(pj, cfg_j, batch=batch, max_len=max_len).run(jr)
+    ServeEngine(pt, cfg_t, batch=batch, max_len=max_len, device="cpu").run(tr)
     for p, _ in reqs:             # the same prefill logits, prompt by prompt
-        lj, _ = _j_prefill(pj, jnp.asarray(p, jnp.int32)[None])
-        lt, _ = TTF.prefill(pt, CFG_T, torch.as_tensor(p, dtype=torch.int32)[
+        lj, _ = j_prefill(pj, jnp.asarray(p, jnp.int32)[None])
+        lt, _ = TTF.prefill(pt, cfg_t, torch.as_tensor(p, dtype=torch.int32)[
             None])
         _close(lt, lj, f"prefill logits of a {len(p)}-token prompt")
     return jr, tr
 
 
-def test_serving_continuous_batching_matches_the_reference():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_continuous_batching_matches_the_reference(arch):
     """The request set of tests/test_system.py's continuous-batching test:
-    7 prompts of 5..11 tokens, 4-6 new tokens each, through 3 slots."""
+    7 prompts of 5..11 tokens, 4-6 new tokens each, through 3 slots.  (An
+    MLA prefill's latents go into their slot along the sequence axis: a
+    cut along the latent axis gives other tokens from the first step.)"""
     rng = np.random.default_rng(0)
-    reqs = [(rng.integers(1, CFG_J.vocab, 5 + i), 4 + (i % 3))
-            for i in range(7)]
-    jr, tr = _serve_both(0, 3, 64, reqs)
+    vocab = _smoke(arch)[0].vocab
+    reqs = [(rng.integers(1, vocab, 5 + i), 4 + (i % 3)) for i in range(7)]
+    jr, tr = _serve_both(0, 3, 64, reqs, arch)
     for a, b in zip(jr, tr):
         assert b.done and len(b.out_tokens) == b.max_new_tokens
         assert b.out_tokens == a.out_tokens
         assert b.slot == a.slot
 
 
-def test_serving_matches_the_reference_and_a_forward_rollout():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_matches_the_reference_and_a_forward_rollout(arch):
     """The request of tests/test_system.py's forward-oracle test: the engine's
     greedy tokens equal the reference engine's and an argmax rollout of the
     port's full forward pass."""
     prompt = np.asarray([3, 5, 7, 11, 13])
-    jr, tr = _serve_both(1, 2, 64, [(prompt, 5)])
+    jr, tr = _serve_both(1, 2, 64, [(prompt, 5)], arch)
     assert tr[0].out_tokens == jr[0].out_tokens
-    _, pt = _params(1)
+    _, pt = _params(1, arch)
+    cfg_t = _smoke(arch)[1]
     toks = list(prompt)
     for _ in range(5):
-        logits, _ = TTF.forward(pt, CFG_T, torch.tensor([toks],
+        logits, _ = TTF.forward(pt, cfg_t, torch.tensor([toks],
                                                         dtype=torch.int32))
         toks.append(int(torch.argmax(logits[0, -1])))
     assert tr[0].out_tokens == toks[len(prompt):]
@@ -234,9 +281,10 @@ def test_params_from_reference_bfloat16_and_layout():
         k: (v.shape, v.dtype) for k, v in pt.named_parameters()}
 
 
-def test_launch_serve_runs_on_the_cpu(capsys):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_launch_serve_runs_on_the_cpu(arch, capsys):
     from repro_torch.launch import serve
-    assert serve.main(["--device", "cpu", "--requests", "3",
+    assert serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
                        "--max-new-tokens", "4"]) == 0
     assert "served 3 requests, 12 tokens" in capsys.readouterr().out
 
