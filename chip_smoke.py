@@ -20,8 +20,9 @@ ends the run with a non-zero exit code:
               tolerances (FA_TOL, SPMM_TOL; attention also row by row,
               ROW_TOL); attention at the tile edges of its sm90 design
               too, each call checked to have launched the design its dtype
-              and head dim name (D 80, 96 and 12 on fma: qwen3-32b's and
-              minicpm3-4b's heads); B1, B2 and B3 at the tile edges of their
+              and head dim name (bfloat16 D 80 and 96 on sm90's tail
+              panel, at its tile edges too, and D 12 on fma: qwen3-32b's
+              and minicpm3-4b's heads); B1, B2 and B3 at the tile edges of their
               staged designs (phase_kernels_staged); B4 at its edges (d
               1-300, W 1-44, max over non-finite features); B2's
               detect-only form on both designs and CAT's phase A route
@@ -141,7 +142,7 @@ ends the run with a non-zero exit code:
               (c) depth cut to 2, a restart from LATEST bit for bit, and
               ops.attention refusing inputs that require grad; (d)
               ServeEngine on qwen3-32b at full width cut to 8 layers, 4
-              requests: exactly 8 x 4 attention launches, all on the fma
+              requests: exactly 8 x 4 attention launches, all on the sm90
               design (head dim 80), prefill logits against the plain
               attention within LOGITS_ATOL
   5l. models  dcn-v2 and nequip at full width (no kernel of the port on
@@ -172,7 +173,7 @@ ends the run with a non-zero exit code:
               weights do not fit), random weights from seed 0, each freed
               before the next: 4 requests of 128-1024 tokens, 8 new tokens;
               counts zeroed before, read after: exactly n_layers x 4 B5
-              launches, all on sm90 (MoE, D 128) or fma (MLA, D 96); TTFT
+              launches, all on sm90 (MoE, D 128; MLA, D 96); TTFT
               p50, decode ms a step, peak memory, parameter count;
               (b) every layer's attention of one prefill held to the plain
               version on its own q, k, v (FA_TOL, ROW_TOL); minicpm3-4b's
@@ -200,9 +201,10 @@ ends the run with a non-zero exit code:
               the gather floor; attention at L 512, 2048 and
               8192 in bfloat16 and at L 2048 in float32, each with its
               ratio to SDPA; attention at qwen3-32b's prefill (64 / 8
-              heads, D 80, L 2048, bfloat16: the fma design) and at
-              minicpm3-4b's (40 / 40 heads, D 96, L 2048, fma) beside their
-              bounds and SDPA; one compacted repair pass per
+              heads, D 80, L 2048, bfloat16: the sm90 design) and at
+              minicpm3-4b's (40 / 40 heads, D 96, L 2048, sm90) beside their
+              bounds, SDPA and the fma kernel at the same shape (design id
+              0, timed only); one compacted repair pass per
               compacted path (detect_recolor with row_ids, forb0 and
               extra_defect on RMAT-B; twohop with row_ids on RMAT-ER),
               kernels against plain versions on the same inputs; B2's
@@ -1076,8 +1078,10 @@ def phase_kernels_attention(device, launch: bool, cmp: Cmp):
     8, B = 2); causal and not, float32 and bfloat16; a few in the serving
     prefill's layout (views of (B, L, H, D) tensors, no copy); qwen3-32b's
     heads (64 / 8) at head dim 80, ragged and with Lk > Lq; minicpm3-4b's
-    MLA heads (40 / 40) at head dim 96 and 12, ragged and with Lk > Lq.
-    Each case
+    MLA heads (40 / 40) at head dim 96 and 12, ragged and with Lk > Lq; the
+    sm90 design's tile edges at D 80 and 96 (its tail panel: L = 63-65,
+    127-129, 255, 257, 2049, Lk > Lq ragged at GQA ratios 1 and 8, B = 2,
+    views).  Each case
     is held to ``FA_TOL`` and, row by row, to ``ROW_TOL``, and checks that
     the launch went to the design ``design(dtype, D)`` names."""
     from repro_torch.kernels import ops, ref
@@ -1094,16 +1098,26 @@ def phase_kernels_attention(device, launch: bool, cmp: Cmp):
     shapes += [(2, 8, 8, 129, 257, 64), (2, 8, 4, 65, 300, 128),
                (2, 16, 2, 255, 383, 64), (2, 8, 1, 257, 257, 128),
                (2, 16, 2, 63, 191, 128)]
-    # qwen3-32b's heads (64 / 8) at head dim 80, on the fma design: ragged
-    # lengths, Lk > Lq
+    # qwen3-32b's heads (64 / 8) at head dim 80 (bfloat16: the sm90
+    # design's tail panel of 16 columns): ragged lengths, Lk > Lq
     shapes += [(1, 64, 8, L, L, 80) for L in (1, 63, 65, 300)]
     shapes += [(1, 64, 8, 129, 257, 80), (2, 64, 8, 33, 700, 80)]
-    # minicpm3-4b's MLA heads (40 / 40) at head dim 96 (64 + 32) and its
-    # smoke config's 12 (8 + 4, zero-padded to 16 by the wrapper), fma
+    # minicpm3-4b's MLA heads (40 / 40) at head dim 96 (64 + 32; bfloat16:
+    # sm90, a tail of 32 columns) and its smoke config's 12 (8 + 4,
+    # zero-padded to 16 by the wrapper, fma)
     shapes += [(1, 40, 40, L, L, 96) for L in (1, 63, 65, 300)]
     shapes += [(1, 40, 40, 129, 257, 96), (2, 40, 40, 33, 70, 12)]
+    # the sm90 design's tile edges at D 80 and 96: 128-row query tiles,
+    # 128-key tiles, Lk > Lq with a ragged offset at GQA ratios 1 and 8
+    shapes += [(1, 16, 2, L, L, D) for D in (80, 96)
+               for L in (64, 127, 128, 129, 255, 257, 2049)]
+    shapes += [(2, 16, 2, 129, 257, 80), (2, 8, 8, 255, 383, 80),
+               (2, 8, 1, 65, 300, 96), (2, 8, 8, 63, 191, 96),
+               (2, 16, 2, 257, 257, 96)]
     views = {(1, 16, 8, 300, 300, 128), (2, 8, 4, 65, 300, 128),
-             (2, 16, 2, 255, 383, 64)}
+             (2, 16, 2, 255, 383, 64), (1, 64, 8, 300, 300, 80),
+             (2, 16, 2, 129, 257, 80), (2, 8, 1, 65, 300, 96),
+             (1, 40, 40, 300, 300, 96)}
 
     def make(rng, shape, dtype, view):
         if not view:
@@ -3121,7 +3135,8 @@ def lm_serve_32b(device, rehearse: bool) -> tuple:
     ``LM32_LAYERS`` (the smoke config in the rehearsal), random weights
     from seed 0: ``LM32_REQUESTS`` requests with prompts of 128-1024 tokens.
     Counts zeroed before, read after: exactly one attention launch per
-    layer per prefill, all on the fma design (head dim 80).  Each prompt's
+    layer per prefill, all on the sm90 design (head dim 80: its tail
+    panel).  Each prompt's
     prefill logits against the plain attention (``kernel.fallback``) within
     ``LOGITS_ATOL``.  Returns (row, counts)."""
     from repro_torch import configs
@@ -3155,9 +3170,9 @@ def lm_serve_32b(device, rehearse: bool) -> tuple:
         want["flash_attention"] = cfg.n_layers * len(reqs)
         if counts != want:
             fail(f"lm serve 32b (d): launches {counts}, expected {want}")
-        if designs != {"sm90": 0, "fma": want["flash_attention"]}:
+        if designs != {"sm90": want["flash_attention"], "fma": 0}:
             fail(f"lm serve 32b (d): attention launches by design {designs}"
-                 f", expected all {want['flash_attention']} on fma (D 80)")
+                 f", expected all {want['flash_attention']} on sm90 (D 80)")
     for r in reqs:
         if not r.done or len(r.out_tokens) != LM32_NEW_TOKENS:
             fail(f"lm serve 32b (d): a request ended with "
@@ -3724,7 +3739,7 @@ def phase_models(device, card: str, rehearse: bool) -> tuple:
 
 # --------------------------------------------------------------------------
 # phase 5m: MoE and MLA — qwen2-moe-a2.7b, phi3.5-moe and minicpm3-4b served
-# at full width (B5 at D 128 on sm90, at D 96 on fma), two trained at depth 2
+# at full width (B5 on sm90 at D 128 and at D 96), two trained at depth 2
 # --------------------------------------------------------------------------
 
 MM_REQUESTS, MM_NEW_TOKENS = 4, 8
@@ -3932,8 +3947,8 @@ def mm_serve(device, name: str, layers, cmp: Cmp, rehearse: bool) -> tuple:
     """(a) + (b) for one config: ``ServeEngine``, ``MM_REQUESTS`` requests
     (prompts of 128-1024 tokens, ``default_rng(2)``), ``MM_NEW_TOKENS``
     new tokens each; counts zeroed before, read after: exactly one
-    attention launch per layer per prefill, all on ``sm90`` (MoE, D 128)
-    or ``fma`` (MLA, D 96).  Then the kernel held on its path
+    attention launch per layer per prefill, all on ``sm90`` (MoE, D 128;
+    MLA, D 96: the tail panel).  Then the kernel held on its path
     (``mm_attention_on_path``), the kernel route against the plain one
     (``mm_routes_and_logits``: for MLA the logits within ``LOGITS_ATOL``),
     and for MoE layer 0's MoE against the CPU; a decode step with 4 live
@@ -3995,7 +4010,7 @@ def mm_serve(device, name: str, layers, cmp: Cmp, rehearse: bool) -> tuple:
     # ... and read just after
     counts, designs = launch_counts(), attention_designs()
     n_fa = cfg.n_layers * len(reqs)
-    route = "fma" if cfg.attn_type == "mla" else "sm90"
+    route = "sm90"          # a literal: D 128 (MoE) and D 96 (MLA) alike
     if device.type == "cuda":
         want = dict({k: 0 for k in KERNELS}, flash_attention=n_fa)
         if counts != want:
@@ -5361,8 +5376,33 @@ F32_TFLOPS = 67e12       # H100 SXM float32 rate outside the tensor cores
 # a typical serving prompt, the serving prefill's longest, and 4x it
 FA_TIME_LENS = (512, 2048, 8192)
 FA_F32_LEN = 2048        # the float32 row (the unchanged CUDA-core kernel)
-FA_D80_LEN = 2048        # qwen3-32b's prefill row (head dim 80, fma design)
-FA_D96_LEN = 2048        # minicpm3-4b's prefill row (head dim 96, fma design)
+FA_D80_LEN = 2048        # qwen3-32b's prefill row (head dim 80, sm90 design)
+FA_D96_LEN = 2048        # minicpm3-4b's prefill row (head dim 96, sm90)
+
+
+def fma_kernel(q, k, v, launch: bool):
+    """Causal attention on the CUDA-core kernel (``csrc/flash_attention.cu``,
+    ``attn_flash_forward``'s design id 0) whatever the wrapper's design for
+    these inputs: what bfloat16 D 80 / 96 ran on before the sm90 design
+    took them, timed beside it in phase 6.  Bypasses the wrapper, so no
+    launch is counted; on the rehearsal the plain version."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.firstfit import ptr
+    from repro_torch.kernels.flash_attention import DTYPES, row_strides
+    if not launch:
+        return ref.flash_attention_ref(q, k, v, causal=True)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    B, Hq, Lq, D = q.shape
+    _, Hkv, Lk, _ = k.shape
+    out = torch.empty_like(q)
+    err = _build.library().attn_flash_forward(
+        ptr(q), ptr(k), ptr(v), ptr(out), B, Hq, Hkv, Lq, Lk, D, 1,
+        DTYPES[q.dtype], 0, *row_strides(q), *row_strides(k),
+        *row_strides(v), 1.0 / (D ** 0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        fail(f"fma_kernel: attn_flash_forward returned {err}")
+    return out
 
 
 def attention_pairs(Lq: int, Lk: int, causal: bool) -> int:
@@ -5382,8 +5422,12 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
     Hkv=8, D=128, causal): bfloat16 at L = 512, 2048 and 8192 (the sm90
     design), and float32 at L = 2048 (the CUDA-core design, unchanged);
     and at qwen3-32b's prefill (Hq=64, Hkv=8, D=80, L=2048, bfloat16: the
-    fma design) and minicpm3-4b's (Hq=Hkv=40, D=96, L=2048, bfloat16:
-    fma); each held to ``FA_TOL`` and ``ROW_TOL``.  Bound: the larger
+    sm90 design's tail panel) and minicpm3-4b's (Hq=Hkv=40, D=96, L=2048,
+    bfloat16: sm90); each held to ``FA_TOL`` and ``ROW_TOL``.  At D 80 and
+    96 also ``fma_ms``: the CUDA-core kernel that served them before, at
+    the same inputs, through ``attn_flash_forward``'s design id 0 (a
+    measurement only: ``fma_kernel``, no path, no count), with its error
+    against the plain version.  Bound: the larger
     of 4 * Hq * D FLOPs per visible (query, key) pair at the type's rate
     (bf16 tensor cores; float32 outside them) and q, k, v, out read /
     written once at the memory rate — operations bound it.  Library:
@@ -5415,10 +5459,10 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
     cases = [(L, torch.bfloat16, (B, Hq, Hkv, D)) for L in lens]
     cases.append((64 if rehearse else FA_F32_LEN, torch.float32,
                   (B, Hq, Hkv, D)))
-    # qwen3-32b's prefill: 64 / 8 heads at head dim 80 (the fma design)
+    # qwen3-32b's prefill: 64 / 8 heads at head dim 80 (sm90, tail panel)
     cases.append((64 if rehearse else FA_D80_LEN, torch.bfloat16,
                   (1, 8, 1, 80) if rehearse else (1, 64, 8, 80)))
-    # minicpm3-4b's MLA prefill: 40 / 40 heads at head dim 96 (fma)
+    # minicpm3-4b's MLA prefill: 40 / 40 heads at head dim 96 (sm90)
     cases.append((64 if rehearse else FA_D96_LEN, torch.bfloat16,
                   (1, 8, 8, 96) if rehearse else (1, 40, 40, 96)))
     for L, dt, (B, Hq, Hkv, D) in cases:
@@ -5459,6 +5503,12 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
                             >= nbytes / HBM_BYTES_PER_S else "bytes")}
         row["ms_over_library"] = row["ms"] / row["library_ms"]
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        if D in (80, 96):
+            old = lambda: fma_kernel(q, k, v, launch)
+            row["fma_ms"] = device_ms(old, device, 3)
+            row["fma_max_abs_err_vs_plain"] = float(
+                (old().float() - want.float()).abs().max())
+            row["ms_over_fma"] = row["ms"] / row["fma_ms"]
         rows.append(row)
         log("times", json.dumps(row))
         del q, k, v, want
@@ -5675,8 +5725,9 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
     d96 = next(r for r in model_rows if r.get("head_dim_96"))
     sp = next(r for r in model_rows
               if r["kernel"] == "ell_spmm" and r["kernels_line"])
-    fa_src = {"sm90": "flash_attention_sm90.cu",
-              "fma": "flash_attention.cu"}[fa["design"]]
+    fa_src_of = {"sm90": "flash_attention_sm90.cu",
+                 "fma": "flash_attention.cu"}
+    fa_src = fa_src_of[fa["design"]]
     for name, r, src, replaces, path, shape in (
             ("flash_attention", fa, fa_src,
              "src/repro/kernels/flash_attention.py:58", "serve",
@@ -5704,27 +5755,23 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
             "launches_per_path": {p: c[name] for p, c in paths.items()},
             "shape": {k: r[k] for k in shape},
             "cases_checked": len(cmp.cases[name])})
-    next(k for k in kernels if k["name"] == "flash_attention")[
-        "head_dim_80"] = {
-        "source": csrc + "flash_attention.cu", "path": "lm_serve_32b",
-        "launches": paths["lm_serve_32b"]["flash_attention"],
-        "design": d80["design"], "ms": d80["ms"], "ms_method": "device",
-        "call_ms": d80["call_ms"], "plain_ms": d80["plain_ms"],
-        "bound_ms": d80["bound_ms"], "bound_by": d80["bound_by"],
-        "library_ms": d80["library_ms"],
-        "shape": {k: d80[k] for k in ("B", "Hq", "Hkv", "L", "D", "dtype",
-                                       "causal")}}
-    next(k for k in kernels if k["name"] == "flash_attention")[
-        "head_dim_96"] = {
-        "source": csrc + "flash_attention.cu", "path": "moe_mla_serve",
-        "launches": designs["moe_mla_serve"].get(
-            "flash_attention", {}).get("fma", 0),
-        "design": d96["design"], "ms": d96["ms"], "ms_method": "device",
-        "call_ms": d96["call_ms"], "plain_ms": d96["plain_ms"],
-        "bound_ms": d96["bound_ms"], "bound_by": d96["bound_by"],
-        "library_ms": d96["library_ms"],
-        "shape": {k: d96[k] for k in ("B", "Hq", "Hkv", "L", "D", "dtype",
-                                       "causal")}}
+    # D 80 (qwen3-32b, 5k d) and D 96 (minicpm3-4b's MLA, 5m): the sm90
+    # design's tail panel, beside the fma kernel that served them before
+    fa_line = next(k for k in kernels if k["name"] == "flash_attention")
+    for key, r, path in (("head_dim_80", d80, "lm_serve_32b"),
+                         ("head_dim_96", d96, "mla_serve")):
+        per_design = designs.get(path, {}).get("flash_attention", {})
+        fa_line[key] = {
+            "source": csrc + fa_src_of[r["design"]], "path": path,
+            "launches": per_design.get(r["design"], 0),
+            "launches_per_design": per_design,
+            "design": r["design"], "ms": r["ms"], "ms_method": "device",
+            "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "fma_ms": r["fma_ms"],
+            "fma_max_abs_err_vs_plain": r["fma_max_abs_err_vs_plain"],
+            "shape": {k: r[k] for k in ("B", "Hq", "Hkv", "L", "D", "dtype",
+                                        "causal")}}
     return kernels
 
 
@@ -5936,6 +5983,8 @@ def main() -> int:
         # ---- phase 5k: LM training, qwen3-32b serving ----
         lm_row, counts_lm_train, counts_lm_32b = phase_lm(
             device, card, args.rehearse)
+        designs["lm_serve_32b"] = {"flash_attention": lm_row[
+            "serve_qwen3_32b"]["attention_designs"]}
 
         # ---- phase 5l: dcn-v2 and nequip at full width ----
         models_row, counts_models = phase_models(device, card, args.rehearse)
@@ -5946,6 +5995,9 @@ def main() -> int:
         designs["moe_mla_serve"] = design_delta(
             zeros, dict(zeros, flash_attention=mm_designs), counts_mm_serve,
             "the MoE / MLA serving path")
+        # minicpm3-4b's own launches: B5 at D 96 (MLA's prefill)
+        designs["mla_serve"] = {"flash_attention": mm_row["serve"][
+            "minicpm3-4b"]["attention_designs"]}
 
         # ---- phase 6: kernel times ----
         slot_row = phase_times_slots(device, svc_states, cmp, launch)

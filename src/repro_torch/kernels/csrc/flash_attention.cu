@@ -8,12 +8,14 @@
 // attn_flash_forward launches one of two designs, chosen by the wrapper
 // (kernels/flash_attention.py::design) and passed in: design 1, the Hopper
 // kernel of csrc/flash_attention_sm90.cu (wgmma, TMA, warp specialisation),
-// for every bfloat16 call with D in {64, 128}; design 0, the kernel below,
-// for float32 (wgmma on float32 is TF32, which would miss the float32
-// tolerance) and for D in {16, 32, 80, 96} (80, qwen3-32b's head dim, and
-// 96, minicpm3-4b's MLA head dim 64 + 32, are no multiple of design 1's
-// 64-element panels; here they are D / 16 = 5 and 6 accumulator columns a
-// thread, like any multiple of 16).  A head dim that is no multiple of 16
+// for every bfloat16 call with D in {64, 80, 96, 128} (80, qwen3-32b's head
+// dim, and 96, minicpm3-4b's MLA head dim 64 + 32, through a tail panel of
+// 16 / 32 columns); design 0, the kernel below, for float32 at every D
+// (wgmma on float32 is TF32, which would miss the float32 tolerance) and
+// for bfloat16 at D in {16, 32}.  Its bfloat16 D 80 / 96 variants stay
+// built (D / 16 = 5 and 6 accumulator columns a thread, like any multiple
+// of 16): the wrapper never routes to them, and chip_smoke.py times them
+// beside design 1 by the design id.  A head dim that is no multiple of 16
 // (12, minicpm3-4b's smoke config) reaches this kernel zero-padded to the
 // next multiple by the wrapper, which passes the scale of the real D.
 //
@@ -281,7 +283,8 @@ cudaError_t by_causal(int causal, const void* q, const void* k, const void* v,
                                       stream);
 }
 
-// WIDE: D 64 and 128 too (float32 only: bfloat16 there is design 1's)
+// WIDE: D 64 and 128 too (float32 only: bfloat16 there is design 1's;
+// bfloat16 D 80 / 96 are design 1's too, built here for comparisons)
 template <typename T, bool WIDE>
 cudaError_t by_dim(int D, int causal, const void* q, const void* k,
                    const void* v, void* out, int B, int Hq, int Hkv, int Lq,
@@ -331,8 +334,8 @@ extern "C" int attn_flash_sm90(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16.  design: 0 = the kernel above (float32
 // at D in {16, 32, 64, 80, 96, 128}, bfloat16 at D in {16, 32, 80, 96};
 // contiguous q, k, v),
-// 1 = the Hopper kernel (bfloat16, D in {64, 128}, any strides the wrapper
-// admits): one kernel per (dtype, D).  Strides are in elements, (batch,
+// 1 = the Hopper kernel (bfloat16, D in {64, 80, 96, 128}, any strides the
+// wrapper admits): one kernel per (dtype, D).  Strides are in elements, (batch,
 // head, row) for q, k and v, the last dimension contiguous; out is
 // contiguous.  Hkv divides Hq; B, Hq <= 65535; Lq, Lk >= 1 (the wrapper
 // checks all of it).

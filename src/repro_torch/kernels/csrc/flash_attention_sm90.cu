@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) forward attention kernel, bfloat16, head dim
-// 64 or 128 — the design that serves every bfloat16 call of B5 at those
-// head dims (csrc/flash_attention.cu keeps float32 and D in {16, 32}):
+// 64, 80, 96 or 128 — the design that serves every bfloat16 call of B5 at
+// those head dims (csrc/flash_attention.cu keeps float32 and D in {16, 32}):
 //
 //   attn_flash_sm90  replaces the Pallas kernel
 //                    src/repro/kernels/flash_attention.py::flash_attention
@@ -39,8 +39,19 @@
 //    strides (any view whose last dimension is contiguous), so the hardware
 //    zero-fills at each head's L: rows past Lq / Lk read zeros, never the
 //    next head's rows — what makes ragged lengths safe;
+//  * a head dim that is no multiple of 64 (D 80, qwen3-32b's; D 96,
+//    minicpm3-4b's MLA 64 + 32) ends in a tail panel of T = D % 64 columns
+//    (16 or 32) with rows of 2T bytes: its own tensor maps for Q, K, V and
+//    O, boxes of T columns, and the swizzle of that width (32-byte at D 80,
+//    64-byte at D 96), which the tail's wgmma descriptors name.  Every panel
+//    starts on a 1024-byte boundary (a multiple of each swizzle's period),
+//    so the exact width costs no padded columns: no zero-filled 64-column
+//    panel, whose 128 / D more work would leave the design slower than
+//    SDPA (PERF.md);
 //  * S = Q . K^T is wgmma m64n128k16 from shared memory (a K tile stored keys
-//    x D is K-major for the B operand), f32 accumulators in registers;
+//    x D is K-major for the B operand), f32 accumulators in registers: D / 16
+//    k steps, four per 128-byte panel and one (D 80) or two (D 96) from the
+//    tail;
 //  * the online softmax runs in registers: the four lanes that hold a row's
 //    accumulator fragment reduce its max with two shuffles; l is kept per
 //    lane and reduced once at the end.  Masks (ragged last tile, the causal
@@ -50,16 +61,22 @@
 //    fragment packed into bfloat16 pairs is the A-register fragment (the
 //    accumulator / A-operand identity of FlashAttention-3).  V stored keys x
 //    D is MN-major for the B operand: the transpose bit is set and the
-//    descriptor's leading offset steps from one 64-column panel to the next;
+//    descriptor's leading offset steps from one 64-column panel to the next.
+//    With a tail, m64n64k16 on the main panel and m64n16k16 / m64n32k16 on
+//    the tail, into two slices of one accumulator array: a single
+//    m64n80k16 / m64n96k16 would need one V layout of 80 / 96 columns,
+//    which the 128-byte MN-major swizzle (64 columns an atom) cannot give;
 //  * overlap: each consumer issues S of tile t together with P . V of tile
 //    t - 1, so its softmax of tile t runs while the tensor cores do P . V;
 //    and the two consumers take turns to issue (ping-pong on two named
 //    barriers), so one's softmax runs while the other's products do;
 //  * epilogue: acc / max(l, 1e-30) rounded once, written into the
 //    warpgroup's own (no longer read) Q rows in the swizzled layout, and
-//    stored by TMA, which clips rows >= Lq: no row >= Lq is ever written.
-// Measured (PERF.md): about 60 % of the bf16 bound at L = 8192, faster than
-// PyTorch's SDPA on the same inputs at L >= 2048.  Left for later: 64-row
+//    stored by TMA (one store per panel, the tail's through its own map),
+//    which clips rows >= Lq: no row >= Lq is ever written.
+// Measured (PERF.md): about 60 % of the bf16 bound at L = 8192 (D 128),
+// faster than PyTorch's SDPA on the same inputs at L >= 2048; D 80 / 96 in
+// PERF.md's B5 row.  Left for later: 64-row
 // query tiles (short prompts launch fewer CTAs than the card has SMs) and a
 // persistent grid that overlaps one tile's epilogue with the next's loads.
 //
@@ -83,6 +100,26 @@ constexpr int kStages = 2;          // K / V ring
 constexpr int kThreads = 384;       // producer + two consumer warpgroups
 constexpr int kPanel = 64;          // bf16 columns per 128-byte panel
 constexpr float kMasked = -1e30f;   // the TPU kernel's hidden score
+
+// wgmma descriptor layout types (bits 62-63): the swizzle of the operand
+constexpr uint32_t kSw128 = 1, kSw64 = 2, kSw32 = 3;
+
+// The panels of head dim D: NP full 64-column panels of 128-byte rows, then
+// (T > 0) one tail panel of T columns, rows of 2T bytes, swizzled on that
+// width (T 16: 32-byte swizzle; T 32: 64-byte)
+template <int D>
+struct Panels {
+  static constexpr int NP = D / kPanel;
+  static constexpr int T = D % kPanel;
+  static_assert(T == 0 || T == 16 || T == 32, "tail of 16 or 32 columns");
+  static constexpr uint32_t kTailRow = 2 * T;            // bytes a tail row
+  static constexpr uint32_t kTailType = T == 16 ? kSw32 : kSw64;
+  // the tail's swizzle, as the 16-byte chunk index of row r is XORed: bits
+  // 4.. of the address with bits 7.. (CUTLASS's Swizzle<1 or 2, 4, 3>)
+  static __device__ __forceinline__ uint32_t tail_xor(int r) {
+    return T == 16 ? (r >> 2) & 1 : (r >> 1) & 3;
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -146,18 +183,19 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
 
 // ---- wgmma -------------------------------------------------------------------
 
-// Shared-memory matrix descriptor for the 128-byte swizzle: start address,
-// leading and stride byte offsets (16-byte units), layout type 1 (B128).
-// K-major operand (Q, K): rows of 128 bytes, 8-row groups 1024 bytes apart
-// (stride offset), leading offset unused (1).  MN-major operand (V): the
-// stride offset steps 8 keys (1024 bytes), the leading offset one 64-column
-// panel.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), layout type (the swizzle).  K-major operand (Q,
+// K): rows as wide as the swizzle (128, 64 or 32 bytes), 8-row groups 8 rows
+// apart (stride offset), leading offset unused (16); a k step of 16 columns
+// starts 32 bytes further into the row.  MN-major operand (V): the stride
+// offset steps 8 keys, the leading offset one swizzle atom of columns (a
+// 64-column panel; unused where N is one atom wide, as on the tail).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t type) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (1ull << 62);
+         (static_cast<uint64_t>(type) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -259,14 +297,34 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
-                                         uint64_t b) {
-  if constexpr (D == 64) {
-    wgmma_rs_n64(o, a, b);
-  } else {
-    wgmma_rs_n128(o, a, b);
-  }
+// d (64 x 16, f32) += A (64 x 16, registers) . B (16 x 16), B MN-major in
+// shared memory: the tail of D 80
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 32, f32) += A (64 x 16, registers) . B (16 x 32), B MN-major in
+// shared memory: the tail of D 96
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // 2^x on the special-function unit: relative error below 2^-22, a result
@@ -297,16 +355,23 @@ __device__ __forceinline__ void bar_arrive(uint32_t id, uint32_t n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// Shared memory: the Q tile (NP panels of 128 rows x 128 bytes), then per
-// stage a K tile and a V tile (NP panels of kBK rows x 128 bytes each), then
-// the barriers; every panel starts on a 1024-byte boundary (the swizzle's
-// period), the base is rounded up to one.
+// Shared memory: the Q tile (NP panels of 128 rows x 128 bytes, then the
+// tail panel of 128 rows x 2T bytes), then per stage a K tile and a V tile
+// (the same panels of kBK rows each), then the barriers; every panel starts
+// on a 1024-byte boundary (a multiple of each swizzle's period: every panel
+// is a multiple of 1024 bytes long), the base is rounded up to one.
 template <int D>
 struct Layout {
+  using P = Panels<D>;
   static constexpr uint32_t kQBytes = kBQ * D * 2;
   static constexpr uint32_t kTileBytes = kBK * D * 2;   // one K or V tile
   static constexpr uint32_t kQPanel = kBQ * 128;
   static constexpr uint32_t kKVPanel = kBK * 128;
+  static constexpr uint32_t kQTail = P::NP * kQPanel;    // offsets of the
+  static constexpr uint32_t kKVTail = P::NP * kKVPanel;  // tail panels
+  static_assert(kQTail % 1024 == 0 && kQBytes % 1024 == 0 &&
+                    kTileBytes % 1024 == 0,
+                "panels on the 128-byte swizzle's period");
   static constexpr uint32_t kBars = kQBytes + kStages * 2 * kTileBytes;
   // q_full, then full_k, full_v, empty_k, empty_v (kStages each)
   static constexpr uint32_t kBytes = kBars + (1 + 4 * kStages) * 8 + 1024;
@@ -334,36 +399,66 @@ struct Layout {
 };
 
 // S = Q . K^T of one key tile into sc: D / 16 k steps of 16 columns, four
-// per 128-byte panel; issued and committed, not waited for
+// per 128-byte panel, then T / 16 from the tail panel in its swizzle (q_rows
+// and q_tail: this warpgroup's 64 rows of the Q tile's main and tail
+// panels); issued and committed, not waited for
 template <int D>
 __device__ __forceinline__ void issue_qk(float* sc, uint32_t q_rows,
-                                         uint32_t k_tile) {
+                                         uint32_t q_tail, uint32_t k_tile) {
   using S = Layout<D>;
+  using P = Panels<D>;
   fence_regs<kBK / 2>(sc);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
+  for (int kk = 0; kk < 4 * P::NP; ++kk)
     wgmma_ss_n128(sc,
-                 sw128_desc(q_rows + (kk / 4) * S::kQPanel + (kk % 4) * 32,
-                            16, 1024),
-                 sw128_desc(k_tile + (kk / 4) * S::kKVPanel + (kk % 4) * 32,
-                            16, 1024),
-                 kk > 0);
+                  smem_desc(q_rows + (kk / 4) * S::kQPanel + (kk % 4) * 32,
+                            16, 1024, kSw128),
+                  smem_desc(k_tile + (kk / 4) * S::kKVPanel + (kk % 4) * 32,
+                            16, 1024, kSw128),
+                  kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < P::T / 16; ++kk)
+    wgmma_ss_n128(sc,
+                  smem_desc(q_tail + kk * 32, 16, 8 * P::kTailRow,
+                            P::kTailType),
+                  smem_desc(k_tile + S::kKVTail + kk * 32, 16,
+                            8 * P::kTailRow, P::kTailType),
+                  1);
   wgmma_commit();
 }
 
-// O += P . V of one key tile: kBK / 16 k steps of 16 keys (2048 bytes of V
-// each); the leading offset steps from one 64-column panel to the next
+// O += P . V of one key tile: kBK / 16 k steps of 16 keys (2048 bytes of a
+// 128-byte V panel each); the leading offset steps from one 64-column panel
+// to the next.  A tail adds m64n16k16 / m64n32k16 a step into the columns
+// 64.. of o (16 keys of the tail panel: 16 rows of 2T bytes)
 template <int D>
 __device__ __forceinline__ void issue_pv(float* o, uint32_t (*pa)[4],
                                          uint32_t v_tile) {
+  using S = Layout<D>;
+  using P = Panels<D>;
   fence_regs<D / 2>(o);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-    wgmma_pv<D>(o, pa[kk],
-                sw128_desc(v_tile + kk * 16 * 128, Layout<D>::kKVPanel,
-                           1024));
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t main =
+        smem_desc(v_tile + kk * 16 * 128, S::kKVPanel, 1024, kSw128);
+    if constexpr (P::NP == 2) {
+      wgmma_rs_n128(o, pa[kk], main);
+    } else {
+      wgmma_rs_n64(o, pa[kk], main);
+    }
+    if constexpr (P::T > 0) {
+      const uint64_t tail =
+          smem_desc(v_tile + S::kKVTail + kk * 16 * P::kTailRow,
+                    kBK * P::kTailRow, 8 * P::kTailRow, P::kTailType);
+      if constexpr (P::T == 16) {
+        wgmma_rs_n16(o + kPanel / 2, pa[kk], tail);
+      } else {
+        wgmma_rs_n32(o + kPanel / 2, pa[kk], tail);
+      }
+    }
+  }
   wgmma_commit();
 }
 
@@ -452,15 +547,22 @@ __device__ __forceinline__ void rescale(float* o, float a0, float a1) {
 }
 
 // grid (Hq, B, query tiles); blockIdx.z runs the query tiles backwards
+// tq, tk, tv, to: the 64-column panels' maps; tq2 .. to2 the tail's (T
+// columns, its swizzle; unused where D has no tail)
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
-               const __grid_constant__ CUtensorMap to, int Hq, int Hkv,
+               const __grid_constant__ CUtensorMap to,
+               const __grid_constant__ CUtensorMap tq2,
+               const __grid_constant__ CUtensorMap tk2,
+               const __grid_constant__ CUtensorMap tv2,
+               const __grid_constant__ CUtensorMap to2, int Hq, int Hkv,
                int Lq, int Lk, float scale_log2) {
   using S = Layout<D>;
-  constexpr int NP = D / kPanel;
+  using P = Panels<D>;
+  constexpr int NP = P::NP;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
 
@@ -495,6 +597,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       for (int p = 0; p < NP; ++p)
         tma_load(base + p * S::kQPanel, &tq, S::q_full(base), p * kPanel, q0,
                  h, b);
+      if constexpr (P::T > 0)
+        tma_load(base + S::kQTail, &tq2, S::q_full(base), NP * kPanel, q0, h,
+                 b);
       for (int kt = 0; kt < n_tiles; ++kt) {
         const int s = kt % kStages;
         // the n-th fill of a stage waits for the consumers' n-th release
@@ -505,12 +610,18 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
         for (int p = 0; p < NP; ++p)
           tma_load(S::k(base, s) + p * S::kKVPanel, &tk, S::full_k(base, s),
                    p * kPanel, kt * kBK, hk, b);
+        if constexpr (P::T > 0)
+          tma_load(S::k(base, s) + S::kKVTail, &tk2, S::full_k(base, s),
+                   NP * kPanel, kt * kBK, hk, b);
         mbar_wait(S::empty_v(base, s), par);
         mbar_expect_tx(S::full_v(base, s), S::kTileBytes);
 #pragma unroll
         for (int p = 0; p < NP; ++p)
           tma_load(S::v(base, s) + p * S::kKVPanel, &tv, S::full_v(base, s),
                    p * kPanel, kt * kBK, hk, b);
+        if constexpr (P::T > 0)
+          tma_load(S::v(base, s) + S::kKVTail, &tv2, S::full_v(base, s),
+                   NP * kPanel, kt * kBK, hk, b);
       }
     }
   } else {
@@ -556,13 +667,14 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
     float sc[kBK / 2];                  // scores, then p
     uint32_t pa[kBK / 16][4];           // p as the A fragment of P . V
     const uint32_t q_rows = base + c * 64 * 128;
+    const uint32_t q_tail = base + S::kQTail + c * 64 * P::kTailRow;
 
     if (n_mine > 0) {
       // turn 0: S = Q . K^T of tile 0, then its softmax
       mbar_wait(S::q_full(base), 0);
       mbar_wait(S::full_k(base, 0), 0);
       bar_sync(my_turn, 256);
-      issue_qk<D>(sc, q_rows, S::k(base, 0));
+      issue_qk<D>(sc, q_rows, q_tail, S::k(base, 0));
       bar_arrive(next_turn, 256);
       ++turn;
       wgmma_wait<0>();
@@ -581,7 +693,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       mbar_wait(S::full_k(base, s), par);
       mbar_wait(S::full_v(base, sp), parp);
       bar_sync(my_turn, 256);
-      issue_qk<D>(sc, q_rows, S::k(base, s));
+      issue_qk<D>(sc, q_rows, q_tail, S::k(base, s));
       rescale<D>(o, a0, a1);
       issue_pv<D>(o, pa, S::v(base, sp));
       if (turn < n_turns - 1 || c == 0) bar_arrive(next_turn, 256);
@@ -636,7 +748,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
     if (n_mine > 0) {
       // epilogue: acc / max(l, 1e-30), rounded once, into this warpgroup's
       // own Q rows (read by no one any more) in the swizzled layout, then
-      // one TMA store per panel, which clips rows >= Lq
+      // one TMA store per panel, which clips rows >= Lq; columns 64 NP..
+      // go to the tail panel in its swizzle (rows r_in and r_in + 8 share
+      // the chunk XOR of every swizzle)
       l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
       l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -644,12 +758,22 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
       const uint32_t sw = static_cast<uint32_t>(r_in % 8);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < 8 * NP; ++j) {
         const uint32_t row_at =
             q_rows + (j / 8) * S::kQPanel + r_in * 128 +
             ((static_cast<uint32_t>(j % 8) ^ sw) << 4) + (lane % 4) * 4;
         st_shared(row_at, pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0));
         st_shared(row_at + 8 * 128,
+                  pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1));
+      }
+      const uint32_t swt = P::tail_xor(r_in);
+#pragma unroll
+      for (int j = 8 * NP; j < D / 8; ++j) {
+        const uint32_t row_at =
+            q_tail + r_in * P::kTailRow +
+            ((static_cast<uint32_t>(j - 8 * NP) ^ swt) << 4) + (lane % 4) * 4;
+        st_shared(row_at, pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0));
+        st_shared(row_at + 8 * P::kTailRow,
                   pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1));
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -658,6 +782,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int p = 0; p < NP; ++p)
           tma_store(&to, q_rows + p * S::kQPanel, p * kPanel, wq0, h, b);
+        if constexpr (P::T > 0)
+          tma_store(&to2, q_tail, NP * kPanel, wq0, h, b);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       }
@@ -665,11 +791,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// m: the eight tensor maps, q k v o, then their tails
 template <int D, bool CAUSAL>
-cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
-                   const CUtensorMap& tv, const CUtensorMap& to, int B,
-                   int Hq, int Hkv, int Lq, int Lk, float scale_log2,
-                   cudaStream_t stream) {
+cudaError_t launch(const CUtensorMap* m, int B, int Hq, int Hkv, int Lq,
+                   int Lk, float scale_log2, cudaStream_t stream) {
   constexpr uint32_t smem = Layout<D>::kBytes;
   auto kern = flash_fwd_sm90<D, CAUSAL>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -677,7 +802,8 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const dim3 grid(Hq, B, (Lq + kBQ - 1) / kBQ);
-  kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, to, Hq, Hkv, Lq, Lk,
+  kern<<<grid, kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], m[4], m[5],
+                                         m[6], m[7], Hq, Hkv, Lq, Lk,
                                          scale_log2);
   return cudaGetLastError();
 }
@@ -686,10 +812,8 @@ template <int D>
 cudaError_t by_causal(int causal, const CUtensorMap* m, int B, int Hq,
                       int Hkv, int Lq, int Lk, float scale_log2,
                       cudaStream_t stream) {
-  return causal ? launch<D, true>(m[0], m[1], m[2], m[3], B, Hq, Hkv, Lq,
-                                   Lk, scale_log2, stream)
-                : launch<D, false>(m[0], m[1], m[2], m[3], B, Hq, Hkv, Lq,
-                                   Lk, scale_log2, stream);
+  return causal ? launch<D, true>(m, B, Hq, Hkv, Lq, Lk, scale_log2, stream)
+                : launch<D, false>(m, B, Hq, Hkv, Lq, Lk, scale_log2, stream);
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime
@@ -714,11 +838,12 @@ EncodeTiled encoder() {
 }
 
 // 4-D map (D, L, H, B) of a bfloat16 (B, H, L, D) tensor with element
-// strides sb, sh, sl (the last dimension contiguous), boxes of 64 columns x
-// rows, 128-byte swizzle, zero fill past every dimension's end
+// strides sb, sh, sl (the last dimension contiguous), boxes of cols columns
+// x rows, the swizzle of a cols-wide row (64: 128-byte, 32: 64-byte, 16:
+// 32-byte), zero fill past every dimension's end
 bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int H,
-            int L, int D, long long sb, long long sh, long long sl,
-            int rows) {
+            int L, int D, long long sb, long long sh, long long sl, int rows,
+            int cols) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(H),
@@ -726,13 +851,32 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int H,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sl) * 2,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kPanel),
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols),
                              static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                 : (cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                               : CU_TENSOR_MAP_SWIZZLE_32B);
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the four maps of one panel width (q, k, v, out)
+bool encode_all(EncodeTiled enc, CUtensorMap* m, const void* q, const void* k,
+                const void* v, void* out, int B, int Hq, int Hkv, int Lq,
+                int Lk, int D, const long long* st, int cols) {
+  const long long o_sl = D, o_sh = static_cast<long long>(Lq) * D,
+                  o_sb = o_sh * Hq;
+  return encode(enc, &m[0], q, B, Hq, Lq, D, st[0], st[1], st[2], kBQ,
+                cols) &&
+         encode(enc, &m[1], k, B, Hkv, Lk, D, st[3], st[4], st[5], kBK,
+                cols) &&
+         encode(enc, &m[2], v, B, Hkv, Lk, D, st[6], st[7], st[8], kBK,
+                cols) &&
+         encode(enc, &m[3], out, B, Hq, Lq, D, o_sb, o_sh, o_sl, 64, cols);
 }
 
 bool tma_ok(const void* p, long long sb, long long sh, long long sl) {
@@ -744,8 +888,11 @@ bool tma_ok(const void* p, long long sb, long long sh, long long sl) {
 
 // bfloat16 q (B, Hq, Lq, D), k / v (B, Hkv, Lk, D) with element strides
 // (batch, head, row; the last dimension contiguous: multiples of 8 elements,
-// 16-byte aligned base), out contiguous.  D in {64, 128}; Hkv divides Hq;
-// B <= 65535, ceil(Lq / 128) <= 65535.  Called by attn_flash_forward
+// 16-byte aligned base — bf16 rows of 160 and 192 bytes at D 80 / 96 keep
+// the 16-byte rule), out contiguous.  D in {64, 80, 96, 128}: 64-column
+// panels, and at D 80 / 96 a tail panel of 16 / 32 columns (the tail's
+// maps: boxes of that width, 32- / 64-byte swizzle); Hkv divides Hq; B <=
+// 65535, ceil(Lq / 128) <= 65535.  Called by attn_flash_forward
 // (csrc/flash_attention.cu), which the wrapper calls.
 extern "C" int attn_flash_sm90(const void* q, const void* k, const void* v,
                                void* out, int B, int Hq, int Hkv, int Lq,
@@ -755,34 +902,50 @@ extern "C" int attn_flash_sm90(const void* q, const void* k, const void* v,
                                long long v_sb, long long v_sh, long long v_sl,
                                float scale, cudaStream_t stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || Lq < 1 || Lk < 1 ||
-      B > 65535 || (Lq + kBQ - 1) / kBQ > 65535 || (D != 64 && D != 128) ||
+      B > 65535 || (Lq + kBQ - 1) / kBQ > 65535 ||
+      (D != 64 && D != 80 && D != 96 && D != 128) ||
       !tma_ok(q, q_sb, q_sh, q_sl) || !tma_ok(k, k_sb, k_sh, k_sl) ||
       !tma_ok(v, v_sb, v_sh, v_sl) ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const long long o_sl = D, o_sh = static_cast<long long>(Lq) * D,
-                  o_sb = o_sh * Hq;
-  CUtensorMap maps[4];
-  if (!encode(enc, &maps[0], q, B, Hq, Lq, D, q_sb, q_sh, q_sl, kBQ) ||
-      !encode(enc, &maps[1], k, B, Hkv, Lk, D, k_sb, k_sh, k_sl, kBK) ||
-      !encode(enc, &maps[2], v, B, Hkv, Lk, D, v_sb, v_sh, v_sl, kBK) ||
-      !encode(enc, &maps[3], out, B, Hq, Lq, D, o_sb, o_sh, o_sl, 64))
+  const long long st[9] = {q_sb, q_sh, q_sl, k_sb, k_sh, k_sl,
+                           v_sb, v_sh, v_sl};
+  const int tail = D % kPanel;
+  CUtensorMap maps[8];
+  if (!encode_all(enc, maps, q, k, v, out, B, Hq, Hkv, Lq, Lk, D, st,
+                  kPanel) ||
+      !encode_all(enc, maps + 4, q, k, v, out, B, Hq, Hkv, Lq, Lk, D, st,
+                  tail > 0 ? tail : kPanel))
     return static_cast<int>(cudaErrorInvalidValue);
   const float scale_log2 = scale * 1.4426950408889634f;   // log2(e)
-  const cudaError_t e =
-      D == 64 ? by_causal<64>(causal, maps, B, Hq, Hkv, Lq, Lk, scale_log2,
-                              stream)
-              : by_causal<128>(causal, maps, B, Hq, Hkv, Lq, Lk, scale_log2,
-                               stream);
+  cudaError_t e;
+  switch (D) {
+    case 64:
+      e = by_causal<64>(causal, maps, B, Hq, Hkv, Lq, Lk, scale_log2, stream);
+      break;
+    case 80:
+      e = by_causal<80>(causal, maps, B, Hq, Hkv, Lq, Lk, scale_log2, stream);
+      break;
+    case 96:
+      e = by_causal<96>(causal, maps, B, Hq, Hkv, Lq, Lk, scale_log2, stream);
+      break;
+    default:
+      e = by_causal<128>(causal, maps, B, Hq, Hkv, Lq, Lk, scale_log2,
+                         stream);
+  }
   return static_cast<int>(e);
 }
 
 // Dynamic shared memory a CTA of the variant of head dim D asks for, in
 // bytes (0 for a variant that does not exist): what chip_smoke.py reports.
 extern "C" int attn_flash_sm90_smem(int D) {
-  if (D == 64) return Layout<64>::kBytes;
-  if (D == 128) return Layout<128>::kBytes;
-  return 0;
+  switch (D) {
+    case 64: return Layout<64>::kBytes;
+    case 80: return Layout<80>::kBytes;
+    case 96: return Layout<96>::kBytes;
+    case 128: return Layout<128>::kBytes;
+    default: return 0;
+  }
 }

@@ -17,24 +17,26 @@ TPU kernel (a uniform average over its -1e30 scores) and the plain version
 
 Two designs on the card, chosen by dtype and head dim (``design``):
 
-* ``"sm90"`` — every bfloat16 call with D in {64, 128}:
+* ``"sm90"`` — every bfloat16 call with D in {64, 80, 96, 128}:
   ``csrc/flash_attention_sm90.cu``, wgmma on the tensor cores, TMA loads
   of 128-key tiles into a ring of stages, a producer warp and two consumer
-  warpgroups (see the note there).  It reads q, k and v through tensor maps over their own
-  strides: any view whose last dimension is contiguous and whose other
-  strides and address are 16-byte multiples runs without a copy (the
-  serving prefill's (B, L, H, D)-ordered projections, for one).
-* ``"fma"`` — float32 at every D, and bfloat16 with D in {12, 16, 32,
-  80, 96}: the CUDA-core kernel of ``csrc/flash_attention.cu`` (wgmma on
-  float32 is TF32, which would break the float32 tolerance; D 80,
-  qwen3-32b's head dim, and D 96, minicpm3-4b's MLA head dim 64 + 32, are
-  no multiple of the sm90 design's 64-element panels).  It reads
-  contiguous rows: the wrapper copies a strided view first.  D 12 (the MLA
-  head dim 8 + 4 of minicpm3-4b's smoke config) is no multiple of the
-  kernel's 16-column thread grid: the wrapper zero-pads q, k and v to 16
-  columns, passes the scale 1 / sqrt(12), and slices the output back to
-  12.  The zero columns add exact zeros to every score, and the padded
-  output columns are zeros: the same function, one launch of the kernel.
+  warpgroups (see the note there).  D 80 (qwen3-32b's head dim) and D 96
+  (minicpm3-4b's MLA head dim 64 + 32) add a tail panel of 16 / 32
+  columns to the 64-column panels.  It reads q, k and v through tensor
+  maps over their own strides: any view whose last dimension is contiguous
+  and whose other strides and address are 16-byte multiples runs without a
+  copy (the serving prefill's (B, L, H, D)-ordered projections, for one).
+* ``"fma"`` — float32 at every D, and bfloat16 with D in {12, 16, 32}:
+  the CUDA-core kernel of ``csrc/flash_attention.cu`` (wgmma on float32
+  is TF32, which would break the float32 tolerance; D 12 / 16 / 32 are the
+  smoke configs' head dims, narrower than one of the sm90 design's
+  64-column panels).  It reads contiguous rows: the wrapper copies a
+  strided view first.  D 12 (the MLA head dim 8 + 4 of minicpm3-4b's
+  smoke config) is no multiple of the kernel's 16-column thread grid: the
+  wrapper zero-pads q, k and v to 16 columns, passes the scale
+  1 / sqrt(12), and slices the output back to 12.  The zero columns add
+  exact zeros to every score, and the padded output columns are zeros: the
+  same function, one launch of the kernel.
 
 Bound on the card: operations at prefill shapes, 4 * B * Hq * Lq * Lk * D
 FLOPs (about half of it when causal) against the card's bf16 tensor-core
@@ -61,12 +63,12 @@ from repro_torch.kernels import ref
 HEAD_DIMS = (12, 16, 32, 64, 80, 96, 128)    # D 12 is padded to 16
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DESIGNS = ("fma", "sm90")                # the C entry point's design ids
-SM90_HEAD_DIMS = (64, 128)
+SM90_HEAD_DIMS = (64, 80, 96, 128)
 
 
 def design(dtype, D: int) -> str:
     """The kernel that serves a call on the card: ``"sm90"`` for bfloat16
-    with D in {64, 128}, else ``"fma"``."""
+    with D in {64, 80, 96, 128}, else ``"fma"``."""
     return "sm90" if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS \
         else "fma"
 

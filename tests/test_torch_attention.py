@@ -145,15 +145,17 @@ def test_refusals():
 
 
 @pytest.mark.parametrize("causal", [True, False])
-def test_head_dim_80_matches_reference(causal):
-    """qwen3-32b's head dim: the wrapper admits D 80 and, on CPU tensors,
-    gives the reference's ``flash_attention_ref`` (GQA 64 / 8 cut to 8 / 1,
-    a ragged length)."""
-    q, k, v = _qkv(80, 1, 8, 1, 45, 70, 80)
+@pytest.mark.parametrize("D,Hq,Hkv", [(80, 8, 1), (96, 8, 8)])
+def test_head_dim_80_matches_reference(D, Hq, Hkv, causal):
+    """qwen3-32b's head dim 80 (GQA 64 / 8 cut to 8 / 1) and minicpm3-4b's
+    MLA head dim 96 (40 / 40 heads cut to 8 / 8): the wrapper admits both
+    and, on CPU tensors, gives the reference's ``flash_attention_ref`` at a
+    ragged length."""
+    q, k, v = _qkv(D, 1, Hq, Hkv, 45, 70, D)
     want = np.asarray(jref.flash_attention_ref(
         *(jnp.asarray(x) for x in (q, k, v)), causal=causal))
     for name, got in _port_routes(q, k, v, causal).items():
-        assert got.shape == (1, 8, 45, 80)
+        assert got.shape == (1, Hq, 45, D)
         np.testing.assert_allclose(got.numpy(), want, err_msg=name, **TOL)
 
 
@@ -192,14 +194,19 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_head_dim_80_on_fma(cuda_device, dtype):
+@pytest.mark.parametrize("D,Hq,Hkv", [(80, 64, 8), (96, 40, 40)])
+def test_cuda_head_dims_80_96(cuda_device, D, Hq, Hkv, dtype):
+    """qwen3-32b's heads at D 80 and minicpm3-4b's MLA heads at D 96:
+    bfloat16 on the sm90 design (its tail panel), float32 on fma."""
     dt = getattr(torch, dtype)
+    route = "sm90" if dt == torch.bfloat16 else "fma"
+    assert design(dt, D) == route
     for causal in (True, False):
         q, k, v = (torch.from_numpy(x).to(cuda_device).to(dt)
-                   for x in _qkv(7, 1, 64, 8, 129, 257, 80))
-        before = flash_attention.launches_fma
+                   for x in _qkv(7, 1, Hq, Hkv, 129, 257, D))
+        before = getattr(flash_attention, f"launches_{route}")
         got = ops.attention(q, k, v, causal=causal)
-        assert flash_attention.launches_fma == before + 1
+        assert getattr(flash_attention, f"launches_{route}") == before + 1
         want = ref.flash_attention_ref(q, k, v, causal=causal)
         tol = TOL if dt == torch.float32 else dict(rtol=1e-2, atol=2e-2)
         np.testing.assert_allclose(got.float().cpu().numpy(),
@@ -230,11 +237,12 @@ def test_cuda_kernel_refuses_inputs_that_require_grad(cuda_device):
     ("bfloat16", 16, "fma"), ("bfloat16", 32, "fma"),
     ("float32", 16, "fma"), ("float32", 32, "fma"),
     ("float32", 64, "fma"), ("float32", 128, "fma"),
-    ("bfloat16", 80, "fma"), ("float32", 80, "fma"),
+    ("bfloat16", 80, "sm90"), ("float32", 80, "fma"),
+    ("bfloat16", 96, "sm90"), ("float32", 96, "fma"),
 ])
 def test_design_by_dtype_and_head_dim(dtype, D, want):
-    # bfloat16 at D 64 / 128 on the tensor cores; float32 stays on the
-    # CUDA-core kernel (TF32 would miss the float32 tolerance)
+    # bfloat16 at D 64 / 80 / 96 / 128 on the tensor cores; float32 stays
+    # on the CUDA-core kernel (TF32 would miss the float32 tolerance)
     assert design(getattr(torch, dtype), D) == want
 
 
@@ -325,12 +333,16 @@ def test_prefill_attention_on_views_matches_reference():
 # --------------------------------------------------------------------------
 
 # (B, Hq, Hkv, Lq, Lk, D): L across the 64 / 128-row tile edges; Lk > Lq
-# with a ragged offset at GQA ratios 1, 2 and 8; B = 2; D 64 and 128
+# with a ragged offset at GQA ratios 1, 2 and 8; B = 2; D 64 and 128, and
+# D 80 / 96 (the tail panel) at qwen3-32b's and minicpm3-4b's head ratios
 SM90_EDGES = [(1, 16, 8, L, L, 128)
               for L in (1, 63, 64, 65, 127, 128, 129, 255, 257, 2049)]
 SM90_EDGES += [(2, 8, 8, 129, 257, 64), (2, 8, 4, 65, 300, 128),
                (2, 16, 2, 255, 383, 64), (2, 8, 1, 257, 257, 128),
                (2, 16, 2, 63, 191, 128), (2, 4, 4, 200, 200, 64)]
+SM90_EDGES += [(1, 16, 2, L, L, D) for D in (80, 96) for L in (127, 128, 129)]
+SM90_EDGES += [(2, 16, 2, 129, 257, 80), (2, 8, 8, 65, 300, 96),
+               (2, 8, 1, 255, 383, 96), (2, 8, 8, 63, 191, 80)]
 
 
 def _row_rel_err(got, want):
@@ -366,20 +378,34 @@ def test_cuda_sm90_tile_edges(cuda_device, B, Hq, Hkv, Lq, Lk, D, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 80, 96])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_strided_views(cuda_device, dtype):
-    """The prefill's (B, L, H, D) views: read in place by the sm90 design,
-    copied by the wrapper for the CUDA-core design (float32)."""
+def test_cuda_strided_views(cuda_device, dtype, D):
+    """The prefill's (B, L, H, D) views: read in place by the sm90 design
+    (D 80 / 96 through its tail panel's maps too), copied by the wrapper
+    for the CUDA-core design (float32)."""
     dt = getattr(torch, dtype)
     q, k, v = (_bl_hd(x).to(cuda_device).to(dt)
-               for x in _qkv(11, 2, 16, 8, 300, 300, 128))
+               for x in _qkv(11, 2, 16, 8, 300, 300, D))
     before = dict(sm90=flash_attention.launches_sm90,
                   fma=flash_attention.launches_fma)
     got = ops.attention(q, k, v, causal=True)
-    route = design(dt, 128)
+    route = design(dt, D)
     assert getattr(flash_attention, f"launches_{route}") == before[route] + 1
     want = ref.flash_attention_ref(q, k, v, causal=True)
     tol = TOL if dt == torch.float32 else dict(rtol=1e-2, atol=2e-2)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **tol)
 
+
+def test_sm90_ab_variant_edits_match_the_source():
+    """``benchmarks/attention_sm90_ab.py`` builds its variants by editing a
+    copy of the sm90 source: each edit must match it exactly once, or the
+    variant would silently be the committed kernel."""
+    from repro_torch.benchmarks import attention_sm90_ab as ab
+    text = open(ab.CU).read()
+    assert "base" in ab.VARIANTS and "padded_128" in ab.VARIANTS
+    for name, edits in ab.VARIANTS.items():
+        for old, new in edits:
+            assert text.count(old) == 1, (name, old)
+            assert new not in text, (name, new)

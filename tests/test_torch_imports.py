@@ -82,7 +82,8 @@ def test_every_module_is_found():
               "repro_torch.launch.serve", "repro_torch.benchmarks",
               "repro_torch.benchmarks.staged_ablation",
               "repro_torch.benchmarks.ell_spmm_ab",
-              "repro_torch.benchmarks.compact_pass_ab", "repro_torch.dynamic",
+              "repro_torch.benchmarks.compact_pass_ab",
+              "repro_torch.benchmarks.attention_sm90_ab", "repro_torch.dynamic",
               "repro_torch.dynamic.delta", "repro_torch.dynamic.incremental",
               "repro_torch.dynamic.megabatch",
               "repro_torch.dynamic.service",

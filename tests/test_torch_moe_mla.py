@@ -341,7 +341,8 @@ def test_smoke_prefill_decode_consistency(arch):
 def test_attention_wrapper_admits_mla_head_dims_on_the_cpu():
     """D 96 (minicpm3-4b) and D 12 (its smoke config) pass the wrapper's
     checks and, on CPU tensors, give the plain version; the routing rule
-    sends both to the fma design."""
+    sends bfloat16 D 96 to the sm90 design (its tail panel) and D 12 to
+    fma."""
     rng = np.random.default_rng(5)
     for D in (96, 12):
         q, k, v = (_t(rng.standard_normal((1, 4, 9, D)).astype(np.float32))
@@ -349,7 +350,8 @@ def test_attention_wrapper_admits_mla_head_dims_on_the_cpu():
         want = ref.flash_attention_ref(q, k, v, causal=True)
         np.testing.assert_array_equal(ops.attention(q, k, v).numpy(),
                                       want.numpy())
-        assert FA.design(torch.bfloat16, D) == "fma"
+        assert FA.design(torch.bfloat16, D) == ("sm90" if D == 96
+                                                else "fma")
     # D 12 is padded into new tensors before the layout check: any layout,
     # bfloat16's 24-byte rows and a strided view included
     q = q.to(torch.bfloat16)
@@ -365,14 +367,17 @@ def test_attention_wrapper_admits_mla_head_dims_on_the_cpu():
 @pytest.mark.parametrize("D", [96, 12])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_mla_head_dims_launch_fma(cuda_device, dtype, D):
+    """D 12 and float32 D 96 launch fma; bfloat16 D 96 launches sm90."""
     dt = getattr(torch, dtype)
+    route = FA.design(dt, D)
+    assert route == ("sm90" if (dt, D) == (torch.bfloat16, 96) else "fma")
     rng = np.random.default_rng(D)
     for causal in (True, False):
         q, k, v = (_t(rng.standard_normal((2, 40, L, D)).astype(np.float32))
                    .to(cuda_device).to(dt) for L in (65, 70, 70))
-        before = FA.flash_attention.launches_fma
+        before = getattr(FA.flash_attention, f"launches_{route}")
         got = ops.attention(q, k, v, causal=causal)
-        assert FA.flash_attention.launches_fma == before + 1
+        assert getattr(FA.flash_attention, f"launches_{route}") == before + 1
         assert got.shape == q.shape and got.is_contiguous()
         want = ref.flash_attention_ref(q, k, v, causal=causal)
         tol = (dict(rtol=2e-5, atol=2e-5) if dt == torch.float32
