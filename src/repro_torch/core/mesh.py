@@ -1,7 +1,6 @@
-"""A single-controller device mesh and the one collective the distributed
-engines use (the port's counterpart of ``jax.make_mesh`` /
-``jax.sharding.Mesh`` and of ``jax.lax.all_gather`` / ``psum`` under
-``shard_map``).
+"""A single-controller device mesh and its collectives (the port's
+counterpart of ``jax.make_mesh`` / ``jax.sharding.Mesh`` and of
+``jax.lax.all_gather`` / ``psum`` under ``shard_map``).
 
 The reference runs one Python process over a list of devices: ``shard_map``
 hands each shard its block of the inputs and the collectives join them.  The
@@ -17,10 +16,15 @@ There is no process group: nothing here is ``torch.distributed``.
     mesh = make_mesh((4,), ("data",))                   # the CUDA device
     mesh.shape["data"]                                  # 4
 
-``psum`` is a gather of one scalar a shard and a sum.  Every gather counts
-one collective in ``mesh.collectives`` and the gathered payload's bytes (all
-shards' payloads together) in ``mesh.gathered_bytes`` (``obs.metrics``), so
-"RSOC: one collective a round, CAT: two" is a number a caller reads.
+The coloring engines shard over the whole mesh (``shard_devices``) and
+gather with ``all_gather``; their ``psum`` is a gather of one scalar a
+shard and a sum.  The sharded LM (``models/spmd.py``) works on groups: the
+shards of one axis that share the other axes' coordinates (``groups``: the
+``model`` shards of each ``data`` row), with ``all_gather_groups`` and
+``psum`` run in every group at once.  Every collective counts one in
+``mesh.collectives`` and the payloads' bytes (all shards' payloads
+together) in ``mesh.gathered_bytes`` (``obs.metrics``), so "RSOC: one
+collective a round, CAT: two" is a number a caller reads.
 """
 from __future__ import annotations
 
@@ -65,19 +69,60 @@ class Mesh:
         """The devices of the shards of ``axis`` ("a" or "a,b"), in the
         row-major order of those axes: the order of ``all_gather(tiled=
         False)`` under ``shard_map`` (shard d of the flattened axis is
-        entry d).  The named axes must cover the mesh."""
-        names = tuple(axis.split(","))
-        unknown = [a for a in names if a not in self.axis_names]
-        if unknown:
-            raise ValueError(f"axis {unknown} not in mesh axes "
-                             f"{self.axis_names}")
+        entry d).  The named axes must cover the mesh: the coloring
+        engines shard over all of it (a part of the mesh is ``groups``)."""
+        names = self._names(axis)
         if sorted(names) != sorted(self.axis_names):
             raise ValueError(
                 f"axis {axis!r} must name every axis of the mesh "
                 f"{self.axis_names}: the port shards over the whole mesh")
+        return tuple(self.devices[i] for i in self.groups(axis)[0])
+
+    def _names(self, axis) -> tuple:
+        names = tuple(a for a in (axis.split(",") if isinstance(axis, str)
+                                  else axis) if a)
+        unknown = [a for a in names if a not in self.axis_names]
+        if unknown:
+            raise ValueError(f"axis {unknown} not in mesh axes "
+                             f"{self.axis_names}")
+        return names
+
+    def groups(self, axis) -> tuple:
+        """The groups of ``axis`` (a name, "a,b", or a tuple of names; an
+        empty one is no axis): the mesh positions (row-major indices into
+        ``devices``) that share every other axis's coordinate, each group
+        in the row-major order of the named axes, the groups in the
+        row-major order of the other axes.  On a (data 2, model 2) mesh
+        ``groups("model")`` is ((0, 1), (2, 3)) and ``groups("data")``
+        ((0, 2), (1, 3)); axes that cover the mesh make one group."""
+        names = self._names(axis)
+        rest = [a for a in self.axis_names if a not in names]
         pos = np.arange(self.size).reshape(self.axis_sizes)
-        order = pos.transpose([self.axis_names.index(a) for a in names])
-        return tuple(self.devices[i] for i in order.reshape(-1))
+        order = pos.transpose([self.axis_names.index(a)
+                               for a in rest + list(names)])
+        n = int(np.prod([self.shape[a] for a in names]))
+        return tuple(tuple(int(i) for i in g)
+                     for g in order.reshape(-1, n))
+
+    def group_index(self, pos: int, axis) -> int:
+        """Position ``pos``'s index within its group of ``axis`` (its
+        flattened coordinate over the named axes)."""
+        names = self._names(axis)
+        coords = np.unravel_index(pos, self.axis_sizes)
+        idx = 0
+        for a in names:
+            idx = idx * self.shape[a] + int(
+                coords[self.axis_names.index(a)])
+        return idx
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharded:
+    """A value held across a mesh: one block a mesh position (row-major),
+    each on its position's device."""
+
+    mesh: Mesh
+    blocks: tuple
 
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str], device=None,
@@ -111,6 +156,13 @@ def all_gather(payloads: Sequence[torch.Tensor]) -> list:
     that shard's device.  Shards on one device share one stacked tensor (it
     is read, never written).  Counts one collective and the stacked
     payload's bytes."""
+    out = _stack(payloads)
+    _count(payloads)
+    return out
+
+
+def _stack(payloads: Sequence[torch.Tensor]) -> list:
+    """``all_gather``'s stacks, uncounted."""
     first = payloads[0]
     for p in payloads[1:]:
         if p.shape != first.shape or p.dtype != first.dtype:
@@ -124,10 +176,43 @@ def all_gather(payloads: Sequence[torch.Tensor]) -> list:
             g = torch.stack([q.to(p.device) for q in payloads])
             by_dev[p.device] = g
         out.append(g)
+    return out
+
+
+def _count(payloads) -> None:
     obs_metrics.counter("mesh.collectives").inc()
     obs_metrics.counter("mesh.gathered_bytes").inc(
-        len(payloads) * first.numel() * first.element_size())
+        sum(p.numel() * p.element_size() for p in payloads))
+
+
+def all_gather_groups(mesh: Mesh, axis, payloads: Sequence[torch.Tensor]
+                      ) -> list:
+    """``all_gather(x, axis, tiled=False)`` in every group of ``axis`` at
+    once: ``payloads`` holds one tensor a mesh position (row-major, each on
+    its position's device, all of one shape and dtype within a group);
+    returns for every position the (n, ...) stack of its group's payloads,
+    in group order, on its device (positions of one group on one device
+    share it).  One collective; a group of one shard moves nothing and
+    counts nothing."""
+    groups = mesh.groups(axis)
+    out = [None] * mesh.size
+    if len(groups[0]) == 1:
+        return [p[None] for p in payloads]
+    for g in groups:
+        stacked = _stack([payloads[i] for i in g])
+        for i, t in zip(g, stacked):
+            out[i] = t
+    _count(payloads)
     return out
+
+
+def psum(mesh: Mesh, axis, payloads: Sequence[torch.Tensor]) -> list:
+    """``jax.lax.psum(x, axis)``: for every mesh position the sum of its
+    group's payloads, in the payloads' dtype (the wire's), summed in group
+    order.  One collective (a gather and a sum); none for groups of one."""
+    if len(mesh.groups(axis)[0]) == 1:
+        return list(payloads)
+    return [g.sum(0) for g in all_gather_groups(mesh, axis, payloads)]
 
 
 def collectives() -> int:

@@ -17,7 +17,9 @@ through ``kernels.ops.attention`` on a CUDA tensor and ``chunked_attention``
 on a CPU tensor; the kernel refuses inputs that require grad under grad
 mode, so a gradient is never cut silently.  Decode attention is plain torch
 on every device, as in the reference (outside any Pallas kernel), and B5
-has no per-row cache-length mask.
+has no per-row cache-length mask.  On a mesh (``models/spmd.py``) decode
+attention over a sequence-sharded cache is the flash-decoding schedule:
+``decode_partial`` a shard, one gather, ``merge_partials``.
 """
 from __future__ import annotations
 
@@ -235,16 +237,30 @@ class FlashAttention(torch.autograd.Function):
                 torch.cat(dvs, dim=2).to(v.dtype), None, None, None, None)
 
 
-def decode_attention(q, k, v, length=None):
+def decode_attention(q, k, v, length=None, seq_axis=None,
+                     extra_slot: bool = True):
     """Single-token decode: q (B, Hq, 1, D) vs cache k, v (B, Hkv, S, D).
 
     Plain softmax over the cache, scores and P.V in float32.  ``length``
-    (B,) hides cache slots >= length except the last one (the appended
-    current token).  GQA is computed in the grouped form (B, Hkv, G, ...),
-    the same values as the reference's repeated K / V.  The reference's
-    ``seq_axis`` (a mesh schedule) and ``extra_slot=False`` (its
-    write-then-attend decode) are not ported.
+    (B,) hides cache slots >= length; with ``extra_slot`` the last slot
+    (the appended current token) stays visible, without it (the
+    write-then-attend decode, whose ``length`` already counts the step's
+    own slot) it is hidden like the rest.  GQA is computed in the grouped
+    form (B, Hkv, G, ...), the same values as the reference's repeated
+    K / V.
+
+    ``seq_axis`` names the mesh axes a sequence-sharded cache is split over
+    (the flash-decoding schedule): q, k, v and length are then
+    ``core.mesh.Sharded`` values, one block a mesh position, q and length
+    the same across a group of ``seq_axis`` and k / v that group's
+    consecutive sequence blocks.  Each shard computes its block's running
+    max, sum and P.V in float32 (``decode_partial``); one gather over the
+    axis merges them by log-sum-exp (``merge_partials``).  Returns a
+    ``Sharded`` output, the same across each group.
     """
+    if seq_axis is not None:
+        return _decode_attention_sharded(q, k, v, length, seq_axis,
+                                         extra_slot)
     B, Hq, _, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -252,12 +268,68 @@ def decode_attention(q, k, v, length=None):
     qg = q.reshape(B, Hkv, G, D).float()
     s = torch.einsum("bhgd,bhsd->bhgs", qg, k.float()) * scale
     if length is not None:
-        idx = torch.arange(S, device=q.device)[None, None, None, :]
-        ln = length[:, None, None, None]
-        s = torch.where((idx < ln) | (idx == S - 1), s, MASKED)
+        s = torch.where(_visible_slots(length, 0, S, S, extra_slot), s,
+                        MASKED)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bhsd->bhgd", p.to(v.dtype).float(), v.float())
     return o.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+def _visible_slots(length, start: int, n: int, S: int, extra_slot: bool):
+    """(B, 1, 1, n) mask of cache slots start .. start + n - 1 of S that a
+    decode step sees."""
+    idx = torch.arange(start, start + n, device=length.device)[
+        None, None, None, :]
+    mask = idx < length[:, None, None, None]
+    return (mask | (idx == S - 1)) if extra_slot else mask
+
+
+def decode_partial(q, k, v, length, start: int, S: int, extra_slot: bool):
+    """One sequence block's share of ``decode_attention``: q (B, Hq, 1, D)
+    against k / v (B, Hkv, n, D), the cache slots start .. start + n - 1
+    of S.  Returns (B, Hkv, G, D + 2) float32: the block's max score, its
+    sum of exp(s - max), and its P.V (p cast to v's type first, as the
+    plain version casts its probabilities)."""
+    B, Hq, _, D = q.shape
+    Hkv, n = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k.float()) * (1.0 / np.sqrt(D))
+    if length is not None:
+        s = torch.where(_visible_slots(length, start, n, S, extra_slot), s,
+                        MASKED)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bhgs,bhsd->bhgd", p.to(v.dtype).float(), v.float())
+    return torch.cat([m[..., None], p.sum(-1)[..., None], acc], dim=-1)
+
+
+def merge_partials(parts, dtype):
+    """Blocks' ``decode_partial``s stacked on axis 0 -> the attention
+    output (B, Hq, 1, D) in ``dtype``: a log-sum-exp merge in float32 (a
+    block whose slots are all hidden has weight exp(-1e30 - max) = 0)."""
+    m, l, acc = parts[..., 0], parts[..., 1], parts[..., 2:]
+    top = m.amax(dim=0)
+    w = torch.exp(m - top)
+    o = (w[..., None] * acc).sum(0) / (w * l).sum(0)[..., None]
+    B, Hkv, G, D = o.shape
+    return o.reshape(B, Hkv * G, 1, D).to(dtype)
+
+
+def _decode_attention_sharded(q, k, v, length, seq_axis, extra_slot):
+    from repro_torch.core.mesh import Sharded, all_gather_groups
+    mesh = k.mesh
+    n_blocks = len(mesh.groups(seq_axis)[0])
+    parts = []
+    for pos in range(mesh.size):
+        kb = k.blocks[pos]
+        n = kb.shape[2]
+        parts.append(decode_partial(
+            q.blocks[pos], kb, v.blocks[pos],
+            None if length is None else length.blocks[pos],
+            mesh.group_index(pos, seq_axis) * n, n * n_blocks, extra_slot))
+    return Sharded(mesh, tuple(
+        merge_partials(g, q.blocks[pos].dtype) for pos, g in
+        enumerate(all_gather_groups(mesh, seq_axis, parts))))
 
 
 def prefill_attention(q, k, v, *, causal: bool, chunk_q: int, chunk_k: int):
@@ -301,11 +373,19 @@ def gqa_init(generator, cfg: AttnConfig, dtype=torch.bfloat16, device=None):
 
 def gqa_project_qkv(params, cfg: AttnConfig, x, positions):
     """x: (B, L, d) -> q (B, H, L, Dh), k / v (B, Hkv, L, Dh), roped."""
-    B, L, _ = x.shape
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, L, H, Dh)
-    k = (x @ params["wk"]).reshape(B, L, Hkv, Dh)
-    v = (x @ params["wv"]).reshape(B, L, Hkv, Dh)
+    return gqa_heads(params, cfg, x @ params["wq"], x @ params["wk"],
+                     x @ params["wv"], positions)
+
+
+def gqa_heads(params, cfg: AttnConfig, q, k, v, positions):
+    """The projections' outputs q (B, L, Hq·Dh), k / v (B, L, Hkv·Dh) — all
+    heads, or a shard's whole heads — as roped (B, H, L, Dh) heads, q and k
+    qk-normed first when the config says so."""
+    B, L, _ = q.shape
+    Dh = cfg.head_dim
+    q = q.reshape(B, L, -1, Dh)
+    k = k.reshape(B, L, -1, Dh)
+    v = v.reshape(B, L, -1, Dh)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)

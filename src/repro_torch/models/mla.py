@@ -14,8 +14,9 @@ tensors) when serving.
 The reference's types are kept step by step: decode scores in float32,
 ``p`` cast to the cache's type before the value product, ``o_c`` cast to
 ``x``'s type before ``w_uv``, the scale ``1/sqrt(dn + dr)`` taken in
-float32.  ``seq_axis`` (the reference's sequence-sharded decode) is a mesh
-knob this single-device port does not have: given, it raises.
+float32.  ``prewritten`` is the reference's write-then-attend decode.
+``seq_axis`` (its sequence-sharded decode) raises: MLA under a mesh is not
+ported yet (ROADMAP A.7.3).
 """
 from __future__ import annotations
 
@@ -112,16 +113,16 @@ def mla_attend_decode(params, cfg: MLAConfig, x, positions, cache, length,
                       prewritten: bool = False, seq_axis=None):
     """Absorbed decode: x (B, 1, d) against the latent cache (c_kv (B, S,
     r), k_rope (B, S, dr)); ``length`` (B,) valid entries.  Returns (out
-    (B, 1, d), (c_new (B, 1, r), kr_new (B, 1, dr))).  ``prewritten`` and
-    ``seq_axis`` serve the reference's ``decode_write_then_attend`` and
-    sequence-sharded decode, mesh schedules this single-device port does
-    not have (``transformer.check_supported``): given, they raise."""
-    if seq_axis is not None or prewritten:
-        knob = (f"seq_axis={seq_axis!r}" if seq_axis is not None
-                else "prewritten=True")
+    (B, 1, d), (c_new (B, 1, r), kr_new (B, 1, dr))).
+
+    ``prewritten``: the caller already wrote this step's latents into the
+    cache (write-then-attend; ``length`` counts them), so nothing is
+    appended and the new latents come back as (None, None).  ``seq_axis``
+    (a sequence-sharded cache) raises: MLA under a mesh is ROADMAP A.7.3."""
+    if seq_axis is not None:
         raise NotImplementedError(
-            f"mla_attend_decode({knob}) is not ported: a mesh knob of the "
-            f"reference; this is a single-device port, see DESIGN_TORCH.md")
+            f"mla_attend_decode(seq_axis={seq_axis!r}): MLA under a mesh is "
+            f"not ported yet (ROADMAP A.7.3)")
     B = x.shape[0]
     H, dn, dr, dv, r = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
                         cfg.v_head_dim, cfg.kv_lora_rank)
@@ -131,17 +132,24 @@ def mla_attend_decode(params, cfg: MLAConfig, x, positions, cache, length,
     # W_uk absorbed into the query: q_c[h] = q_n[h] @ W_uk[h]^T, latent space
     w_uk = params["w_uk"].reshape(r, H, dn)
     q_c = torch.einsum("bhd,rhd->bhr", q_n[:, :, 0], w_uk)   # (B, H, r)
-    # this step's latent, appended virtually: the token sees itself without
-    # a cache write first
-    c_new, kr_new = mla_latents(params, cfg, x, positions)
-    c_all = torch.cat([c_cache, c_new.to(c_cache.dtype)], dim=1)
-    kr_all = torch.cat([kr_cache, kr_new.to(kr_cache.dtype)], dim=1)
+    if prewritten:
+        c_new = kr_new = None
+        c_all, kr_all, S_eff = c_cache, kr_cache, S
+    else:
+        # this step's latent, appended virtually: the token sees itself
+        # without a cache write first
+        c_new, kr_new = mla_latents(params, cfg, x, positions)
+        c_all = torch.cat([c_cache, c_new.to(c_cache.dtype)], dim=1)
+        kr_all = torch.cat([kr_cache, kr_new.to(kr_cache.dtype)], dim=1)
+        S_eff = S + 1
     scale = float(np.float32(1.0) / np.sqrt(np.float32(dn + dr)))
     s = (torch.einsum("bhr,bsr->bhs", q_c.float(), c_all.float())
          + torch.einsum("bhd,bsd->bhs", q_r[:, :, 0].float(),
                         kr_all.float())) * scale
-    idx = torch.arange(S + 1, device=x.device)[None, None, :]
-    mask = (idx < length[:, None, None]) | (idx == S)
+    idx = torch.arange(S_eff, device=x.device)[None, None, :]
+    mask = idx < length[:, None, None]
+    if not prewritten:
+        mask = mask | (idx == S)
     p = torch.softmax(torch.where(mask, s, MASKED), dim=-1)
     o_c = torch.einsum("bhs,bsr->bhr", p.to(c_all.dtype).float(),
                        c_all.float())                         # (B, H, r)

@@ -24,8 +24,11 @@ What keeps it equal to the reference, and deterministic on the card:
   accumulating scatter on the card (the same bits every run);
 * the aux loss reads only real experts and only the first choice.
 
-``ep_axes`` (the reference's expert-parallel sharding) is a mesh knob this
-single-device port does not have: set, it raises ``NotImplementedError``.
+``ep_axes`` is the reference's expert-parallel sharding: experts over its
+first axis, the dispatch buffer's capacity slots over its second.  On one
+device it changes no value (the reference's is a sharding constraint); on
+a mesh the sharded route (``models/spmd.py::moe_apply_sharded``) runs
+``("model", "data")``, the one layout the reference's cells set.
 """
 from __future__ import annotations
 
@@ -49,19 +52,11 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
     n_experts_padded: Optional[int] = None   # the reference pads for sharding
-    ep_axes: Optional[tuple] = None          # a mesh knob: refused here
+    ep_axes: Optional[tuple] = None          # e.g. ("model", "data")
 
     @property
     def e_pad(self) -> int:
         return self.n_experts_padded or self.n_experts
-
-
-def check_moe(cfg: MoEConfig) -> None:
-    if cfg.ep_axes is not None:
-        raise NotImplementedError(
-            f"MoEConfig.ep_axes={cfg.ep_axes!r} is not ported: a mesh knob "
-            f"of the reference; this is a single-device port, see "
-            f"DESIGN_TORCH.md")
 
 
 def moe_init(generator, d_model: int, cfg: MoEConfig, dtype=torch.bfloat16,
@@ -70,7 +65,6 @@ def moe_init(generator, d_model: int, cfg: MoEConfig, dtype=torch.bfloat16,
     ``w_gate`` / ``w_up`` ``(E_pad, d, F)``, ``w_down`` ``(E_pad, F, d)``,
     and with shared experts ``shared`` (a SwiGLU of ``d_ff_shared``, or
     ``d_ff_expert * n_shared``).  Dense N(0, 1/d_in), from ``generator``."""
-    check_moe(cfg)
     E, Fd = cfg.e_pad, cfg.d_ff_expert
 
     def experts(d_in, d_out):
@@ -105,11 +99,9 @@ def capacity(cfg: MoEConfig, T: int) -> int:
     return max(1, int(cfg.capacity_factor * T * cfg.top_k / cfg.n_experts))
 
 
-def moe_route(params, cfg: MoEConfig, x):
+def top_k(params, cfg: MoEConfig, x):
     """x (T, d) -> (probs (T, E_pad) float32, gate (T, k) float32 summing to
-    1 a token, eidx (T, k) int64, pos (T, k) int64 (the pair's rank within
-    its expert, token-major), keep (T, k) bool, cap)."""
-    T = x.shape[0]
+    1 a token, eidx (T, k) int64)."""
     E, k = cfg.e_pad, cfg.top_k
     logits = x.float() @ params["router"]
     if E > cfg.n_experts:       # padding experts take no tokens, no mass
@@ -119,16 +111,30 @@ def moe_route(params, cfg: MoEConfig, x):
     # jax.lax.top_k's order: descending, the lower index first among ties
     srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, eidx = srt[:, :k], order[:, :k]
-    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+    return probs, gate / gate.sum(-1, keepdim=True).clamp(min=1e-9), eidx
+
+
+def rank(eidx, E: int):
+    """(pos (T, k) int64: each (token, choice) pair's exclusive rank within
+    its expert, token-major; counts (E,) int64: the pairs an expert got)."""
+    T, k = eidx.shape
     flat = _one_hot(eidx.reshape(T * k), E)                  # (T·k, E)
     pos = ((flat.cumsum(0) - flat) * flat).sum(-1).reshape(T, k)
-    cap = capacity(cfg, T)
+    return pos, flat.sum(0)
+
+
+def moe_route(params, cfg: MoEConfig, x):
+    """x (T, d) -> (probs (T, E_pad) float32, gate (T, k) float32 summing to
+    1 a token, eidx (T, k) int64, pos (T, k) int64 (the pair's rank within
+    its expert, token-major), keep (T, k) bool, cap)."""
+    probs, gate, eidx = top_k(params, cfg, x)
+    pos = rank(eidx, cfg.e_pad)[0]
+    cap = capacity(cfg, x.shape[0])
     return probs, gate, eidx, pos, pos < cap, cap
 
 
 def moe_apply(params, cfg: MoEConfig, x):
     """x: (T, d) -> (out (T, d), aux_loss scalar float32)."""
-    check_moe(cfg)
     T, d = x.shape
     E, k = cfg.e_pad, cfg.top_k
     probs, gate, eidx, pos, keep, cap = moe_route(params, cfg, x)

@@ -32,12 +32,21 @@ reference.  Caches are fixed-capacity (GQA: ``k`` / ``v`` of ``(n_layers,
 B, Hkv, S, Dh)``; MLA: ``c_kv`` / ``k_rope`` of ``(n_layers, B, S, r)``);
 ``decode_step`` writes the step's K / V or latents at position ``length``
 **in place** (the reference returns a new cache; the port saves the copy)
-and returns the same dict.
+and returns the same dict; with ``decode_write_then_attend`` it writes
+first and attends over the cache as written (the reference's
+``body_write_then_attend``), else it attends with the step's own K / V
+appended and writes after.
 
-The reference's mesh knobs (``wire_barrier``, ``act_shard``,
-``fsdp_inner``, ``decode_seq_axis``, ``MoEConfig.ep_axes``) and
-``decode_write_then_attend`` raise as settings this single-device port does
-not have.
+On a mesh ``prefill`` and ``decode_step`` take the tree placed by
+``launch.sharding.place(params, mesh, lm_param_spec_tp)`` (a ``Placed``)
+and run SPMD, a host loop over the shards (``models/spmd.py``): tensor
+parallel attention and FFN, expert parallel MoE (``MoEConfig.ep_axes``),
+and decode over a sequence-sharded cache (``decode_seq_axis``).  The
+reference's mesh knobs that change no value here are accepted:
+``wire_barrier`` (the port's partial sums already cross the mesh in the
+activation dtype), ``decode_seq_axis`` and ``ep_axes`` on one device.
+``act_shard`` and ``fsdp_inner`` (training on the mesh, ROADMAP A.7.2)
+raise, as does a mesh on an MLA config (A.7.3).
 """
 from __future__ import annotations
 
@@ -127,20 +136,13 @@ class TransformerConfig:
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for a mesh knob of the reference (no silent stand-in)."""
-    if cfg.moe is not None:
-        MOE.check_moe(cfg.moe)
-    for knob in ("wire_barrier", "act_shard", "fsdp_inner",
-                 "decode_write_then_attend"):
+    """Raise for a knob of the reference the port does not run yet (no
+    silent stand-in)."""
+    for knob in ("act_shard", "fsdp_inner"):
         if getattr(cfg, knob):
             raise NotImplementedError(
-                f"{cfg.name}: {knob}=True is not ported: a mesh / sharding "
-                f"knob of the reference; this is a single-device port, see "
-                f"DESIGN_TORCH.md")
-    if cfg.decode_seq_axis is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: decode_seq_axis is not ported: a mesh knob of the "
-            f"reference; this is a single-device port, see DESIGN_TORCH.md")
+                f"{cfg.name}: {knob}=True is not ported yet: LM training on "
+                f"the mesh is ROADMAP A.7.2")
 
 
 # --------------------------------------------------------------------------
@@ -423,8 +425,12 @@ def prefill(params: TransformerParams, cfg: TransformerConfig, tokens):
     L: GQA's {"k", "v"} of shape (n_layers, B, Hkv, L, Dh), MLA's
     {"c_kv", "k_rope"} of (n_layers, B, L, r) / (n_layers, B, L, dr)).  On
     CUDA tensors each layer's attention is one launch of the attention
-    kernel."""
+    kernel.  On a ``Placed`` tree, the sharded route (``spmd.prefill``),
+    whose caches come back placed by ``lm_cache_spec``."""
     check_supported(cfg)
+    if not isinstance(params, TransformerParams):
+        from repro_torch.models import spmd
+        return spmd.prefill(params, cfg, tokens)
     B, Lq = tokens.shape
     x = L.embed(params["embed"], tokens)
     positions = _positions(B, Lq, x.device)
@@ -446,25 +452,59 @@ def decode_step(params: TransformerParams, cfg: TransformerConfig, token,
     """token (B,) int; cache dict of (n_layers, B, ...) (``make_empty_
     cache``); length (B,) current valid cache entries.  Returns (logits (B,
     vocab), cache) — the step's K / V (MLA: latents) are written into
-    ``cache`` in place at ``length``."""
+    ``cache`` in place at ``length``.  On a ``Placed`` tree and cache, the
+    sharded route (``spmd.decode_step``)."""
     check_supported(cfg)
+    if not isinstance(params, TransformerParams):
+        from repro_torch.models import spmd
+        return spmd.decode_step(params, cfg, token, cache, length)
     x = L.embed(params["embed"], token[:, None])
     positions = length[:, None]
     mla = cfg.attn_type == "mla"
     keys = ("c_kv", "k_rope") if mla else ("k", "v")
     for i, lp in enumerate(params.layer_views()):
-        kvc = (cache[keys[0]][i], cache[keys[1]][i])
-        h, new = _attend(cfg, lp, L.rmsnorm(lp["ln1"], x), positions,
-                         kv_cache=kvc, cache_length=length)
+        bufs = (cache[keys[0]][i], cache[keys[1]][i])
+        xn = L.rmsnorm(lp["ln1"], x)
+        if cfg.decode_write_then_attend:
+            h = _write_then_attend(cfg, lp, xn, positions, bufs, length)
+        else:
+            h, new = _attend(cfg, lp, xn, positions, kv_cache=bufs,
+                             cache_length=length)
         x = x + h
         x = x + _ffn(cfg, lp, x)[0]
-        for key, val in zip(keys, new):
-            if mla:     # (B, 1, r) -> written at [b, length[b]]
-                _write_at(cache[key][i], val[:, 0], length, axis=1)
-            else:       # (B, Hkv, 1, Dh) -> written at [b, :, length[b]]
-                _write_at(cache[key][i], val[:, :, 0], length, axis=2)
+        if not cfg.decode_write_then_attend:
+            _write_step(cfg, bufs, new, length)
     x = L.rmsnorm(params["final_norm"], x)
     return L.unembed(params["embed"], x)[:, 0], cache
+
+
+def _write_step(cfg, bufs, new, length) -> None:
+    """Write a step's K / V ((B, Hkv, 1, Dh) each) or latents ((B, 1, r)
+    each) into a layer's cache buffers at ``length``."""
+    for buf, val in zip(bufs, new):
+        if cfg.attn_type == "mla":  # (B, 1, r) -> written at [b, length[b]]
+            _write_at(buf, val[:, 0], length, axis=1)
+        else:           # (B, Hkv, 1, Dh) -> written at [b, :, length[b]]
+            _write_at(buf, val[:, :, 0], length, axis=2)
+
+
+def _write_then_attend(cfg, lp, xn, positions, bufs, length):
+    """The reference's ``body_write_then_attend`` on one device: this step's
+    K / V (latents) written at ``length`` first, then attention over the
+    cache as written, ``length + 1`` slots visible."""
+    if cfg.attn_type == "mla":
+        _write_step(cfg, bufs, MLA.mla_latents(lp["attn"], cfg.mla, xn,
+                                               positions), length)
+        return MLA.mla_attend_decode(lp["attn"], cfg.mla, xn, positions,
+                                     bufs, length + 1, prewritten=True)[0]
+    acfg = cfg.attn_cfg()
+    q, k, v = L.gqa_project_qkv(lp["attn"], acfg, xn, positions)
+    _write_step(cfg, bufs, (k, v), length)
+    o = L.decode_attention(q, bufs[0], bufs[1], length=length + 1,
+                           extra_slot=False)
+    o = o.transpose(1, 2).reshape(xn.shape[0], 1,
+                                  acfg.n_heads * acfg.head_dim)
+    return o @ lp["attn"]["wo"]
 
 
 def _write_at(buf, val, length, axis: int):

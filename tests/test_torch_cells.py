@@ -1,0 +1,184 @@
+"""Port vs reference: the cell builders and the mesh makers
+(``repro_torch.launch.cells`` / ``.mesh`` against ``repro.launch``).
+
+``build_cell`` allocates: its ``Cell.args`` are placed tensors and
+``Cell.run()`` runs the step the reference's ``Cell`` lowers.  The LM's
+prefill and decode cells run here on the smoke configs (float32, CPU
+meshes) with the reference's weights, against the reference's ``prefill``
+/ ``decode_step`` under a 1 x 1 mesh, within ``TOL`` (1e-4, float32 in
+another order); train cells, MLA on a mesh and the GNN / recsys cells
+raise, naming their ROADMAP items.
+"""
+import dataclasses
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AxisType
+
+from repro import configs as jconfigs
+from repro.launch import mesh as JM
+from repro.models import transformer as JTF
+from repro_torch import configs as tconfigs
+from repro_torch.core import mesh as TM
+from repro_torch.launch import cells as TC
+from repro_torch.launch import mesh as TLM
+from repro_torch.launch import sharding as TSH
+from repro_torch.models import transformer as TTF
+from repro_torch.obs import metrics
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+ONE_BY_ONE = jax.make_mesh((1, 1), ("data", "model"),
+                           axis_types=(AxisType.Auto,) * 2)
+
+
+def _mesh(shape):
+    return TM.make_mesh(shape, ("data", "model"), device="cpu")
+
+
+def _weights(arch, **over):
+    cj = dataclasses.replace(jconfigs.get(arch).make_smoke(), **over)
+    ct = dataclasses.replace(tconfigs.get(arch).make_smoke(), **over)
+    pj = JTF.init_params(jax.random.PRNGKey(0), cj)
+    return cj, pj, TTF.params_from_reference(
+        ct, jax.tree_util.tree_map(np.asarray, pj), "cpu")
+
+
+def test_mesh_makers_and_axes():
+    m = TLM.make_production_mesh(device="cpu")
+    assert (m.axis_names, m.axis_sizes) == (("data", "model"), (16, 16))
+    m2 = TLM.make_production_mesh(multi_pod=True, device="cpu")
+    assert (m2.axis_names, m2.axis_sizes) == (("pod", "data", "model"),
+                                              (2, 16, 16))
+    for mesh in (m, m2, _mesh((2, 2))):
+        stand_in = types.SimpleNamespace(axis_names=mesh.axis_names,
+                                         devices=np.empty(mesh.size))
+        assert TLM.batch_axes(mesh) == JM.batch_axes(stand_in)
+        assert TLM.n_chips(mesh) == JM.n_chips(stand_in) == mesh.size
+    with pytest.raises(TypeError):
+        TLM.make_production_mesh()                  # device= is required
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            TLM.make_host_mesh(1, 4)
+
+
+@pytest.mark.parametrize("arch,shape,mesh_shape", [
+    ("qwen3-1.7b", "prefill_32k", (1, 4)),
+    ("qwen3-32b", "prefill_32k", (2, 2)),
+    ("phi3.5-moe-42b-a6.6b", "prefill_32k", (2, 2)),
+    ("qwen2-moe-a2.7b", "prefill_32k", (1, 2))])
+def test_prefill_cell_equals_the_reference(arch, shape, mesh_shape):
+    over = {"n_layers": 1}
+    cj, pj, pt = _weights(arch, **over)
+    if cj.moe is not None:
+        cj = dataclasses.replace(cj, moe=dataclasses.replace(
+            cj.moe, ep_axes=("model", "data")))
+        over["moe_ep"] = True
+    mesh = _mesh(mesh_shape)
+    cell = TC.build_cell(arch, shape, mesh, over, batch=2, seq_len=9,
+                         smoke=True, params=pt)
+    assert cell.kind == "prefill" and cell.cfg.n_layers == 1
+    assert "batch cut from 32 to 2" in cell.static_notes
+    assert "seq_len cut from 32768 to 9" in cell.static_notes
+    assert "n_layers cut from 2 to 1" in cell.static_notes
+    assert (cell.cfg.moe is not None) == ("moe_ep" in over)
+    if cell.cfg.moe is not None:
+        assert cell.cfg.moe.ep_axes == ("model", "data")
+    tokens = cell.args[1]
+    assert isinstance(cell.args[0], TSH.Placed)
+    assert tokens.shapes[""] == (2, 9)
+    toks = np.asarray(tokens.gather(""))
+    metrics.reset()
+    logits, cache = cell.run()
+    assert TM.collectives() > 0
+    with ONE_BY_ONE:
+        lj, cjc = jax.jit(lambda p, t: JTF.prefill(p, cj, t))(
+            pj, jnp.asarray(toks))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(lj), **TOL)
+    np.testing.assert_allclose(cache.gather("['k']").numpy(),
+                               np.asarray(cjc["k"]), **TOL)
+
+
+@pytest.mark.parametrize("arch,shape,mesh_shape,batch", [
+    ("qwen3-1.7b", "long_500k", (1, 4), None),      # B 1: seq over all
+    ("qwen3-32b", "long_500k", (2, 2), None),
+    ("phi3.5-moe-42b-a6.6b", "decode_32k", (2, 2), 4),
+    ("qwen3-1.7b", "decode_32k", (2, 1), 2)])
+def test_decode_cell_equals_the_reference(arch, shape, mesh_shape, batch):
+    over = {"n_layers": 1, "decode_write_then_attend": True,
+            "decode_seq_axis": "model"}
+    cj, pj, pt = _weights(arch, **over)
+    if cj.moe is not None:
+        cj = dataclasses.replace(cj, moe=dataclasses.replace(
+            cj.moe, ep_axes=("model", "data")))
+        over["moe_ep"] = True
+    B = batch or 1
+    S = 64
+    rng = np.random.default_rng(5)
+    cache = {k: rng.standard_normal((1, B, cj.n_kv_heads, S, cj.head_dim))
+             .astype(np.float32) for k in ("k", "v")}
+    length = rng.integers(0, S, (B,)).astype(np.int32)
+    token = rng.integers(1, cj.vocab, (B,)).astype(np.int32)
+    mesh = _mesh(mesh_shape)
+    cell = TC.build_cell(
+        arch, shape, mesh, over, batch=batch, seq_len=S, smoke=True,
+        params=pt, inputs={"cache": {k: torch.from_numpy(v.copy())
+                                     for k, v in cache.items()},
+                           "length": torch.from_numpy(length),
+                           "token": torch.from_numpy(token)})
+    assert cell.kind == "decode" and "seq_len cut" in cell.static_notes
+    pc = cell.args[2]
+    want = TSH.lm_cache_spec(mesh, "gqa", B, cj.n_kv_heads)["k"]
+    assert tuple(pc.specs["['k']"]) == tuple(TSH.sanitize_spec(
+        want, (1, B, cj.n_kv_heads, S, cj.head_dim), mesh))
+    if B < mesh_shape[0]:
+        assert pc.split("['k']", 3) == ("data", "model")
+    logits, pc = cell.run()
+    with ONE_BY_ONE:
+        lj, cjc = jax.jit(lambda p, t, c, n: JTF.decode_step(
+            p, cj, t, c, n))(pj, jnp.asarray(token),
+                             {k: jnp.asarray(v) for k, v in cache.items()},
+                             jnp.asarray(length))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(lj), **TOL)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(pc.gather(f"['{k}']").numpy(),
+                                   np.asarray(cjc[k]), **TOL)
+
+
+def test_default_cell_inputs_run():
+    """Without ``params`` / ``inputs`` the cell draws its own (seeded
+    weights, tokens; a zero cache at length 0), and runs."""
+    mesh = _mesh((1, 2))
+    cell = TC.build_cell("qwen3-1.7b", "decode_32k", mesh, {"n_layers": 1},
+                         batch=2, seq_len=16, smoke=True)
+    logits, cache = cell.run()
+    assert logits.shape == (2, 512) and torch.isfinite(logits).all()
+    assert cache.shapes["['k']"] == (1, 2, 2, 16, 16)
+    cell = TC.build_cell("qwen3-1.7b", "prefill_32k", mesh,
+                         batch=1, seq_len=8, smoke=True)
+    assert cell.static_notes == ("batch cut from 32 to 1; seq_len cut from "
+                                 "32768 to 8")
+    assert cell.run()[0].shape == (1, 512)
+
+
+@pytest.mark.parametrize("arch,shape,item", [
+    ("qwen3-1.7b", "train_4k", "A.7.2"),
+    ("minicpm3-4b", "prefill_32k", "A.7.3"),
+    ("gatedgcn", "full_graph_sm", "A.7.4"),
+    ("dcn-v2", "serve_p99", "A.7.4")])
+def test_unported_cells_raise(arch, shape, item):
+    with pytest.raises(NotImplementedError, match=item):
+        TC.build_cell(arch, shape, _mesh((1, 2)), smoke=True, batch=1,
+                      seq_len=8)
+
+
+@pytest.mark.parametrize("knob", ["act_shard", "fsdp_inner"])
+def test_training_knobs_raise_in_a_cell(knob):
+    with pytest.raises(NotImplementedError, match="A.7.2"):
+        TC.build_cell("qwen3-1.7b", "prefill_32k", _mesh((1, 2)),
+                      {knob: True}, smoke=True, batch=1, seq_len=8)

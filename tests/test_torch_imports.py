@@ -392,3 +392,51 @@ def test_chip_smoke_refuses_to_run_without_a_gpu_or_the_package(tmp_path):
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+MESH_MODULES = (
+    "repro_torch.core.mesh", "repro_torch.launch.mesh",
+    "repro_torch.launch.sharding", "repro_torch.launch.cells",
+    "repro_torch.models.spmd")
+
+
+@pytest.fixture(scope="module")
+def mesh_imports():
+    """One fresh interpreter per module of the model-mesh slice, all
+    started at once, read by the cases below."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("REPRO_FAULTS", None)
+    procs = {}
+    for first in MESH_MODULES:
+        code = (f"import {first}\n"
+                "import sys\n"
+                "from repro_torch.launch import cells, sharding\n"
+                "from repro_torch.models import spmd, transformer\n"
+                "from repro_torch import api\n"
+                "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+                "('jax', 'jaxlib', 'repro'))\n"
+                "assert not bad, bad\n"
+                "assert sorted(sharding.PARAM_RULES) == ['gnn', 'lm', "
+                "'recsys']\n"
+                "assert transformer.prefill.__module__ == "
+                "'repro_torch.models.transformer'\n"
+                "print('ok')\n")
+        procs[first] = subprocess.Popen(
+            [sys.executable, "-c", code], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    yield procs
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+@pytest.mark.parametrize("first", MESH_MODULES)
+def test_mesh_module_imports_first(first, mesh_imports):
+    """Each module of the model-mesh slice imports first in a fresh
+    interpreter, with no import cycle (``spmd`` is reached from
+    ``transformer`` at call time), pulling in neither ``jax`` nor the
+    reference package."""
+    out, err = mesh_imports[first].communicate(timeout=240)
+    assert mesh_imports[first].returncode == 0, err
+    assert out.startswith("ok")

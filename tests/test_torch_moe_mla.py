@@ -31,6 +31,7 @@ from repro import configs as jconfigs
 from repro.models import layers as JL
 from repro.models import mla as JMLA
 from repro.models import moe as JMOE
+from repro.models import transformer as JTF
 from repro_torch import configs as tconfigs
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
@@ -42,6 +43,8 @@ from repro_torch.models import transformer as TTF
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+ONE_BY_ONE = jax.make_mesh((1, 1), ("data", "model"),
+                           axis_types=(jax.sharding.AxisType.Auto,) * 2)
 NEW_ARCHS = ("minicpm3-4b", "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b")
 
 
@@ -207,14 +210,30 @@ def test_moe_gradients_equal_the_reference(name, d, cfg, T):
 
 
 def test_moe_mesh_knob_raises():
-    cfg = dataclasses.replace(_port_moe_cfg(_smoke_moe(
-        "phi3.5-moe-42b-a6.6b")[1]), ep_axes=("model", "data"))
-    with pytest.raises(NotImplementedError, match="mesh knob"):
-        TMOE.moe_init(torch.Generator().manual_seed(0), 64, cfg)
-    tcfg = dataclasses.replace(
-        tconfigs.get("phi3.5-moe-42b-a6.6b").make_smoke(), moe=cfg)
-    with pytest.raises(NotImplementedError, match="mesh knob"):
-        TTF.make_empty_cache(tcfg, 1, 8)
+    """``ep_axes`` (the reference's expert-parallel sharding) is accepted
+    and, on one device, changes no value: ``moe_apply`` with it equals the
+    reference's, run under a 1 x 1 mesh (its sharding constraints need
+    one), routing as integers.  On a mesh: ``tests/test_torch_sharding.py``."""
+    name, d, cfg_j, T = MOE_CASES[2]          # qwen2-moe smoke
+    cfg_j = dataclasses.replace(cfg_j, ep_axes=("model", "data"),
+                                capacity_factor=0.75)     # drops
+    pj, x = _moe_inputs(d, cfg_j, T, seed=9)
+    with ONE_BY_ONE:
+        out_j, aux_j, eidx_j, pos_j, keep_j = _reference_routing(
+            pj, cfg_j, jnp.asarray(x))
+    cfg = _port_moe_cfg(cfg_j)
+    assert cfg.ep_axes == ("model", "data")
+    pt = _tree_t(pj)
+    _, _, eidx, pos, keep, _ = TMOE.moe_route(pt, cfg, _t(x))
+    np.testing.assert_array_equal(eidx.numpy(), eidx_j)
+    np.testing.assert_array_equal(pos.numpy(), pos_j)
+    np.testing.assert_array_equal(keep.numpy(), keep_j)
+    assert not keep.all()
+    out, aux = TMOE.moe_apply(pt, cfg, _t(x))
+    np.testing.assert_allclose(out.numpy(), out_j, **TOL)
+    np.testing.assert_allclose(float(aux), aux_j, rtol=1e-6)
+    TTF.make_empty_cache(dataclasses.replace(
+        tconfigs.get("phi3.5-moe-42b-a6.6b").make_smoke(), moe=cfg), 1, 8)
 
 
 # --------------------------------------------------------------------------
@@ -295,12 +314,59 @@ def test_mla_attend_decode_equals_the_reference():
 @pytest.mark.parametrize("knob", [dict(prewritten=True),
                                   dict(seq_axis="model")])
 def test_mla_attend_decode_refuses_the_mesh_knobs(knob):
-    """The reference's write-then-attend and sequence-sharded decode are
-    mesh schedules this single-device port does not have."""
+    """``prewritten=True`` (the reference's write-then-attend decode: the
+    cache already holds this step's latents, ``length`` counts them)
+    equals the reference's; ``seq_axis`` (a sequence-sharded cache) is MLA
+    under a mesh, not ported yet."""
     pj, x, pos, c, kr, length = _decode_inputs()
-    with pytest.raises(NotImplementedError, match="mesh knob"):
-        TMLA.mla_attend_decode(_tree_t(pj), MLA_SMOKE_T, _t(x), _t(pos),
-                               (_t(c), _t(kr)), _t(length), **knob)
+    if "seq_axis" in knob:
+        with pytest.raises(NotImplementedError, match="A.7.3"):
+            TMLA.mla_attend_decode(_tree_t(pj), MLA_SMOKE_T, _t(x),
+                                   _t(pos), (_t(c), _t(kr)), _t(length),
+                                   **knob)
+        return
+    n = np.minimum(length + 1, c.shape[1]).astype(np.int32)
+    jfn = jax.jit(lambda p, x, q, c, k, n: JMLA.mla_attend_decode(
+        p, MLA_SMOKE_J, x, q, (c, k), n, prewritten=True))
+    out_j, new_j = jfn(pj, jnp.asarray(x), jnp.asarray(pos), jnp.asarray(c),
+                       jnp.asarray(kr), jnp.asarray(n))
+    out_t, new_t = TMLA.mla_attend_decode(
+        _tree_t(pj), MLA_SMOKE_T, _t(x), _t(pos), (_t(c), _t(kr)), _t(n),
+        **knob)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+    assert new_t == (None, None) and new_j == (None, None)
+
+
+def test_mla_write_then_attend_decode_step_equals_the_reference():
+    """``decode_step`` with ``decode_write_then_attend`` on the MLA smoke
+    config: the latents written first, then the absorbed attention over the
+    cache as written (the reference's ``body_write_then_attend``)."""
+    cj = dataclasses.replace(jconfigs.get("minicpm3-4b").make_smoke(),
+                             decode_write_then_attend=True)
+    ct = dataclasses.replace(tconfigs.get("minicpm3-4b").make_smoke(),
+                             decode_write_then_attend=True)
+    pj = JTF.init_params(jax.random.PRNGKey(4), cj)
+    pt = TTF.params_from_reference(ct, jax.tree_util.tree_map(np.asarray,
+                                                              pj), "cpu")
+    rng = np.random.default_rng(4)
+    B, S, m = 3, 16, cj.mla
+    cache = {"c_kv": rng.standard_normal((2, B, S, m.kv_lora_rank)),
+             "k_rope": rng.standard_normal((2, B, S, m.qk_rope_dim))}
+    cache = {k: v.astype(np.float32) for k, v in cache.items()}
+    length = np.array([0, 7, S - 1], np.int32)
+    tok = rng.integers(1, cj.vocab, (B,)).astype(np.int32)
+    lj, cjc = jax.jit(lambda p, t, c, n: JTF.decode_step(p, cj, t, c, n))(
+        pj, jnp.asarray(tok), {k: jnp.asarray(v) for k, v in cache.items()},
+        jnp.asarray(length))
+    with torch.no_grad():
+        lt, ctc = TTF.decode_step(pt, ct, _t(tok), {k: _t(v) for k, v in
+                                                    cache.items()},
+                                  _t(length))
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-4,
+                               atol=1e-4)
+    for k in cache:
+        np.testing.assert_allclose(ctc[k].numpy(), np.asarray(cjc[k]),
+                                   rtol=1e-4, atol=1e-4)
 
 
 # --------------------------------------------------------------------------

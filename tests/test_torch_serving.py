@@ -105,26 +105,28 @@ def test_configs_equal_the_reference_field_by_field(arch):
 
 def test_unported_archs_and_settings_raise():
     """Every arch of the reference is in the registry; an unknown name and
-    the reference's mesh knobs (no counterpart in the single-device port)
-    raise."""
+    the knobs of LM training on the mesh (ROADMAP A.7.2) raise.  The
+    serving mesh's knobs are accepted: on one device they change no value
+    (``tests/test_torch_sharding.py`` runs them on meshes)."""
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get("no-such-arch")
     assert set(tconfigs.ARCHS) == set(jconfigs.ARCHS)
     assert not hasattr(tconfigs, "NOT_PORTED")
     base = CFG_T
-    moe = tconfigs.get("qwen2-moe-a2.7b").make_smoke().moe
-    for change, why in ((dict(moe=dataclasses.replace(
-                            moe, ep_axes=("model", "data"))), "not ported"),
-                        (dict(wire_barrier=True), "not ported"),
-                        (dict(act_shard=True), "not ported"),
-                        (dict(fsdp_inner=True), "not ported"),
-                        (dict(decode_seq_axis="model"), "not ported"),
-                        (dict(decode_write_then_attend=True), "not ported")):
-        cfg = dataclasses.replace(base, **change)
-        with pytest.raises(NotImplementedError, match=why):
+    for knob in ("act_shard", "fsdp_inner"):
+        cfg = dataclasses.replace(base, **{knob: True})
+        with pytest.raises(NotImplementedError, match="A.7.2"):
             TTF.init_params(torch.Generator().manual_seed(0), cfg)
-        with pytest.raises(NotImplementedError, match=why):
+        with pytest.raises(NotImplementedError, match="A.7.2"):
             TTF.make_empty_cache(cfg, 1, 8)
+    moe = tconfigs.get("qwen2-moe-a2.7b").make_smoke().moe
+    for change in (dict(moe=dataclasses.replace(
+                       moe, ep_axes=("model", "data"))),
+                   dict(wire_barrier=True), dict(decode_seq_axis="model"),
+                   dict(decode_write_then_attend=True)):
+        cfg = dataclasses.replace(base, **change)
+        TTF.init_params(torch.Generator().manual_seed(0), cfg)
+        assert TTF.make_empty_cache(cfg, 1, 8)["k"].shape[3] == 8
 
 
 @pytest.mark.parametrize("arch", ARCHS)
