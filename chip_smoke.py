@@ -209,6 +209,23 @@ ends the run with a non-zero exit code:
               shared routing choices printed; TTFT, decode ms a step, peak,
               per-shard bytes, collectives and gathered bytes, a profiled
               prefill split; counts zeroed before each sharded prefill
+  5o. LM training on a model mesh (launch/cells.py's train cell), the
+              shards sharing the card, random weights from seed 0, no
+              kernel launched (counts zeroed before, read after, all 0):
+              (a) qwen3-1.7b at full width, 28 layers, bf16, on (data 2,
+              model 2) with fsdp_inner and act_shard: train_4k cut to 4 x
+              4096 in 2 microbatches, two steps (the second under
+              torch.profiler, device activity only), then the unsharded
+              route (train_loop.make_train_step, the same OPT, weights and
+              batch) after the cell is freed: step 1's loss within
+              TM_LOSS_ATOL, grad_norm within TM_GNORM_REL; ms a step, peak,
+              per-shard bytes of weights and moments, collectives and
+              gathered bytes a step; (b) qwen2-moe-a2.7b, depth 2, (2, 2)
+              with moe_ep, 2 x 2048: one step within TM_MOE_LOSS_ATOL /
+              TM_MOE_GNORM_REL; (c) qwen3-1.7b, depth 2, float32, every
+              knob and 2 microbatches: loss, grad_norm and every moment
+              leaf within TM_F32_TOL of the unsharded route on the card;
+              the phase's seconds against TM_BUDGET_S
   (5, 5c: each row's prepare_ms + solve_ms must not pass e2e_traced_ms,
   the wall time of the call they split, by more than SPLIT_SLACK)
   6. times    per-kernel device time (device_ms; the back-to-back call time
@@ -4347,51 +4364,6 @@ def sh_sharded_counts(what: str, counts: dict, designs: dict, launch: bool):
              f"{SH_PREFILL_LAUNCHES} on sm90")
 
 
-def prefill_split(fn, device) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: its wall ms, the
-    device's busy ms and idle share, kernel time split into attention (B5,
-    launched through ctypes: read off ``key_averages``' device rows, not
-    off the ops), matrix products (GEMM-named kernels), copies and the
-    rest (on one card the collectives are copies, stacks and sums), and
-    the five longest kernels.  In the rehearsal the CPU ops' self time
-    stands in."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    sync(device)
-    t0 = time.perf_counter()
-    with profile(activities=acts) as prof, torch.no_grad():
-        fn()
-        sync(device)
-    wall = (time.perf_counter() - t0) * 1e3
-    want = DeviceType.CUDA if device.type == "cuda" else DeviceType.CPU
-    ms = dict.fromkeys(("attention", "matmul", "copy", "rest"), 0.0)
-    by_name = []
-    for e in prof.key_averages():
-        if e.device_type != want:
-            continue
-        us = (getattr(e, "self_device_time_total", None)
-              if want == DeviceType.CUDA else e.self_cpu_time_total)
-        if us is None:
-            us = e.self_cuda_time_total
-        name = e.key
-        key = ("attention" if "flash_fwd" in name
-               else "matmul" if GEMM_KERNEL.search(name)
-               else "copy" if re.search(r"copy|memcpy|cat|stack", name,
-                                        re.IGNORECASE)
-               else "rest")
-        ms[key] += us / 1e3
-        by_name.append((name[:80], us / 1e3, e.count))
-    busy = sum(ms.values())
-    return {"wall_ms": wall, "device_busy_ms": busy,
-            "idle_share": 1 - busy / wall if wall else None, "ms": ms,
-            "top": sorted(by_name, key=lambda r: -r[1])[:5],
-            "what": "device kernel time" if device.type == "cuda"
-            else "CPU op time (rehearsal)"}
-
-
 def sh_random_cache(cfg, B: int, S: int, device, seed: int) -> dict:
     from repro_torch.models import transformer as TF
     cache = TF.make_empty_cache(cfg, B, S, device)
@@ -4466,9 +4438,9 @@ def sh_dense(device, card: str, rehearse: bool) -> tuple:
         fail(f"5n {name}: sharded prefill logits {err} from the unsharded "
              f"(tolerance {LOGITS_ATOL})")
     del caches, lu, ls
-    split = {"unsharded": prefill_split(
-        lambda: TF.prefill(params, cfg, tokens), device),
-        "sharded": prefill_split(cell.run, device)}
+    split = {"unsharded": profile_split(torch.no_grad()(
+        lambda: TF.prefill(params, cfg, tokens)), device)[1],
+        "sharded": profile_split(cell.run, device)[1]}
     # decode: the cache placed (a copy) before the unsharded route writes
     # into its own in place
     S = 256 if rehearse else configs_shape("long_500k")["seq_len"]
@@ -4701,7 +4673,7 @@ def sh_moe(device, card: str, rehearse: bool) -> tuple:
     if not bool(torch.isfinite(ls).all()):
         fail(f"5n {name}: sharded prefill logits are not finite")
     err = float((ls.float() - lu.float()).abs().max())
-    split = {"sharded": prefill_split(cell.run, device)}
+    split = {"sharded": profile_split(cell.run, device)[1]}
     dcell = cells.build_cell(name, "decode_32k", mesh, over, batch=Bd,
                              seq_len=S if rehearse else None, smoke=rehearse,
                              params=placed, inputs={"cache": pc})
@@ -4773,6 +4745,370 @@ def phase_lm_sharded(device, card: str, rehearse: bool) -> tuple:
            "seconds": time.perf_counter() - t0}
     log("sharded", f"phase 5n: {row['seconds']:.1f} s")
     return row, counts, designs
+
+
+# --------------------------------------------------------------------------
+# phase 5o: LM training on the model mesh, the shards sharing the card
+# --------------------------------------------------------------------------
+
+TM_MESH = (2, 2)                           # (data, model)
+TM_DENSE = "qwen3-1.7b"                    # full width, all 28 layers
+TM_DENSE_KNOBS = dict(fsdp_inner=True, act_shard=True)
+# train_4k cut to 4 x 4096 in 2 microbatches: one 4096-token row a data
+# row a microbatch, the tokens of 5k (a)'s 2 x 4096 microbatch
+TM_BATCH, TM_SEQ, TM_MICRO, TM_STEPS = 4, 4096, 2, 2
+# the unsharded route takes the same batch in 4 one-row microbatches, 5k
+# (a)'s shape (58.03 GB peak): every row has the same 4096 labels, so the
+# mean loss and its gradient are those of 2 microbatches of 2 rows
+TM_UNSHARDED_MICRO = 4
+TM_LOSS_ATOL, TM_GNORM_REL = 0.05, 0.05    # step 1, bfloat16
+TM_MOE = ("qwen2-moe-a2.7b", 2)            # full width, depth cut (5m c)
+TM_MOE_TOKENS = (2, 2048)
+TM_MOE_LOSS_ATOL, TM_MOE_GNORM_REL = 0.1, 0.10
+TM_F32 = ("qwen3-1.7b", 2)                 # full width, depth cut, float32
+TM_F32_TOKENS = (4, 1024)
+TM_F32_TOL = dict(loss_rel=1e-4, gnorm_rel=1e-3, moment_rel=1e-3,
+                  update_rel=1e-2)
+TM_ALL_KNOBS = dict(fsdp_inner=True, act_shard=True, remat=True)
+TM_BUDGET_S = 120.0                        # the phase's share of the limit
+
+
+def tm_setup(name: str, layers, over: dict, tokens: tuple, device,
+             rehearse: bool, seed: int) -> tuple:
+    """(config, cell overrides, weights, batch) of a 5o run: ``name`` at
+    full width, depth cut to ``layers`` (None: all), the knobs ``over``;
+    random weights from ``torch.Generator`` seed 0 (trainable, for the
+    unsharded route), tokens and labels drawn from ``seed``.  In the
+    rehearsal the smoke config, 2 layers, 32 tokens a row."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as TF
+    arch = configs.get(name)
+    base = arch.make_smoke() if rehearse else arch.make_full()
+    over = dict(over)
+    if rehearse:
+        over.setdefault("dtype", "bfloat16")
+        over.update(n_layers=2, remat=True)
+    elif layers is not None:
+        over["n_layers"] = layers
+    cfg = dataclasses.replace(base, **{k: v for k, v in over.items()
+                                      if k not in ("moe_ep", "microbatches")})
+    if over.get("moe_ep"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, ep_axes=("model", "data")))
+    params = TF.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg, device, trainable=True)
+    B, L = (tokens[0], 32) if rehearse else tokens
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.from_numpy(rng.integers(1, cfg.vocab, (B, L)).astype(
+        np.int32)).to(device) for k in ("tokens", "labels")}
+    return cfg, over, params, batch
+
+
+def tm_unsharded(cfg, params, batch, micro: int, device) -> tuple:
+    """One step of the unsharded route (``train_loop.make_train_step``,
+    the cell's ``OPT``) on ``params`` (trained in place): (metrics as
+    floats, the new moments by path, wall ms, peak GB)."""
+    from repro_torch import tree
+    from repro_torch.launch import cells
+    from repro_torch.models import transformer as TF
+    from repro_torch.training import optimizer as OP
+    from repro_torch.training import train_loop as TL
+    step = TL.make_train_step(lambda p, b: TF.train_step_loss(p, cfg, b),
+                              cells.OPT, micro)
+    peak_reset(device)
+    (_, st, m), ms = timed_call(
+        lambda: step(params, OP.init_opt_state(params), batch), device)
+    moments = {k: dict(tree.flatten_with_paths(st[k])) for k in ("mu", "nu")}
+    return {k: float(v) for k, v in m.items()}, moments, ms, peak_gb(device)
+
+
+def profile_split(fn, device) -> tuple:
+    """One call of ``fn`` under ``torch.profiler`` (in the caller's grad
+    mode): ``(fn's output, {wall ms (the call, not the profiler's
+    teardown), the device's busy ms and idle share, its kernel time split
+    into attention (B5's ``flash_fwd`` kernels), matrix products
+    (GEMM-named kernels), copies (on one card the collectives: stacks, cats
+    and copies) and the rest, the six longest kernels})``.  On the card
+    only device activity is traced and its raw events are summed: a
+    sharded train step makes about 10^5 host ops and as many kernels, whose
+    event tree ``key_averages`` takes over a minute to build.  The span
+    from the first kernel's start to the last one's end is held against
+    CUDA events recorded around the call (``span_ratio``): a trace whose
+    clock is off by more than 10 % (seen once: kernel times at 0.47 of
+    their length) is marked ``timestamps_ok`` false, its times not a
+    measurement.  In the rehearsal the CPU ops' self time stands in."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cuda = device.type == "cuda"
+    sync(device)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA if cuda
+                             else ProfilerActivity.CPU]) as prof:
+        if cuda:
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            marks[0].record()
+        out = fn()
+        if cuda:
+            marks[1].record()
+        sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    rows, check = {}, {}
+    if cuda:
+        first, last = float("inf"), float("-inf")
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                r = rows.setdefault(e.name(), [0.0, 0])
+                r[0] += e.duration_ns() / 1e6
+                r[1] += 1
+                first, last = min(first, e.start_ns()), max(last, e.end_ns())
+        event_ms = marks[0].elapsed_time(marks[1])
+        span = (last - first) / 1e6 if rows else None
+        ratio = span / event_ms if span is not None and event_ms else None
+        check = {"kernel_span_ms": span, "cuda_event_ms": event_ms,
+                 "span_ratio": ratio,
+                 "timestamps_ok": ratio is not None and abs(1 - ratio) <= 0.1}
+        if not check["timestamps_ok"]:
+            log("profile", f"the trace's kernel span is {ratio} of the CUDA "
+                f"events' {event_ms} ms: its times are not a measurement")
+    else:
+        rows = {e.key: [e.self_cpu_time_total / 1e3, e.count]
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU}
+    ms = dict.fromkeys(("attention", "matmul", "copy", "rest"), 0.0)
+    for name, (t, _) in rows.items():
+        key = ("attention" if "flash_fwd" in name
+               else "matmul" if GEMM_KERNEL.search(name)
+               else "copy" if re.search(r"copy|memcpy|cat|stack", name,
+                                        re.IGNORECASE)
+               else "rest")
+        ms[key] += t
+    busy = sum(ms.values())
+    return out, {"wall_ms": wall, "device_busy_ms": busy,
+                 "idle_share": 1 - busy / wall if wall else None, "ms": ms,
+                 "top": sorted(([n[:80], t, c] for n, (t, c)
+                                in rows.items()), key=lambda r: -r[1])[:6],
+                 "post_processing_s": time.perf_counter() - t1, **check,
+                 "what": "device kernel time" if cuda
+                 else "CPU op time (rehearsal)"}
+
+
+def tm_check(what: str, sharded: dict, unsharded: dict, loss_atol=None,
+             loss_rel=None, gnorm_rel=None) -> dict:
+    """Step 1's loss and gradient norm, sharded against unsharded."""
+    dl = abs(sharded["loss"] - unsharded["loss"])
+    dg = abs(sharded["grad_norm"] - unsharded["grad_norm"]) / abs(
+        unsharded["grad_norm"])
+    if not all(np.isfinite([sharded["loss"], sharded["grad_norm"]])):
+        fail(f"5o {what}: a loss or gradient norm is not finite: {sharded}")
+    if loss_atol is not None and not dl <= loss_atol:
+        fail(f"5o {what}: loss {sharded['loss']} against the unsharded "
+             f"{unsharded['loss']}: {dl} > {loss_atol}")
+    if loss_rel is not None and not dl <= loss_rel * abs(unsharded["loss"]):
+        fail(f"5o {what}: loss {sharded['loss']} against the unsharded "
+             f"{unsharded['loss']}: relative {dl / abs(unsharded['loss'])} "
+             f"> {loss_rel}")
+    if not dg <= gnorm_rel:
+        fail(f"5o {what}: grad_norm {sharded['grad_norm']} against the "
+             f"unsharded {unsharded['grad_norm']}: relative {dg} > "
+             f"{gnorm_rel}")
+    if sharded["lr"] != unsharded["lr"]:
+        fail(f"5o {what}: lr {sharded['lr']} against {unsharded['lr']}")
+    return {"loss_abs_diff": dl, "grad_norm_rel_diff": dg}
+
+
+def tm_metrics(m: dict) -> dict:
+    return {k: float(v) for k, v in m.items()}
+
+
+def tm_dense(device, card: str, rehearse: bool) -> dict:
+    """(a) qwen3-1.7b at full width, all 28 layers, bfloat16, on (data 2,
+    model 2) with fsdp_inner and act_shard (remat as the config has it):
+    the train_4k cell cut to 4 x 4096 in 2 microbatches, two steps (the
+    second profiled, ``profile_split``), then the unsharded route on the
+    same weights and batch, after the cell is freed.  Step 1 within
+    TM_LOSS_ATOL / TM_GNORM_REL; ms a step, peak GB, per-shard bytes,
+    collectives and gathered bytes a step (remat's recompute included)."""
+    from repro_torch import obs
+    from repro_torch.core import mesh as M
+    from repro_torch.launch import cells
+    over = dict(TM_DENSE_KNOBS, microbatches=TM_MICRO)
+    mesh = M.make_mesh(TM_MESH, ("data", "model"), device=device)
+    peak_reset(device)
+    cfg, over, params, batch = tm_setup(TM_DENSE, None, over,
+                                        (TM_BATCH, TM_SEQ), device, rehearse,
+                                        seed=20)
+    n_params = allocated_params(cfg)
+    reckoned = {"params": n_params, "bf16_storage_gb": 2 * n_params / 1e9,
+                "f32_moments_gb": 8 * n_params / 1e9,
+                "f32_accumulators_gb": 4 * n_params / 1e9,
+                "bf16_unsharded_copy_held_gb": 2 * n_params / 1e9}
+    log("mesh_train", json.dumps({"dense_reckoned": reckoned}))
+    cell = cells.build_cell(TM_DENSE, "train_4k", mesh, over,
+                            batch=TM_BATCH, seq_len=batch["tokens"].shape[1],
+                            smoke=rehearse, params=params, inputs=batch)
+    placed = cell.args[0]
+    w_bytes = placed.bytes_per_shard()
+    steps, ms, coll = [], [], []
+    for i in range(TM_STEPS):
+        obs.metrics.reset()
+        if i == TM_STEPS - 1:
+            out, prof = profile_split(cell.run, device)
+            t = prof["wall_ms"]
+        else:
+            out, t = timed_call(cell.run, device)
+        steps.append(tm_metrics(out[2]))
+        ms.append(t)
+        coll.append((M.collectives(), M.gathered_bytes()))
+    m_bytes = [a + b for a, b in zip(cell.args[1]["mu"].bytes_per_shard(),
+                                     cell.args[1]["nu"].bytes_per_shard())]
+    peak_s = peak_gb(device)
+    del cell, placed, out
+    un, _, un_ms, peak_u = tm_unsharded(cfg, params, batch,
+                                        TM_UNSHARDED_MICRO, device)
+    del params, batch
+    diff = tm_check("dense", steps[0], un, loss_atol=TM_LOSS_ATOL,
+                    gnorm_rel=TM_GNORM_REL)
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "mesh": dict(zip(("data", "model"), TM_MESH)),
+            "knobs": {k: getattr(cfg, k) for k in
+                      ("fsdp_inner", "act_shard", "remat", "flash_bwd")},
+            "batch": [TM_BATCH, TM_SEQ], "microbatches": TM_MICRO,
+            "unsharded_microbatches": TM_UNSHARDED_MICRO,
+            "steps": steps, "unsharded_step_1": un, "step_1_diff": diff,
+            "step_ms": ms, "step_2_profiled": True,
+            "unsharded_step_ms": un_ms,
+            "tokens_per_s_step_1": TM_BATCH * TM_SEQ / (ms[0] / 1e3),
+            "peak_gb": {"sharded": peak_s, "unsharded": peak_u},
+            "weight_bytes_per_shard": w_bytes,
+            "moment_bytes_per_shard": m_bytes,
+            "collectives_per_step": [c[0] for c in coll],
+            "gathered_bytes_per_step": [c[1] for c in coll],
+            "step_2_profile": prof, "memory_reckoned": reckoned,
+            "card": card}
+
+
+def tm_moe(device, card: str, rehearse: bool) -> dict:
+    """(b) qwen2-moe-a2.7b at full width, depth cut to 2, on (2, 2) with
+    moe_ep (the whole tree moved to the compute layout at step start): one
+    step of 2 x 2048 tokens against the unsharded route, within
+    TM_MOE_LOSS_ATOL / TM_MOE_GNORM_REL (bfloat16 routing in another
+    order: a near-tied top-k may flip)."""
+    from repro_torch.core import mesh as M
+    from repro_torch.launch import cells
+    name, layers = TM_MOE
+    mesh = M.make_mesh(TM_MESH, ("data", "model"), device=device)
+    peak_reset(device)
+    cfg, over, params, batch = tm_setup(name, layers, {"moe_ep": True},
+                                        TM_MOE_TOKENS, device, rehearse,
+                                        seed=21)
+    cell = cells.build_cell(name, "train_4k", mesh, over,
+                            batch=batch["tokens"].shape[0],
+                            seq_len=batch["tokens"].shape[1], smoke=rehearse,
+                            params=params, inputs=batch)
+    out, ms = timed_call(cell.run, device)
+    sharded = tm_metrics(out[2])
+    peak_s = peak_gb(device)
+    del cell, out
+    un, _, un_ms, peak_u = tm_unsharded(cfg, params, batch, 1, device)
+    del params, batch
+    diff = tm_check("moe", sharded, un, loss_atol=TM_MOE_LOSS_ATOL,
+                    gnorm_rel=TM_MOE_GNORM_REL)
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "ep_axes": list(cfg.moe.ep_axes), "tokens": list(TM_MOE_TOKENS),
+            "sharded": sharded, "unsharded": un, "diff": diff,
+            "step_ms": {"sharded": ms, "unsharded": un_ms},
+            "peak_gb": {"sharded": peak_s, "unsharded": peak_u},
+            "card": card}
+
+
+def tm_f32(device, card: str, rehearse: bool) -> dict:
+    """(c) qwen3-1.7b at full width, depth cut to 2, float32, on (2, 2)
+    with fsdp_inner, act_shard, remat and 2 microbatches: one step against
+    the unsharded route on the card, loss and gradient norm within
+    TM_F32_TOL, every moment leaf within ``moment_rel`` of its largest
+    magnitude, and every parameter leaf's update (the new stored blocks
+    against the unsharded route's new leaf, over the norm of that route's
+    change) within ``update_rel``."""
+    from repro_torch import tree
+    from repro_torch.core import mesh as M
+    from repro_torch.launch import cells
+    name, layers = TM_F32
+    mesh = M.make_mesh(TM_MESH, ("data", "model"), device=device)
+    peak_reset(device)
+    cfg, over, params, batch = tm_setup(
+        name, layers, dict(TM_ALL_KNOBS, dtype="float32",
+                           microbatches=TM_MICRO), TM_F32_TOKENS, device,
+        rehearse, seed=22)
+    cell = cells.build_cell(name, "train_4k", mesh, over,
+                            batch=batch["tokens"].shape[0],
+                            seq_len=batch["tokens"].shape[1], smoke=rehearse,
+                            params=params, inputs=batch)
+    out, ms = timed_call(cell.run, device)
+    sharded = tm_metrics(out[2])
+    moments = {k: {p: out[1][k].gather(p) for p in out[1][k].shapes}
+               for k in ("mu", "nu")}
+    with torch.no_grad():
+        new = {p: out[0].gather(p) for p in out[0].shapes}
+        old = {p: x.detach().clone()
+               for p, x in tree.flatten_with_paths(params)}
+    del cell, out
+    un, un_mom, un_ms, _ = tm_unsharded(cfg, params, batch, TM_MICRO, device)
+    upd_worst = 0.0
+    tol = TM_F32_TOL
+    with torch.no_grad():
+        for p, want in tree.flatten_with_paths(params):
+            moved = float(torch.linalg.vector_norm(want - old[p]))
+            err = float(torch.linalg.vector_norm(new[p] - want))
+            if not (moved > 0 and err <= tol["update_rel"] * moved):
+                fail(f"5o float32: {p}'s update is {err} from the unsharded "
+                     f"route's, which moved it by {moved}")
+            upd_worst = max(upd_worst, err / moved)
+    del params, batch, new, old
+    diff = tm_check("float32", sharded, un, loss_rel=tol["loss_rel"],
+                    gnorm_rel=tol["gnorm_rel"])
+    worst = {}
+    for k in ("mu", "nu"):
+        for p, want in un_mom[k].items():
+            scale = float(want.abs().max())
+            err = float((moments[k][p] - want).abs().max())
+            if not err <= tol["moment_rel"] * scale:
+                fail(f"5o float32: {k} {p} is {err} from the unsharded "
+                     f"route's, past {tol['moment_rel']} x {scale}")
+            worst[k] = max(worst.get(k, 0.0), err / scale if scale else 0.0)
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "knobs": TM_ALL_KNOBS, "microbatches": TM_MICRO,
+            "tokens": list(TM_F32_TOKENS), "sharded": sharded,
+            "unsharded": un, "diff": diff,
+            "moment_worst_rel_to_max": worst,
+            "update_worst_rel_to_moved": upd_worst,
+            "step_ms": {"sharded": ms, "unsharded": un_ms}, "card": card}
+
+
+def phase_lm_train_mesh(device, card: str, rehearse: bool) -> tuple:
+    """Phase 5o: LM training on a model mesh (``launch.cells``' train
+    cell), the shards sharing the one card: (a) ``tm_dense``, (b)
+    ``tm_moe``, (c) ``tm_f32``.  No kernel launches on this path (the
+    training route's attention is ``chunked_attention``; B5 is forward
+    only).  Returns (row, the launch counts)."""
+    t0 = time.perf_counter()
+    zero_counts()
+    dense = tm_dense(device, card, rehearse)
+    log("mesh_train", json.dumps({"dense": dense}))
+    moe = tm_moe(device, card, rehearse)
+    log("mesh_train", json.dumps({"moe": moe}))
+    f32 = tm_f32(device, card, rehearse)
+    log("mesh_train", json.dumps({"float32": f32}))
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"5o: the mesh training path launched kernels {counts}")
+    peak_reset(device)
+    seconds = time.perf_counter() - t0
+    row = {"card": card, "dense": dense, "moe": moe, "float32": f32,
+           "launches": counts, "seconds": seconds, "budget_s": TM_BUDGET_S}
+    log("mesh_train", f"phase 5o: {seconds:.1f} s (budget {TM_BUDGET_S} s: "
+                      f"{'within' if seconds <= TM_BUDGET_S else 'PAST'} it)")
+    return row, counts
 
 
 def exact_launch_counts(what: str, res):
@@ -6627,6 +6963,9 @@ def main() -> int:
                                                          args.rehearse)
         designs["lm_serve_sharded"] = {"flash_attention": sh_designs}
 
+        # ---- phase 5o: LM training on the model mesh ----
+        tm_row, counts_tm = phase_lm_train_mesh(device, card, args.rehearse)
+
         # ---- phase 6: kernel times ----
         slot_row = phase_times_slots(device, svc_states, cmp, launch)
         del svc_states
@@ -6653,7 +6992,7 @@ def main() -> int:
              "lm_train": counts_lm_train, "lm_serve_32b": counts_lm_32b,
              "models": counts_models, "moe_mla_serve": counts_mm_serve,
              "moe_mla_train": counts_mm_train,
-             "lm_serve_sharded": counts_sh}
+             "lm_serve_sharded": counts_sh, "lm_train_mesh": counts_tm}
     kernels = kernels_line(kept, time_rows, model_rows, paths, designs, cmp,
                            t1_path, slot_row, svc_path)
     if args.rehearse:
@@ -6675,6 +7014,7 @@ def main() -> int:
     print(json.dumps({"models_path": models_row}), flush=True)
     print(json.dumps({"moe_mla_path": mm_row}), flush=True)
     print(json.dumps({"lm_serve_sharded_path": sh_row}), flush=True)
+    print(json.dumps({"lm_train_mesh_path": tm_row}), flush=True)
     print(json.dumps({"kernel_times": time_rows + model_rows + [slot_row]}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,8 +20,11 @@ The coloring engines shard over the whole mesh (``shard_devices``) and
 gather with ``all_gather``; their ``psum`` is a gather of one scalar a
 shard and a sum.  The sharded LM (``models/spmd.py``) works on groups: the
 shards of one axis that share the other axes' coordinates (``groups``: the
-``model`` shards of each ``data`` row), with ``all_gather_groups`` and
-``psum`` run in every group at once.  Every collective counts one in
+``model`` shards of each ``data`` row), with ``all_gather_groups``,
+``psum`` and ``psum_scatter`` run in every group at once; all three are
+stacks, views and sums, so autograd runs through them (the backward of a
+gather is a reduce-scatter, of a ``psum_scatter`` a gather, uncounted).
+Every collective counts one in
 ``mesh.collectives`` and the payloads' bytes (all shards' payloads
 together) in ``mesh.gathered_bytes`` (``obs.metrics``), so "RSOC: one
 collective a round, CAT: two" is a number a caller reads.
@@ -213,6 +216,33 @@ def psum(mesh: Mesh, axis, payloads: Sequence[torch.Tensor]) -> list:
     if len(mesh.groups(axis)[0]) == 1:
         return list(payloads)
     return [g.sum(0) for g in all_gather_groups(mesh, axis, payloads)]
+
+
+def psum_scatter(mesh: Mesh, axis, payloads: Sequence[torch.Tensor],
+                 dim: int) -> list:
+    """``jax.lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``:
+    for every mesh position its block along ``dim`` of its group's sum (the
+    group index's block, ``size / n`` wide), summed in group order as
+    ``psum`` sums.  One collective, the payloads' bytes, as ``psum``; none
+    for groups of one.  Differentiable: a position's gradient reaches every
+    payload of its group at its block, so the backward is an all-gather."""
+    groups = mesh.groups(axis)
+    n = len(groups[0])
+    if n == 1:
+        return list(payloads)
+    dim %= payloads[0].dim()
+    size = payloads[0].shape[dim]
+    if size % n:
+        raise ValueError(f"psum_scatter: dimension {dim} of size {size} does "
+                         f"not divide over {n} positions")
+    blk = size // n
+    out = [None] * mesh.size
+    for g in groups:
+        for i, t in zip(g, _stack([payloads[i] for i in g])):
+            j = mesh.group_index(i, axis)
+            out[i] = t.narrow(dim + 1, j * blk, blk).sum(0)
+    _count(payloads)
+    return out
 
 
 def collectives() -> int:

@@ -31,6 +31,14 @@ and a leaf split over some axes only) is one tensor there, not a copy a
 position.  The result is a ``Placed``: the global shapes, the specs, and a
 tree of blocks a position, which the sharded LM (``models/spmd.py``) runs
 on.
+
+Training stores the tree by ``lm_param_spec`` and computes on
+``lm_param_spec_tp``: ``reshard`` moves a ``Placed`` from one layout to
+the other (the reference's ``with_sharding_constraint``), differentiably,
+so the gradient comes back to storage as a reduce-scatter.  ``distinct``
+lists the tree's blocks once each (a block positions share on one device
+is one), the unit ``trainable`` makes an autograd leaf of and the
+optimizer updates; ``with_blocks`` rebuilds a tree around new ones.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.core import mesh as M
 from repro_torch.core.mesh import Mesh
 from repro_torch.launch.mesh import batch_axes
 
@@ -249,6 +258,16 @@ def _leaf(tree, path: str):
     raise KeyError(path)
 
 
+def _spec(rule, path: str, leaf, shape, mesh: Mesh) -> P:
+    """``rule``'s sanitized spec for a leaf: a rule function, or a dict of
+    specs by path or by top-level key."""
+    if isinstance(rule, dict):
+        raw = rule.get(path, rule.get(path[2:-2], P()))
+    else:
+        raw = rule(path, leaf)
+    return sanitize_spec(raw, shape, mesh)
+
+
 def place(tree, mesh: Mesh, rule) -> Placed:
     """Cut every leaf of ``tree`` (a ``TransformerParams``, a cache dict,
     any tree ``repro_torch.tree`` walks) into blocks by
@@ -260,11 +279,7 @@ def place(tree, mesh: Mesh, rule) -> Placed:
     flat = T.flatten_with_paths(tree)
     shapes, specs, per_pos = {}, {}, [[] for _ in range(mesh.size)]
     for path, leaf in flat:
-        if isinstance(rule, dict):
-            raw = rule.get(path, rule.get(path[2:-2], P()))
-        else:
-            raw = rule(path, leaf)
-        spec = sanitize_spec(raw, leaf.shape, mesh)
+        spec = _spec(rule, path, leaf, tuple(leaf.shape), mesh)
         shapes[path], specs[path] = tuple(leaf.shape), spec
         made = {}
         for pos in range(mesh.size):
@@ -278,3 +293,149 @@ def place(tree, mesh: Mesh, rule) -> Placed:
             per_pos[pos].append(made[key])
     shards = tuple(T.unflatten(tree, blocks) for blocks in per_pos)
     return Placed(mesh, shapes, specs, shards)
+
+
+# --------------------------------------------------------------------------
+# training on a placed tree: storage -> compute, distinct blocks
+# --------------------------------------------------------------------------
+
+def reshard(placed: Placed, mesh: Mesh, rule) -> Placed:
+    """``placed`` (in practice the storage layout, ``lm_param_spec``) in the
+    layout ``rule`` gives (``lm_param_spec_tp``): the reference's
+    ``with_sharding_constraint`` from storage to compute.
+
+    Leaf by leaf: the dimensions whose entry differs between the two specs
+    are gathered over the axes their storage entry splits (one
+    ``all_gather_groups``, counted), then every position keeps its compute
+    block of them; a dimension whose entry is the same keeps its block, and
+    one the storage holds whole is only cut.  So ``wo`` / ``w_down``, whose
+    storage splits rows over ``data`` and columns over ``model`` and whose
+    compute splits rows over ``model``, gather over both axes and are cut
+    again, and a leaf whose specs agree moves nothing.  Differentiable (a
+    stack and views): a storage block's gradient is the sum, over the
+    gathering group, of the compute blocks' gradients that cover it, the
+    reduce-scatter back to storage.  Positions on one device share the
+    assembled leaf; the blocks cut from it are views."""
+    flat = [T.flatten_with_paths(s) for s in placed.shards]
+    specs, per_pos = {}, [[] for _ in range(mesh.size)]
+    for j, (path, first) in enumerate(flat[0]):
+        shape, src = placed.shapes[path], placed.specs[path]
+        dst = _spec(rule, path, first, shape, mesh)
+        specs[path] = dst
+        blocks = [f[j][1] for f in flat]
+        for pos, b in enumerate(_moved(mesh, blocks, shape, src, dst)):
+            per_pos[pos].append(b)
+    shards = tuple(T.unflatten(s, b) for s, b in zip(placed.shards, per_pos))
+    return Placed(mesh, dict(placed.shapes), specs, shards)
+
+
+def _moved(mesh: Mesh, blocks: list, shape, src: P, dst: P) -> list:
+    """One leaf's blocks moved from spec ``src`` to spec ``dst``.  A spec
+    names an axis once, so the axes gathered (the storage entries of the
+    dimensions that differ) split no other dimension."""
+    nd = len(shape)
+    s_ax = [entry_axes(src[d]) if d < len(src) else () for d in range(nd)]
+    moves = [s_ax[d] != (entry_axes(dst[d]) if d < len(dst) else ())
+             for d in range(nd)]
+    axes = [a for a in mesh.axis_names
+            if any(a in s_ax[d] for d in range(nd) if moves[d])]
+    full = list(blocks)
+    if axes:
+        order, grow = [], []
+        for d in range(nd):
+            if moves[d]:
+                order += [axes.index(a) for a in s_ax[d]]
+            order.append(len(axes) + d)
+            grow.append(int(np.prod([mesh.shape[a] for a in s_ax[d]]))
+                        if moves[d] else 1)
+        assembled = {}
+        for pos, g in enumerate(M.all_gather_groups(mesh, axes, blocks)):
+            if id(g) not in assembled:
+                assembled[id(g)] = g.reshape(
+                    [mesh.shape[a] for a in axes] + list(g.shape[1:])
+                ).permute(order).reshape(
+                    [g.shape[1 + d] * grow[d] for d in range(nd)])
+            full[pos] = assembled[id(g)]
+    out, made = [], {}
+    for pos, t in enumerate(full):
+        key = (id(t), block_key(mesh, dst, pos))
+        if key not in made:
+            # a dimension gathered, or held whole, is cut to the position's
+            # compute block; one that does not move keeps its block
+            cut = [block_range(mesh, dst, shape, d, pos)
+                   if moves[d] or not s_ax[d] else None for d in range(nd)]
+            if all(c is None or c == (0, shape[d])
+                   for d, c in enumerate(cut)):
+                made[key] = t
+            else:
+                made[key] = t[tuple(slice(*c) if c else slice(None)
+                                    for c in cut)]
+        out.append(made[key])
+    return out
+
+
+def distinct(placed: Placed) -> list:
+    """The tree's distinct blocks, each once: ``[(path, block)]`` leaf by
+    leaf, positions in order within a leaf.  A block positions share (one
+    tensor on one device) is one entry: the unit the optimizer updates and
+    a gradient is taken for."""
+    seen, out = set(), []
+    flat = [T.flatten_with_paths(s) for s in placed.shards]
+    for j in range(len(flat[0])):
+        for f in flat:
+            path, b = f[j]
+            if id(b) not in seen:
+                seen.add(id(b))
+                out.append((path, b))
+    return out
+
+
+def with_blocks(placed: Placed, blocks: list) -> Placed:
+    """``placed`` with its distinct blocks (``distinct``'s order) replaced by
+    ``blocks``: the same shapes, specs and sharing."""
+    new = {id(b): n for (_, b), n in zip(distinct(placed), blocks,
+                                          strict=True)}
+    shards = tuple(T.unflatten(s, [new[id(b)] for b in T.leaves(s)])
+                   for s in placed.shards)
+    return Placed(placed.mesh, dict(placed.shapes), dict(placed.specs),
+                  shards)
+
+
+def trainable(placed: Placed) -> Placed:
+    """A copy of ``placed`` whose distinct blocks are autograd leaves
+    (``requires_grad``), one a distinct block: positions that share a block
+    share the leaf, so its gradient sums every position's use.  Copies, so
+    that training never writes into the tensors ``placed`` viewed."""
+    return with_blocks(placed, [b.detach().clone().requires_grad_(True)
+                                for _, b in distinct(placed)])
+
+
+def subtree(placed: Placed, keys) -> Placed:
+    """The leaves under the top-level ``keys``, placed as they are."""
+    pre = tuple(f"[{k!r}]" for k in keys)
+    return Placed(placed.mesh,
+                  {p: s for p, s in placed.shapes.items()
+                   if p.startswith(pre)},
+                  {p: s for p, s in placed.specs.items()
+                   if p.startswith(pre)},
+                  tuple({k: s[k] for k in keys} for s in placed.shards))
+
+
+def layers(placed: Placed) -> list:
+    """The stacked ``['layers']`` leaves a layer at a time: one ``Placed``
+    a layer, each leaf kept stacked as a (1, ...) view, with the same specs
+    (a spec never splits the layer axis).  Each distinct block is unbound
+    once, so autograd sees one node a block whose backward stacks the
+    layers' gradients (a slice a layer would scatter each layer's gradient
+    into a zero tensor of the whole stack); a shared block's views are
+    shared too."""
+    sub = subtree(placed, ("layers",))
+    n = next(iter(sub.shapes.values()))[0]
+    views = {id(b): [v[None] for v in b.unbind(0)]
+             for _, b in distinct(sub)}
+    shapes = {p: (1,) + tuple(s[1:]) for p, s in sub.shapes.items()}
+    return [Placed(placed.mesh, shapes, sub.specs,
+                   tuple(T.unflatten(s, [views[id(b)][i]
+                                         for b in T.leaves(s)])
+                         for s in sub.shards))
+            for i in range(n)]

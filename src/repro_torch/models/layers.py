@@ -63,8 +63,10 @@ def rope(x, positions, theta: float = 10000.0):
     D = x.shape[-1]
     half = D // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), exps)
+    # torch.full, not torch.tensor: a host value copied to a CUDA device
+    # synchronizes the stream
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=x.device), exps)
     ang = positions[..., None].float() * freqs              # (..., L, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., :half], x[..., half:]

@@ -151,7 +151,20 @@ def moe_apply(params, cfg: MoEConfig, x):
     out = (out_k * (gate * keep)[..., None].to(out_k.dtype)).sum(dim=1)
     if cfg.n_shared:
         out = out + swiglu(params["shared"], x)
-    me = probs[:, :cfg.n_experts].mean(dim=0)
-    ce = _one_hot(eidx[:, 0], E)[:, :cfg.n_experts].float().mean(dim=0)
-    aux = cfg.router_aux_weight * cfg.n_experts * (me * ce).sum()
-    return out, aux
+    return out, switch_aux(cfg, router_sums(cfg, probs, eidx), T)
+
+
+def router_sums(cfg: MoEConfig, probs, eidx):
+    """(2, n_experts) float32: the routing probabilities and the
+    first-choice counts of the real experts, summed over the tokens."""
+    n = cfg.n_experts
+    return torch.stack([probs[:, :n].sum(0),
+                        _one_hot(eidx[:, 0], cfg.e_pad)[:, :n].float().sum(0)])
+
+
+def switch_aux(cfg: MoEConfig, sums, T: int):
+    """The switch aux loss (float32 scalar) from ``router_sums`` over T
+    tokens: the mean probability times the mean first-choice share, summed
+    over the experts."""
+    return cfg.router_aux_weight * cfg.n_experts * (
+        (sums[0] / T) * (sums[1] / T)).sum()

@@ -1,5 +1,7 @@
-"""The LM's sharded serving route: ``prefill`` and ``decode_step`` on a tree
-placed by ``launch.sharding.place(params, mesh, lm_param_spec_tp)``.
+"""The LM on a model mesh: the serving route, ``prefill`` and
+``decode_step`` on a tree placed by ``launch.sharding.place(params, mesh,
+lm_param_spec_tp)``, and the training route, ``forward`` and
+``train_step_loss`` on a tree stored by ``lm_param_spec``.
 
 The reference runs these functions under GSPMD: the same program, its
 arrays laid out by the sharding rules, the compiler inserting the
@@ -40,12 +42,31 @@ sanitized spec names):
 Logits come back as one (B, vocab) tensor on the first shard's device (a
 fetch to the caller, not counted); caches as a ``Placed``.  MLA on a mesh
 raises (ROADMAP A.7.3).
+
+Training (the reference's ``_lm_train_cell`` loss, ``launch/cells.py``
+takes the step): the stored tree goes to the compute layout by
+``launch.sharding.reshard`` — the whole tree at the start, or with
+``fsdp_inner`` each layer inside its body, which ``remat`` wraps in
+``torch.utils.checkpoint`` so the gathered weights are freed and gathered
+again in the backward.  Attention is the training attention
+(``chunked_attention``, ``flash_bwd`` as configured), never the
+forward-only kernel.  With ``act_shard`` the residual stream is held as
+sequence blocks over ``model``, all-gathered before a layer's products,
+and the ``wo`` / ``w_down`` partial sums are ``psum_scatter``-ed.  MoE
+adds the switch aux loss over the global tokens.  The loss is
+vocab-parallel: a shard's logits of its vocab block give a log-sum-exp,
+merged by one gather of (B_loc, L) floats; the label's logit is a masked
+pick, ``psum``-ed; so no position holds (B, L, vocab) logits.  Every
+position ends with the same scalar and the backward starts from the first
+position's, so the global loss counts once; autograd takes it through the
+collectives to every distinct stored block.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import mesh as M
 from repro_torch.core.mesh import Sharded
@@ -60,11 +81,14 @@ def _path(*keys) -> str:
     return "".join(f"[{k!r}]" for k in keys)
 
 
-def _views(t, i: int):
-    """Layer ``i``'s views of a tree of stacked leaves."""
+def _layer_views(t, n: int) -> list:
+    """Per layer, its views of a tree of stacked leaves: one ``unbind`` a
+    leaf (under autograd one node, whose backward stacks the layers'
+    gradients, not one full-size scatter a layer)."""
     if isinstance(t, torch.Tensor):
-        return t[i]
-    return {k: _views(v, i) for k, v in t.items()}
+        return t.unbind(0)
+    parts = {k: _layer_views(v, n) for k, v in t.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 class _Run:
@@ -79,10 +103,10 @@ class _Run:
         self.p, self.cfg, self.mesh = placed, cfg, placed.mesh
         self.positions = range(self.mesh.size)
         # every leaf under "layers" is stacked on the layer axis
-        n = next(s[0] for p, s in placed.shapes.items()
-                 if p.startswith("['layers']"))
+        n = next((s[0] for p, s in placed.shapes.items()
+                  if p.startswith("['layers']")), 0)
         self.n_layers = n
-        self.views = [[_views(sh["layers"], i) for i in range(n)]
+        self.views = [_layer_views(sh["layers"], n) if n else []
                       for sh in placed.shards]
 
     def leaf(self, pos: int, *keys):
@@ -129,7 +153,7 @@ def _assemble(mesh, blocks, spec, shape):
 # the tensor-parallel pieces
 # --------------------------------------------------------------------------
 
-def _embed(run: _Run, toks: list) -> list:
+def _embed(run: _Run, toks: list, seq_axes=()) -> list:
     keys = ("embed", "table")
     axes = run.split(keys, 0)
     out = []
@@ -139,7 +163,36 @@ def _embed(run: _Run, toks: list) -> list:
         hit = (t >= 0) & (t < tab.shape[0])
         out.append(tab[t.clamp(0, tab.shape[0] - 1)]
                    * hit[..., None].to(tab.dtype))
-    return M.psum(run.mesh, axes, out)
+    return _reduce(run.mesh, axes, out, seq_axes)
+
+
+def _reduce(mesh, axes, parts: list, seq_axes=()) -> list:
+    """The sum over ``axes`` of per-position partial results (B, L, ...):
+    whole (``psum``), or with ``act_shard``'s sequence split over
+    ``seq_axes`` each position's sequence block — ``psum_scatter`` where the
+    two axes agree, else the sum cut."""
+    if not seq_axes:
+        return M.psum(mesh, axes, parts)
+    if tuple(axes) == tuple(seq_axes):
+        return M.psum_scatter(mesh, axes, parts, 1)
+    return [_seq_block(mesh, seq_axes, t, pos)
+            for pos, t in enumerate(M.psum(mesh, axes, parts))]
+
+
+def _seq_block(mesh, seq_axes, x, pos: int):
+    """Position ``pos``'s block of the sequence (dim 1) of x."""
+    n = len(mesh.groups(seq_axes)[0])
+    blk = x.shape[1] // n
+    return x.narrow(1, mesh.group_index(pos, seq_axes) * blk, blk)
+
+
+def _seq_gather(mesh, seq_axes, xs: list) -> list:
+    """The whole sequence from the positions' blocks (B, L / n, ...): one
+    all-gather over ``seq_axes`` (its backward the reduce-scatter)."""
+    if not seq_axes:
+        return xs
+    return [g.movedim(0, 1).reshape(g.shape[1], -1, *g.shape[3:])
+            for g in M.all_gather_groups(mesh, seq_axes, xs)]
 
 
 def _unembed(run: _Run, xs: list) -> list:
@@ -159,20 +212,26 @@ def _concat_gathered(mesh, axes, parts: list) -> list:
 
 def _cols_full(run: _Run, i: int, keys_list, xs: list) -> list:
     """Per position, ``[x @ w for w in keys_list]`` with every column: each
-    shard's column blocks, one gather over their common axes."""
-    axes = {run.split(("layers",) + k, 2) for k in keys_list}
-    if len(axes) != 1:
-        raise ValueError(f"{keys_list} are split over different axes {axes}")
-    axes = axes.pop()
-    widths = [run.layer(0, i, *k).shape[-1] for k in keys_list]
-    loc = [torch.cat([x @ run.layer(pos, i, *k) for k in keys_list], -1)
-           for pos, x in enumerate(xs)]
-    if not axes:
-        return [list(t.split(widths, -1)) for t in loc]
-    out = []
-    for g in M.all_gather_groups(run.mesh, axes, loc):
-        out.append([t.movedim(0, -2).reshape(*t.shape[1:-1], -1)
-                    for t in g.split(widths, -1)])
+    shard's column blocks, gathered over each projection's own split axes
+    (one gather for the projections that share them: ``wq`` may be split
+    where ``wk`` / ``wv`` are not, when only the query heads divide)."""
+    by_axes = {}
+    for j, k in enumerate(keys_list):
+        by_axes.setdefault(run.split(("layers",) + k, 2), []).append(j)
+    out = [[None] * len(keys_list) for _ in run.positions]
+    for axes, js in by_axes.items():
+        widths = [run.layer(0, i, *keys_list[j]).shape[-1] for j in js]
+        loc = [torch.cat([x @ run.layer(pos, i, *keys_list[j]) for j in js],
+                         -1) for pos, x in enumerate(xs)]
+        if axes:
+            parts = [[t.movedim(0, -2).reshape(*t.shape[1:-1], -1)
+                      for t in g.split(widths, -1)]
+                     for g in M.all_gather_groups(run.mesh, axes, loc)]
+        else:
+            parts = [t.split(widths, -1) for t in loc]
+        for pos, ts in enumerate(parts):
+            for j, t in zip(js, ts):
+                out[pos][j] = t
     return out
 
 
@@ -188,9 +247,11 @@ def _weight_full(run: _Run, i: int, keys) -> list:
             for g in M.all_gather_groups(run.mesh, axes, loc)]
 
 
-def _rows(run: _Run, i: int, keys, hs: list, own: bool) -> list:
+def _rows(run: _Run, i: int, keys, hs: list, own: bool,
+          seq_axes=()) -> list:
     """``h @ w`` for a weight split by rows: each shard's rows of h (all of
-    h where ``own``) times its block, summed over the split axes."""
+    h where ``own``) times its block, summed over the split axes (each
+    position's sequence block of the sum with ``seq_axes``: ``_reduce``)."""
     keys = ("layers",) + tuple(keys)
     axes = run.split(keys, 1)
     out = []
@@ -198,25 +259,36 @@ def _rows(run: _Run, i: int, keys, hs: list, own: bool) -> list:
         if axes and not own:
             h = h[..., slice(*run.range(keys, 1, pos))]
         out.append(h @ run.layer(pos, i, *keys[1:]))
-    return M.psum(run.mesh, axes, out)
+    return _reduce(run.mesh, axes, out, seq_axes)
 
 
-def _swiglu(run: _Run, i: int, keys, xs: list) -> list:
-    """Megatron's MLP: gate / up by columns, down by rows, one psum."""
+def _swiglu(run: _Run, i: int, keys, xs: list, seq_axes=()) -> list:
+    """Megatron's MLP: gate / up by columns, down by rows, one psum (one
+    psum_scatter with ``act_shard``)."""
     hs = [F.silu(x @ run.layer(pos, i, *keys, "w_gate"))
           * (x @ run.layer(pos, i, *keys, "w_up"))
           for pos, x in enumerate(xs)]
-    return _rows(run, i, tuple(keys) + ("w_down",), hs, own=True)
+    return _rows(run, i, tuple(keys) + ("w_down",), hs, own=True,
+                 seq_axes=seq_axes)
 
 
-def _ffn(run: _Run, i: int, xs: list, tok_axes) -> list:
-    cfg = run.cfg
-    xn = [L.rmsnorm(run.layer(pos, i, "ln2"), x) for pos, x in enumerate(xs)]
+def _ffn(run: _Run, i: int, xs: list, tok_axes, seq_axes=(),
+         aux_out: list = None) -> list:
+    """Layer ``i``'s FFN (ln2, then SwiGLU or MoE) on per position its rows
+    of the stream, or with ``seq_axes`` (``act_shard``) its sequence block,
+    gathered first and its block of the output kept; ``aux_out``: as
+    ``_moe``'s."""
+    cfg, mesh = run.cfg, run.mesh
+    xn = [L.rmsnorm(run.layer(pos, i, "ln2"), x)
+          for pos, x in enumerate(_seq_gather(mesh, seq_axes, xs))]
     if not cfg.moe:
-        return _swiglu(run, i, ("ffn",), xn)
+        return _swiglu(run, i, ("ffn",), xn, seq_axes)
     flat = [x.reshape(-1, x.shape[-1]) for x in xn]
-    ys = _moe(run, cfg.moe, i, flat, tok_axes)[0]
-    return [y.reshape(x.shape) for y, x in zip(ys, xs)]
+    ys = [y.reshape(x.shape) for y, x in zip(
+        _moe(run, cfg.moe, i, flat, tok_axes, aux_out)[0], xn)]
+    if seq_axes:
+        ys = [_seq_block(mesh, seq_axes, y, pos) for pos, y in enumerate(ys)]
+    return ys
 
 
 # --------------------------------------------------------------------------
@@ -245,7 +317,13 @@ def moe_apply_sharded(placed: SH.Placed, cfg, i: int, xs: list,
     return _moe(_Run(placed), cfg, i, xs, tok_axes)
 
 
-def _moe(run: _Run, cfg, i: int, xs: list, tok_axes) -> tuple:
+def _moe(run: _Run, cfg, i: int, xs: list, tok_axes,
+         aux_out: list = None) -> tuple:
+    """``moe_apply_sharded``; with ``aux_out`` (a list) also the reference's
+    switch aux loss, one float32 scalar a position appended to it: the
+    routing probabilities and first-choice counts summed over the
+    position's tokens, ``psum``-ed over ``tok_axes``, each divided by the
+    global token count."""
     ep = tuple(cfg.ep_axes) if cfg.ep_axes is not None else None
     if ep not in (None, ("model", "data")):
         raise NotImplementedError(
@@ -315,6 +393,10 @@ def _moe(run: _Run, cfg, i: int, xs: list, tok_axes) -> tuple:
     if cfg.n_shared:
         sh = _swiglu(run, i, ("ffn", "shared"), xs)
         outs = [o + s for o, s in zip(outs, sh)]
+    if aux_out is not None:
+        sums = M.psum(mesh, tok_axes,
+                      [MOE.router_sums(cfg, r[0], r[2]) for r in routes])
+        aux_out.extend(MOE.switch_aux(cfg, t, T_loc * n_tok) for t in sums)
     return outs, [(r[2], p, kp) for r, p, kp in zip(routes, pos_g, keep)]
 
 
@@ -354,18 +436,17 @@ def _head_plan(run: _Run):
     return own_q, own_kv, plan
 
 
-def _prefill_attention(run: _Run, i: int, xn: list, positions: list,
-                       plan) -> tuple:
-    """One layer's attention: (h per position, (k, v) per position with
-    every K / V head of the shard's batch rows)."""
+def _project(run: _Run, i: int, xn: list, positions: list, plan) -> list:
+    """One layer's q / k / v heads a position: (q: its query heads; k, v:
+    the K / V heads it computes; ka, va: those its query heads read)."""
     cfg = run.cfg
     acfg = cfg.attn_cfg()
     own_q, own_kv, heads = plan
     a = ("attn",)
     wq = (None if own_q else _weight_full(run, i, a + ("wq",)))
-    wkv = (None if own_kv else
-           (_weight_full(run, i, a + ("wk",)), _weight_full(run, i, a + ("wv",))))
-    hs, kvs = [], []
+    wkv = (None if own_kv else (_weight_full(run, i, a + ("wk",)),
+                                _weight_full(run, i, a + ("wv",))))
+    out = []
     for pos, x in enumerate(xn):
         lp = run.layer(pos, i, "attn")
         q_lin = x @ (lp["wq"] if own_q else wq[pos])
@@ -380,13 +461,30 @@ def _prefill_attention(run: _Run, i: int, xn: list, positions: list,
             ka, va = k.index_select(1, idx), v.index_select(1, idx)
         else:
             ka, va = k, v
+        out.append((q, k, v, ka, va))
+    return out
+
+
+def _merge_heads(o):
+    """(B, H, L, Dh) -> (B, L, H·Dh)."""
+    B, _, Lq, _ = o.shape
+    return o.transpose(1, 2).reshape(B, Lq, -1)
+
+
+def _prefill_attention(run: _Run, i: int, xn: list, positions: list,
+                       plan) -> tuple:
+    """One layer's attention: (h per position, (k, v) per position with
+    every K / V head of the shard's batch rows)."""
+    cfg = run.cfg
+    hs, kvs = [], []
+    for q, k, v, ka, va in _project(run, i, xn, positions, plan):
         o = L.prefill_attention(q, ka, va, causal=True, chunk_q=cfg.chunk_q,
                                 chunk_k=cfg.chunk_k)
-        B, _, Lq, _ = o.shape
-        hs.append(o.transpose(1, 2).reshape(B, Lq, -1))
+        hs.append(_merge_heads(o))
         kvs.append(torch.stack([k, v]))
-    h = _rows(run, i, a + ("wo",), hs, own=own_q)
-    if own_kv:       # every K / V head, for the cache
+    a = ("attn",)
+    h = _rows(run, i, a + ("wo",), hs, own=plan[0])
+    if plan[1]:      # every K / V head, for the cache
         kv_axes = run.split(("layers",) + a + ("wk",), 2)
         kvs = [g.permute(1, 2, 0, 3, 4, 5).reshape(
             2, g.shape[2], -1, *g.shape[4:])
@@ -534,3 +632,139 @@ def decode_step(placed: SH.Placed, cfg, token, cache: SH.Placed, length):
     logits = [lg[:, 0] for lg in _unembed(run, xs)]
     return _assemble(mesh, logits, bspec, (B, placed.shapes[
         _path("embed", "table")][0])), cache
+
+
+# --------------------------------------------------------------------------
+# the training route
+# --------------------------------------------------------------------------
+
+IGNORE_ID = -1          # L.cross_entropy's ignored label
+
+
+def _train_layer(run: _Run, i: int, xs: list, aux: list, positions: list,
+                 tok_axes, seq_axes) -> tuple:
+    """One layer of the training route: (xs, aux) after it.  ``xs``: per
+    position its rows of the residual stream (B_loc, L, d), or with
+    ``seq_axes`` (``act_shard``) its sequence block, all-gathered before
+    the layer's products; ``aux``: per position the MoE aux loss so far."""
+    cfg, mesh = run.cfg, run.mesh
+    plan = _head_plan(run)
+    xn = [L.rmsnorm(run.layer(pos, i, "ln1"), x)
+          for pos, x in enumerate(_seq_gather(mesh, seq_axes, xs))]
+    hs = [_merge_heads(L.chunked_attention(
+        q, ka, va, causal=True, chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k,
+        flash_bwd=cfg.flash_bwd))
+        for q, _, _, ka, va in _project(run, i, xn, positions, plan)]
+    h = _rows(run, i, ("attn", "wo"), hs, own=plan[0], seq_axes=seq_axes)
+    xs = [x + t for x, t in zip(xs, h)]
+    got = []
+    ys = _ffn(run, i, xs, tok_axes, seq_axes, aux_out=got)
+    if got:
+        aux = [a + g for a, g in zip(aux, got)]
+    return [x + y for x, y in zip(xs, ys)], aux
+
+
+def _trunk(placed: SH.Placed, cfg, tokens) -> tuple:
+    """Embedding, the layers and the final norm of the training route on a
+    tree placed in any layout (the storage one, ``lm_param_spec``):
+    (the run over the compute layout's embedding, per position its rows of
+    the final normed stream (B_loc, L, d), per position the aux loss, the
+    batch spec, the token axes)."""
+    mesh = placed.mesh
+    bspec = SH.lm_batch_spec(mesh)
+    B, Lq = (tokens.shapes[""] if isinstance(tokens, SH.Placed)
+             else tuple(tokens.shape))
+    tok_axes = _token_axes(mesh, bspec, (B, Lq))
+    seq_axes = ()
+    if cfg.act_shard and "model" in mesh.axis_names:
+        spec = SH.sanitize_spec(SH.P(None, "model"), (B, Lq), mesh)
+        seq_axes = SH.entry_axes(spec[1]) if len(spec) > 1 else ()
+    rule = SH.lm_param_spec_tp
+    if cfg.fsdp_inner:      # the layers are gathered inside their bodies
+        top = _Run(SH.reshard(SH.subtree(placed, ("embed", "final_norm")),
+                              mesh, rule), cfg)
+    else:                   # the whole tree at step start
+        top = _Run(SH.reshard(placed, mesh, rule), cfg)
+    toks = _batch_rows(mesh, tokens, bspec)
+    xs = _embed(top, toks, seq_axes)
+    positions = [torch.arange(Lq, dtype=torch.int32, device=t.device)[
+        None].expand(t.shape[0], Lq) for t in toks]
+    aux = [torch.zeros((), dtype=torch.float32, device=d)
+           for d in mesh.devices]
+    remat = cfg.remat and torch.is_grad_enabled()
+    stored = SH.layers(placed) if cfg.fsdp_inner else None
+    for i in range(placed.shapes["['layers']['ln1']['scale']"][0]):
+        def body(xs, aux, i=i):
+            if cfg.fsdp_inner:
+                run = _Run(SH.reshard(stored[i], mesh, rule), cfg)
+                return _train_layer(run, 0, xs, aux, positions, tok_axes,
+                                    seq_axes)
+            return _train_layer(top, i, xs, aux, positions, tok_axes,
+                                seq_axes)
+        if remat:
+            xs, aux = checkpoint(body, xs, aux, use_reentrant=False)
+        else:
+            xs, aux = body(xs, aux)
+    xs = [L.rmsnorm(top.leaf(pos, "final_norm"), x) for pos, x in
+          enumerate(_seq_gather(mesh, seq_axes, xs))]
+    return top, xs, aux, bspec, tok_axes
+
+
+def forward(placed: SH.Placed, cfg, tokens) -> tuple:
+    """tokens (B, L) -> (logits (B, L, vocab) on the first shard's device,
+    the aux loss): ``transformer.forward`` on a placed tree, through the
+    training route (``chunked_attention``, ``fsdp_inner``, ``act_shard``,
+    ``remat``).  The logits are gathered whole (a fetch for a caller);
+    ``train_step_loss`` never holds them."""
+    top, xs, aux, bspec, _ = _trunk(placed, cfg, tokens)
+    B, Lq = (tokens.shapes[""] if isinstance(tokens, SH.Placed)
+             else tuple(tokens.shape))
+    V = top.p.shapes[_path("embed", "table")][0]
+    return _assemble(placed.mesh, _unembed(top, xs), bspec, (B, Lq, V)), \
+        aux[0]
+
+
+def _cross_entropy(run: _Run, xs: list, labels: list, tok_axes) -> list:
+    """``L.cross_entropy`` of the logits ``x @ tableᵀ``, vocab-parallel:
+    each position's float32 logits of its vocab block give its
+    log-sum-exp, merged over the vocab axes by one gather of (B_loc, L)
+    floats and a log-sum-exp; the label's logit is a masked local pick,
+    ``psum``-ed; the summed NLL and the label count are ``psum``-ed over
+    the token axes.  Per position the same float32 mean (labels clipped at
+    0, ``IGNORE_ID`` masked)."""
+    keys = ("embed", "table")
+    mesh = run.mesh
+    axes = run.split(keys, 0)
+    lse, pick = [], []
+    for pos, x in enumerate(xs):
+        tab = run.leaf(pos, *keys)
+        logits = (x @ tab.T.to(x.dtype)).float()
+        lab = labels[pos].long().clamp(min=0) - run.range(keys, 0, pos)[0]
+        hit = (lab >= 0) & (lab < tab.shape[0])
+        ll = torch.take_along_dim(
+            logits, lab.clamp(0, tab.shape[0] - 1)[..., None], -1)[..., 0]
+        lse.append(torch.logsumexp(logits, -1))
+        pick.append(ll * hit)
+    if axes:
+        lse = [torch.logsumexp(g, 0)
+               for g in M.all_gather_groups(mesh, axes, lse)]
+    pick = M.psum(mesh, axes, pick)
+    parts = []
+    for pos, lab in enumerate(labels):
+        mask = lab != IGNORE_ID
+        parts.append(torch.stack([((lse[pos] - pick[pos]) * mask).sum(),
+                                  mask.sum().float()]))
+    return [t[0] / t[1].clamp(min=1) for t in M.psum(mesh, tok_axes, parts)]
+
+
+def train_step_loss(placed: SH.Placed, cfg, batch: dict):
+    """``transformer.train_step_loss`` on a placed tree: the mean next-token
+    cross entropy of ``batch["tokens"]`` against ``batch["labels"]`` (each
+    (B, L), global or placed by ``lm_batch_spec``) plus the aux loss, as
+    ONE float32 scalar on the first shard's device — the first position's
+    copy, so a backward from it counts the global loss once.  Its gradient
+    reaches every distinct block of ``placed`` (``launch.sharding.
+    distinct``)."""
+    top, xs, aux, bspec, tok_axes = _trunk(placed, cfg, batch["tokens"])
+    labels = _batch_rows(placed.mesh, batch["labels"], bspec)
+    return _cross_entropy(top, xs, labels, tok_axes)[0] + aux[0]

@@ -41,12 +41,16 @@ On a mesh ``prefill`` and ``decode_step`` take the tree placed by
 ``launch.sharding.place(params, mesh, lm_param_spec_tp)`` (a ``Placed``)
 and run SPMD, a host loop over the shards (``models/spmd.py``): tensor
 parallel attention and FFN, expert parallel MoE (``MoEConfig.ep_axes``),
-and decode over a sequence-sharded cache (``decode_seq_axis``).  The
-reference's mesh knobs that change no value here are accepted:
-``wire_barrier`` (the port's partial sums already cross the mesh in the
-activation dtype), ``decode_seq_axis`` and ``ep_axes`` on one device.
-``act_shard`` and ``fsdp_inner`` (training on the mesh, ROADMAP A.7.2)
-raise, as does a mesh on an MLA config (A.7.3).
+and decode over a sequence-sharded cache (``decode_seq_axis``).
+``forward`` and ``train_step_loss`` take a placed tree in the storage
+layout (``lm_param_spec``: FSDP over ``data``, TP over ``model``) and
+train on it: ``fsdp_inner`` moves each layer to the compute layout inside
+its body, ``act_shard`` holds the residual stream as sequence blocks.  On
+one device (a ``TransformerParams``) the reference's mesh knobs change no
+value and are accepted: ``wire_barrier`` (the port's partial sums already
+cross the mesh in the activation dtype), ``decode_seq_axis``, ``ep_axes``,
+``act_shard`` and ``fsdp_inner``.  A mesh on an MLA config raises
+(ROADMAP A.7.3).
 """
 from __future__ import annotations
 
@@ -133,16 +137,6 @@ class TransformerConfig:
         E, k = self.moe.n_experts, self.moe.top_k
         expert_p = 3 * d * self.moe.d_ff_expert
         return full - self.n_layers * (E - k) * expert_p
-
-
-def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for a knob of the reference the port does not run yet (no
-    silent stand-in)."""
-    for knob in ("act_shard", "fsdp_inner"):
-        if getattr(cfg, knob):
-            raise NotImplementedError(
-                f"{cfg.name}: {knob}=True is not ported yet: LM training on "
-                f"the mesh is ROADMAP A.7.2")
 
 
 # --------------------------------------------------------------------------
@@ -258,7 +252,6 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     N(0, 0.02²), dense N(0, 1/d_in), norms 1), drawn from ``generator``
     (which must live on ``device``).  Not the reference's numbers: JAX's
     generator differs; ``params_from_reference`` carries those across."""
-    check_supported(cfg)
     dt = cfg.torch_dtype
 
     def layer():
@@ -296,7 +289,6 @@ def params_from_reference(cfg: TransformerConfig, tree: dict,
     """The reference's parameter tree (``repro.models.transformer.
     init_params``), its leaves as numpy arrays, as port parameters: every
     array keeps its shape (``layers`` stacked) and layout."""
-    check_supported(cfg)
 
     def conv(t):
         if isinstance(t, dict):
@@ -374,8 +366,12 @@ def forward(params: TransformerParams, cfg: TransformerConfig, tokens):
     """tokens (B, L) -> logits (B, L, vocab), aux loss (float32: the MoE
     layers' sum in layer order; 0 without MoE).  The training route:
     ``chunked_attention`` on every device; with ``remat`` (and grad mode
-    on) each layer's activations are recomputed in the backward."""
-    check_supported(cfg)
+    on) each layer's activations are recomputed in the backward.  On a
+    ``Placed`` tree, in any layout, the sharded training route
+    (``spmd.forward``)."""
+    if not isinstance(params, TransformerParams):
+        from repro_torch.models import spmd
+        return spmd.forward(params, cfg, tokens)
     B, Lq = tokens.shape
     x = L.embed(params["embed"], tokens)
     positions = _positions(B, Lq, x.device)
@@ -396,7 +392,12 @@ def forward(params: TransformerParams, cfg: TransformerConfig, tokens):
 def train_step_loss(params: TransformerParams, cfg: TransformerConfig,
                     batch: dict):
     """Mean next-token cross entropy of ``batch["tokens"]`` against
-    ``batch["labels"]``, plus the aux loss."""
+    ``batch["labels"]``, plus the aux loss.  On a ``Placed`` tree (the
+    storage layout of a train cell), the sharded route's vocab-parallel
+    loss (``spmd.train_step_loss``)."""
+    if not isinstance(params, TransformerParams):
+        from repro_torch.models import spmd
+        return spmd.train_step_loss(params, cfg, batch)
     logits, aux = forward(params, cfg, batch["tokens"])
     return L.cross_entropy(logits, batch["labels"]) + aux
 
@@ -407,7 +408,6 @@ def train_step_loss(params: TransformerParams, cfg: TransformerConfig,
 
 def make_empty_cache(cfg: TransformerConfig, batch: int, max_len: int,
                      device=None) -> dict:
-    check_supported(cfg)
     if cfg.attn_type == "mla":
         m, dt = cfg.mla, cfg.torch_dtype
         return {"c_kv": torch.zeros((cfg.n_layers, batch, max_len,
@@ -427,7 +427,6 @@ def prefill(params: TransformerParams, cfg: TransformerConfig, tokens):
     CUDA tensors each layer's attention is one launch of the attention
     kernel.  On a ``Placed`` tree, the sharded route (``spmd.prefill``),
     whose caches come back placed by ``lm_cache_spec``."""
-    check_supported(cfg)
     if not isinstance(params, TransformerParams):
         from repro_torch.models import spmd
         return spmd.prefill(params, cfg, tokens)
@@ -454,7 +453,6 @@ def decode_step(params: TransformerParams, cfg: TransformerConfig, token,
     vocab), cache) — the step's K / V (MLA: latents) are written into
     ``cache`` in place at ``length``.  On a ``Placed`` tree and cache, the
     sharded route (``spmd.decode_step``)."""
-    check_supported(cfg)
     if not isinstance(params, TransformerParams):
         from repro_torch.models import spmd
         return spmd.decode_step(params, cfg, token, cache, length)

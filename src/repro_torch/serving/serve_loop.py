@@ -46,7 +46,6 @@ class ServeEngine:
     def __init__(self, params: TF.TransformerParams,
                  cfg: TF.TransformerConfig, batch: int, max_len: int,
                  greedy: bool = True, seed: int = 0, *, device=None):
-        TF.check_supported(cfg)
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"the parameters are on {params.device}, the "

@@ -6,8 +6,10 @@
 prefill and decode cells run here on the smoke configs (float32, CPU
 meshes) with the reference's weights, against the reference's ``prefill``
 / ``decode_step`` under a 1 x 1 mesh, within ``TOL`` (1e-4, float32 in
-another order); train cells, MLA on a mesh and the GNN / recsys cells
-raise, naming their ROADMAP items.
+another order); a train cell runs a step with each mesh knob
+(``tests/test_torch_train_mesh.py`` holds it to the reference); MLA on a
+mesh, the GNN / recsys cells and a train cell over several devices raise,
+naming their ROADMAP items.
 """
 import dataclasses
 import types
@@ -167,7 +169,6 @@ def test_default_cell_inputs_run():
 
 
 @pytest.mark.parametrize("arch,shape,item", [
-    ("qwen3-1.7b", "train_4k", "A.7.2"),
     ("minicpm3-4b", "prefill_32k", "A.7.3"),
     ("gatedgcn", "full_graph_sm", "A.7.4"),
     ("dcn-v2", "serve_p99", "A.7.4")])
@@ -177,8 +178,39 @@ def test_unported_cells_raise(arch, shape, item):
                       seq_len=8)
 
 
-@pytest.mark.parametrize("knob", ["act_shard", "fsdp_inner"])
-def test_training_knobs_raise_in_a_cell(knob):
-    with pytest.raises(NotImplementedError, match="A.7.2"):
-        TC.build_cell("qwen3-1.7b", "prefill_32k", _mesh((1, 2)),
-                      {knob: True}, smoke=True, batch=1, seq_len=8)
+@pytest.mark.parametrize("knob", ["plain", "act_shard", "fsdp_inner"])
+def test_train_cell_runs_with_each_knob(knob):
+    """A train cell with its default weights and batch (seeded) on a (1, 2)
+    mesh: one step, its cuts in ``static_notes``, the launcher's mesh
+    fields in its config (``tests/test_torch_train_mesh.py`` holds the
+    step to the reference's)."""
+    over = {"n_layers": 1}
+    if knob != "plain":
+        over[knob] = True
+    cell = TC.build_cell("qwen3-1.7b", "train_4k", _mesh((1, 2)), over,
+                         smoke=True, batch=2, seq_len=8)
+    assert cell.kind == "train"
+    assert cell.static_notes == ("batch cut from 256 to 2; seq_len cut from "
+                                 "4096 to 8; n_layers cut from 2 to 1")
+    assert cell.cfg.model_axis_size == (2 if knob == "fsdp_inner" else 0)
+    assert cell.cfg.act_batch_axes == (("data",) if knob == "act_shard"
+                                       else ())
+    params, opt, m = cell.run()
+    assert sorted(m) == ["grad_norm", "loss", "lr"]
+    assert all(bool(torch.isfinite(v)) for v in m.values())
+    assert int(opt["step"]) == 1 and cell.args[1] is opt
+    assert isinstance(params, TSH.Placed) and params.shapes[
+        "['embed']['table']"] == (512, 64)
+
+
+def test_train_cell_refusals():
+    """A train cell whose positions sit on different devices raises (their
+    replicated blocks' gradients would need summing across devices), and
+    MLA on a mesh raises, each naming its ROADMAP item."""
+    two = TM.make_mesh((1, 2), ("data", "model"), devices=["cpu", "meta"])
+    with pytest.raises(NotImplementedError, match="B.19"):
+        TC.build_cell("qwen3-1.7b", "train_4k", two, smoke=True, batch=2,
+                      seq_len=8)
+    with pytest.raises(NotImplementedError, match="A.7.3"):
+        TC.build_cell("minicpm3-4b", "train_4k", _mesh((1, 2)), smoke=True,
+                      batch=2, seq_len=8)

@@ -104,21 +104,30 @@ def test_configs_equal_the_reference_field_by_field(arch):
 
 
 def test_unported_archs_and_settings_raise():
-    """Every arch of the reference is in the registry; an unknown name and
-    the knobs of LM training on the mesh (ROADMAP A.7.2) raise.  The
-    serving mesh's knobs are accepted: on one device they change no value
+    """Every arch of the reference is in the registry and an unknown name
+    raises.  The mesh's knobs are accepted and change no value on one
+    device: the training ones (``act_shard``, ``fsdp_inner``; trained on a
+    mesh in ``tests/test_torch_train_mesh.py``) and the serving ones
     (``tests/test_torch_sharding.py`` runs them on meshes)."""
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get("no-such-arch")
     assert set(tconfigs.ARCHS) == set(jconfigs.ARCHS)
     assert not hasattr(tconfigs, "NOT_PORTED")
     base = CFG_T
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, base.vocab, (2, 9)).astype(np.int32))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    p0 = TTF.init_params(torch.Generator().manual_seed(0), base)
+    loss0 = TTF.train_step_loss(p0, base, batch)
     for knob in ("act_shard", "fsdp_inner"):
         cfg = dataclasses.replace(base, **{knob: True})
-        with pytest.raises(NotImplementedError, match="A.7.2"):
-            TTF.init_params(torch.Generator().manual_seed(0), cfg)
-        with pytest.raises(NotImplementedError, match="A.7.2"):
-            TTF.make_empty_cache(cfg, 1, 8)
+        p = TTF.init_params(torch.Generator().manual_seed(0), cfg)
+        assert all(torch.equal(a, b) for a, b in zip(p.parameters(),
+                                                     p0.parameters()))
+        cache = TTF.make_empty_cache(cfg, 1, 8)
+        assert cache["k"].shape == TTF.make_empty_cache(base, 1, 8)[
+            "k"].shape and not cache["k"].any()
+        assert torch.equal(TTF.train_step_loss(p, cfg, batch), loss0)
     moe = tconfigs.get("qwen2-moe-a2.7b").make_smoke().moe
     for change in (dict(moe=dataclasses.replace(
                        moe, ep_axes=("model", "data"))),

@@ -16,9 +16,11 @@
   in another order (tensor-parallel partial sums, the log-sum-exp merge),
   measured at about 1e-6.  At ``model`` 4 the smoke configs' heads split
   (qwen3-1.7b's 2 K / V heads, qwen3-32b's 6 query heads), so the weights
-  of the cut heads are gathered.  The MoE layer with ``ep_axes`` on tokens
-  split over ``data``, at a capacity that drops: routing equal to the
-  reference's as integers, the output within 1e-5.
+  of the cut heads are gathered; at ``model`` 3 qwen3-32b's ``wq`` splits
+  and its ``wk`` / ``wv`` do not (a decode case of its own).  The MoE
+  layer with ``ep_axes`` on tokens split over ``data``, at a capacity that
+  drops: routing equal to the reference's as integers, the output within
+  1e-5.
 """
 import dataclasses
 import functools
@@ -317,6 +319,21 @@ def test_sharded_prefill_equals_the_reference(arch, shape):
     map(str, s)))
 @pytest.mark.parametrize("arch", ROUTE_ARCHS)
 def test_sharded_decode_equals_the_reference(arch, shape, knobs):
+    _check_decode(arch, shape, knobs)
+
+
+@pytest.mark.parametrize("knobs", DECODE_KNOBS,
+                         ids=["write_then_attend-seq_axis",
+                              "write_then_attend", "append"])
+def test_sharded_decode_with_query_heads_split_alone(knobs):
+    """qwen3-32b's smoke config (6 / 2 heads, Dh 16) on (1, 3): ``model``
+    divides ``wq``'s 96 columns but not ``wk`` / ``wv``'s 32, so the
+    placement splits ``wq`` alone and the decode gathers each projection
+    over its own axes (ROADMAP C.4)."""
+    _check_decode("qwen3-32b", (1, 3), knobs)
+
+
+def _check_decode(arch, shape, knobs):
     wta, seq_axis = knobs
     kn = (("decode_write_then_attend", wta), ("decode_seq_axis", seq_axis))
     _, ct = _cfgs(arch, **dict(kn))
@@ -327,7 +344,8 @@ def test_sharded_decode_equals_the_reference(arch, shape, knobs):
     cspec = TSH.lm_cache_spec(mesh, "gqa", B, ct.n_kv_heads)
     pc = TSH.place({k: torch.from_numpy(v.copy()) for k, v in cache.items()},
                    mesh, cspec)
-    assert pc.split("['k']", 3) == ("model",)
+    assert pc.split("['k']", 3) == (("model",) if S % shape[1] == 0
+                                     else ())
     with torch.no_grad():
         logits, pc = TTF.decode_step(placed, ct, torch.from_numpy(tok), pc,
                                      torch.from_numpy(length))
