@@ -226,6 +226,33 @@ ends the run with a non-zero exit code:
               knob and 2 microbatches: loss, grad_norm and every moment
               leaf within TM_F32_TOL of the unsharded route on the card;
               the phase's seconds against TM_BUDGET_S
+  5p. MLA and the GNN / recsys cells on a model mesh (launch/cells.py),
+              the shards sharing the card, random weights from seed 0:
+              (a) minicpm3-4b at full width, all 62 layers, bf16, on (data
+              1, model 4), the memory reckoned first: a prefill cell of 1 x
+              4096 tokens (exactly 248 B5 launches, all sm90, 10 / 10 heads
+              a shard at D 96; shard 0's first launch held to the plain
+              attention on its own q, k, v) and the long_500k decode cell
+              (write then attend, the latents sequence-sharded) for 8 steps
+              from a seeded cache, the sharded cache freed before the
+              unsharded route's is made: the prefill within LOGITS_ATOL of
+              the unsharded route, the decode within MC_NOISE_FACTOR x the
+              unsharded route's distance from itself under the other
+              decode knob (the bf16 noise floor of 62 layers), and in
+              float32 with the cache cut to 65,536 slots within
+              MC_F32_LOGITS_ATOL; (b) its train cell, depth 2, on (2, 2) with
+              fsdp_inner and act_shard, 2 x 2048, one step within
+              TM_LOSS_ATOL / TM_GNORM_REL; (c) dcn-v2 uncut on (1, 4), the
+              tables row-sharded: serve_p99, retrieval_cand at 1,000,000
+              candidates (top 100 equal to a host sort) and one
+              train_batch step of 65,536 against the unsharded route,
+              per-shard table bytes; (d) gat-cora, meshgraphnet and
+              gatedgcn on full_graph_sm and nequip on molecule at full
+              width on (2, 2), edges split over the mesh, one step each
+              against the unsharded route, and the halo gatedgcn on (1, 4)
+              against the replicated loss; counts zeroed before each
+              sharded step, read after (none but (a)'s prefill launches);
+              the phase's seconds against MC_BUDGET_S
   (5, 5c: each row's prepare_ms + solve_ms must not pass e2e_traced_ms,
   the wall time of the call they split, by more than SPLIT_SLACK)
   6. times    per-kernel device time (device_ms; the back-to-back call time
@@ -241,7 +268,9 @@ ends the run with a non-zero exit code:
               heads, D 80, L 2048, bfloat16: the sm90 design) and at
               minicpm3-4b's (40 / 40 heads, D 96, L 2048, sm90) beside their
               bounds, SDPA and the fma kernel at the same shape (design id
-              0, timed only); one compacted repair pass per
+              0, timed only); one shard's prefill of 5n (16 / 2 heads, D
+              80, L 4096) and of 5p (10 / 10 heads, D 96, L 4096), the
+              same way; one compacted repair pass per
               compacted path (detect_recolor with row_ids, forb0 and
               extra_defect on RMAT-B; twohop with row_ids on RMAT-ER),
               kernels against plain versions on the same inputs; B2's
@@ -4900,20 +4929,20 @@ def tm_check(what: str, sharded: dict, unsharded: dict, loss_atol=None,
     dg = abs(sharded["grad_norm"] - unsharded["grad_norm"]) / abs(
         unsharded["grad_norm"])
     if not all(np.isfinite([sharded["loss"], sharded["grad_norm"]])):
-        fail(f"5o {what}: a loss or gradient norm is not finite: {sharded}")
+        fail(f"{what}: a loss or gradient norm is not finite: {sharded}")
     if loss_atol is not None and not dl <= loss_atol:
-        fail(f"5o {what}: loss {sharded['loss']} against the unsharded "
+        fail(f"{what}: loss {sharded['loss']} against the unsharded "
              f"{unsharded['loss']}: {dl} > {loss_atol}")
     if loss_rel is not None and not dl <= loss_rel * abs(unsharded["loss"]):
-        fail(f"5o {what}: loss {sharded['loss']} against the unsharded "
+        fail(f"{what}: loss {sharded['loss']} against the unsharded "
              f"{unsharded['loss']}: relative {dl / abs(unsharded['loss'])} "
              f"> {loss_rel}")
     if not dg <= gnorm_rel:
-        fail(f"5o {what}: grad_norm {sharded['grad_norm']} against the "
+        fail(f"{what}: grad_norm {sharded['grad_norm']} against the "
              f"unsharded {unsharded['grad_norm']}: relative {dg} > "
              f"{gnorm_rel}")
     if sharded["lr"] != unsharded["lr"]:
-        fail(f"5o {what}: lr {sharded['lr']} against {unsharded['lr']}")
+        fail(f"{what}: lr {sharded['lr']} against {unsharded['lr']}")
     return {"loss_abs_diff": dl, "grad_norm_rel_diff": dg}
 
 
@@ -4967,7 +4996,7 @@ def tm_dense(device, card: str, rehearse: bool) -> dict:
     un, _, un_ms, peak_u = tm_unsharded(cfg, params, batch,
                                         TM_UNSHARDED_MICRO, device)
     del params, batch
-    diff = tm_check("dense", steps[0], un, loss_atol=TM_LOSS_ATOL,
+    diff = tm_check("5o dense", steps[0], un, loss_atol=TM_LOSS_ATOL,
                     gnorm_rel=TM_GNORM_REL)
     return {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
             "mesh": dict(zip(("data", "model"), TM_MESH)),
@@ -5012,7 +5041,7 @@ def tm_moe(device, card: str, rehearse: bool) -> dict:
     del cell, out
     un, _, un_ms, peak_u = tm_unsharded(cfg, params, batch, 1, device)
     del params, batch
-    diff = tm_check("moe", sharded, un, loss_atol=TM_MOE_LOSS_ATOL,
+    diff = tm_check("5o moe", sharded, un, loss_atol=TM_MOE_LOSS_ATOL,
                     gnorm_rel=TM_MOE_GNORM_REL)
     return {"arch": cfg.name, "n_layers": cfg.n_layers,
             "ep_axes": list(cfg.moe.ep_axes), "tokens": list(TM_MOE_TOKENS),
@@ -5065,7 +5094,7 @@ def tm_f32(device, card: str, rehearse: bool) -> dict:
                      f"route's, which moved it by {moved}")
             upd_worst = max(upd_worst, err / moved)
     del params, batch, new, old
-    diff = tm_check("float32", sharded, un, loss_rel=tol["loss_rel"],
+    diff = tm_check("5o float32", sharded, un, loss_rel=tol["loss_rel"],
                     gnorm_rel=tol["gnorm_rel"])
     worst = {}
     for k in ("mu", "nu"):
@@ -5109,6 +5138,578 @@ def phase_lm_train_mesh(device, card: str, rehearse: bool) -> tuple:
     log("mesh_train", f"phase 5o: {seconds:.1f} s (budget {TM_BUDGET_S} s: "
                       f"{'within' if seconds <= TM_BUDGET_S else 'PAST'} it)")
     return row, counts
+
+
+# --------------------------------------------------------------------------
+# phase 5p: MLA and the GNN / recsys cells on the model mesh
+# --------------------------------------------------------------------------
+
+MC_MLA = ("minicpm3-4b", (1, 4))           # full width, all 62 layers
+MC_PREFILL_LEN = 4096                      # prefill_32k cut to 1 x 4096
+# B5 launches the sharded MLA prefill makes: 62 layers x 4 shards, all on
+# sm90, 10 / 10 heads a shard at D 96 (fixed here, not read from the code)
+MC_PREFILL_LAUNCHES = 248
+# the bfloat16 long_500k decode at 62 layers: the unsharded route against
+# itself with the other decode knob (append, the same function) moved the
+# logits by up to 0.277 > LOGITS_ATOL (H100 80GB HBM3, 700 W), so the
+# sharded route is held to MC_NOISE_FACTOR x that distance, measured in the
+# same run, and, in float32 at full width with the cache cut to
+# MC_F32_SLOTS, to MC_F32_LOGITS_ATOL (measured 2.7e-5 to 3.7e-5)
+MC_NOISE_FACTOR = 2.0
+MC_F32_SLOTS = 65_536
+MC_F32_LOGITS_ATOL = 1e-3
+MC_TRAIN = ("minicpm3-4b", 2, (2, 2))      # depth cut to 2, (data, model)
+MC_TRAIN_TOKENS = (2, 2048)
+MC_TRAIN_KNOBS = dict(fsdp_inner=True, act_shard=True)
+MC_RECSYS_MESH = (1, 4)
+MC_RECSYS_TOL = dict(loss_rel=1e-4, gnorm_rel=1e-3, out=1e-5)   # float32
+MC_GNN_MESH = (2, 2)
+MC_GNN = (("gat-cora", "full_graph_sm"), ("meshgraphnet", "full_graph_sm"),
+          ("gatedgcn", "full_graph_sm"), ("nequip", "molecule"))
+MC_HALO_MESH = (1, 4)
+MC_GNN_TOL = dict(loss_rel=1e-4, gnorm_rel=1e-3)                 # float32
+MC_BUDGET_S = 100.0                        # the phase's share of the limit
+
+
+def mc_counts_zero(what: str):
+    """The counts since they were zeroed: none (plain torch paths)."""
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"5p {what}: launched kernels {counts}")
+
+
+def mc_mla(device, card: str, cmp: Cmp, rehearse: bool) -> tuple:
+    """(a) minicpm3-4b at full width, all 62 layers, bf16, random weights
+    from seed 0, on (data 1, model 4): 10 / 10 heads a shard at D 96.  The
+    memory is reckoned first (weights unsharded and placed, the latent cache
+    twice while it is placed) against the card's.  A prefill cell of 1 x
+    4096 tokens: its warm-up run watches shard 0's first B5 launch and
+    holds it to the plain attention on its own q, k, v (FA_TOL, ROW_TOL);
+    the counted run makes exactly MC_PREFILL_LAUNCHES B5 launches, all
+    sm90; logits within LOGITS_ATOL of the unsharded prefill.  The
+    long_500k decode cell (B 1, S 524,288, write then attend, the latents
+    sequence-sharded over model) for 8 steps from a seeded random cache,
+    the sharded route first; its cache freed before the unsharded route's
+    is made again from the seed; then the unsharded route once more with
+    the other decode knob (append: the same function, other roundings),
+    whose distance from the first is the bfloat16 noise floor of 62
+    layers; every sharded step within the larger of LOGITS_ATOL and
+    MC_NOISE_FACTOR x that floor.  Then the same decode cell in float32
+    at full width, the cache cut to MC_F32_SLOTS, against the unsharded
+    route within MC_F32_LOGITS_ATOL at every step.  Returns (row, the
+    sharded prefill's counts, its designs)."""
+    from repro_torch import configs, obs
+    from repro_torch.core import mesh as M
+    from repro_torch.kernels import ref
+    from repro_torch.launch import cells
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    name, shape = MC_MLA
+    full_layers = configs.get(name).make_full().n_layers
+    cfg, over = sh_config(name, full_layers, rehearse, moe_ep=False)
+    launch = device.type == "cuda"
+    mesh = M.make_mesh(shape, ("data", "model"), device=device)
+    S = 256 if rehearse else configs_shape("long_500k")["seq_len"]
+    m = cfg.mla
+    w_bytes = 2 * allocated_params(cfg)
+    cache_bytes = 2 * cfg.n_layers * S * (m.kv_lora_rank + m.qk_rope_dim)
+    # the unsharded weights, a placed copy of them, and the cache twice
+    # while the decode cell places it
+    reckoned = {"weights_gb": w_bytes / 1e9,
+                "placed_weights_gb_at_most": w_bytes / 1e9,
+                "cache_gb": cache_bytes / 1e9,
+                "peak_gb_reckoned": (2 * w_bytes + 2 * cache_bytes) / 1e9}
+    log("mesh_cells", json.dumps({"mla_reckoned": reckoned}))
+    if launch:
+        total = torch.cuda.get_device_properties(device).total_memory
+        if 2 * w_bytes + 2 * cache_bytes > 0.9 * total:
+            fail(f"5p {name}: {reckoned} does not fit {total / 1e9} GB")
+    peak_reset(device)
+    params = TF.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg, device)
+    rng = np.random.default_rng(13)
+    Lp = 64 if rehearse else MC_PREFILL_LEN
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (1, Lp)).astype(
+        np.int32)).to(device)
+    with torch.no_grad():
+        _, cold_u = timed_call(lambda: TF.prefill(params, cfg, tokens),
+                               device)
+        (lu, _), ttft_u = timed_call(lambda: TF.prefill(params, cfg, tokens),
+                                     device)
+    peak_u = peak_gb(device)
+    cell = cells.build_cell(name, "prefill_32k", mesh, over, batch=1,
+                            seq_len=Lp, smoke=rehearse, params=params,
+                            inputs={"tokens": tokens})
+    placed = cell.args[0]
+    orig, seen = L.prefill_attention, []
+
+    def watched(q, k, v, **kw):
+        out = orig(q, k, v, **kw)
+        if not seen:
+            seen.append((q, k, v, out, kw["causal"]))
+        return out
+
+    peak_reset(device)
+    L.prefill_attention = watched
+    try:        # the first call, a warm-up: shard 0's layer-0 launch kept
+        _, cold_s = timed_call(cell.run, device)
+    finally:
+        L.prefill_attention = orig
+    q, k, v, out, causal = seen[0]
+    label = (f"5p {name} shard 0 layer 0 Hq{q.shape[1]} Hkv{k.shape[1]} "
+             f"L{q.shape[2]} D{q.shape[3]}")
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    cmp.close("flash_attention", label, out, want, *FA_TOL[q.dtype])
+    cmp.rows("flash_attention", label, out, want, ROW_TOL[q.dtype])
+    shard_check = {"heads": [q.shape[1], k.shape[1]], "L": q.shape[2],
+                   "D": q.shape[3], "dtype": str(q.dtype)[6:],
+                   "max_abs_err": float((out.float() - want.float()).abs()
+                                        .max())}
+    if not rehearse and shard_check["heads"] != [m.n_heads // shape[1]] * 2:
+        fail(f"5p {name}: a shard's attention ran {shard_check['heads']} "
+             f"heads, expected {m.n_heads // shape[1]} / "
+             f"{m.n_heads // shape[1]}")
+    del seen, q, k, v, out, want
+    zero_counts()
+    obs.metrics.reset()
+    (ls, caches), ttft_s = timed_call(cell.run, device)
+    counts, designs = launch_counts(), attention_designs()
+    pre_coll = (M.collectives(), M.gathered_bytes())
+    peak_s = peak_gb(device)
+    if launch:
+        want_counts = dict.fromkeys(KERNELS, 0)
+        want_counts["flash_attention"] = (8 if rehearse
+                                          else MC_PREFILL_LAUNCHES)
+        if counts != want_counts:
+            fail(f"5p {name} prefill: launches {counts}, expected "
+                 f"{want_counts}")
+        if designs != {"sm90": want_counts["flash_attention"], "fma": 0}:
+            fail(f"5p {name} prefill: B5 launches by design {designs}, "
+                 f"expected all {want_counts['flash_attention']} on sm90")
+    err = float((ls.float() - lu.float()).abs().max())
+    if not (err <= LOGITS_ATOL and bool(torch.isfinite(ls).all())):
+        fail(f"5p {name}: sharded prefill logits {err} from the unsharded "
+             f"(tolerance {LOGITS_ATOL})")
+    cache_spec = {k: list(s) for k, s in caches.specs.items()}
+    del caches, lu, ls
+    # decode: the sharded route first, from a seeded cache it places (a
+    # copy); the cache freed, then made again for the unsharded route
+    steps = SH_DECODE_STEPS
+    cache = sh_random_cache(cfg, 1, S, device, seed=3)
+    dcell = cells.build_cell(
+        name, "long_500k", mesh, over, smoke=rehearse,
+        seq_len=S if rehearse else None, params=placed,
+        inputs={"cache": cache})
+    del cache
+    toks = [torch.from_numpy(rng.integers(1, cfg.vocab, (1,)).astype(
+        np.int32)).to(device) for _ in range(steps)]
+    lens = [torch.full((1,), S - steps + t, dtype=torch.int32,
+                       device=device) for t in range(steps)]
+    peak_reset(device)
+    zero_counts()
+    s_lg, s_ms, s_coll = sh_decode(
+        lambda t, n: dcell.step(dcell.args[0], t, dcell.args[2], n), toks,
+        lens, device)
+    mc_counts_zero(f"{name} sharded decode")
+    peak_s_dec = peak_gb(device)
+    cache_shard_bytes = dcell.args[2].bytes_per_shard()
+    seq_axes = list(dcell.args[2].split("['c_kv']", 2))
+    decode_notes = dcell.static_notes
+    del dcell
+    peak_reset(device)
+    cache = sh_random_cache(cfg, 1, S, device, seed=3)
+    u_lg, u_ms, _ = sh_decode(
+        lambda t, n: TF.decode_step(params, cfg, t, cache, n), toks, lens,
+        device)
+    peak_u_dec = peak_gb(device)
+    del cache
+    cache = sh_random_cache(cfg, 1, S, device, seed=3)
+    append = dataclasses.replace(cfg, decode_write_then_attend=False)
+    a_lg, _, _ = sh_decode(
+        lambda t, n: TF.decode_step(params, append, t, cache, n), toks, lens,
+        device)
+    del cache
+    floor = [float((a - b).abs().max()) for a, b in zip(a_lg, u_lg)]
+    tol = max(LOGITS_ATOL, MC_NOISE_FACTOR * max(floor))
+    errs = [float((a - b).abs().max()) for a, b in zip(s_lg, u_lg)]
+    if not (max(errs) <= tol
+            and all(bool(torch.isfinite(x).all()) for x in s_lg)):
+        fail(f"5p {name}: sharded decode logits {errs} from the unsharded "
+             f"(tolerance {tol}: the unsharded route's append decode is "
+             f"{floor} from its write-then-attend one)")
+    row = {"arch": name, "n_layers": cfg.n_layers,
+           "mesh": dict(zip(("data", "model"), shape)),
+           "heads_per_shard": shard_check["heads"],
+           "head_dim": m.qk_nope_dim + m.qk_rope_dim,
+           "prefill_tokens": [1, Lp], "prefill_notes": cell.static_notes,
+           "ttft_ms": {"unsharded": ttft_u, "sharded": ttft_s},
+           "first_call_ms": {"unsharded": cold_u, "sharded": cold_s},
+           "prefill_peak_gb": {"unsharded": peak_u, "sharded": peak_s},
+           "prefill_logits_max_abs_err": err, "logits_tol": LOGITS_ATOL,
+           "shard_attention_vs_plain": shard_check,
+           "prefill_collectives": pre_coll[0],
+           "prefill_gathered_bytes": pre_coll[1],
+           "prefill_launches": counts, "attention_designs": designs,
+           "prefill_cache_specs": cache_spec,
+           "decode_cache": {"B": 1, "S": S, "filled_to": S - steps,
+                            "seq_axes": seq_axes},
+           "decode_notes": decode_notes,
+           "decode_ms": {"unsharded": u_ms, "sharded": s_ms,
+                         "unsharded_p50": statistics.median(u_ms),
+                         "sharded_p50": statistics.median(s_ms)},
+           "decode_peak_gb": {"unsharded": peak_u_dec, "sharded": peak_s_dec},
+           "decode_logits_max_abs_err": errs,
+           "decode_noise_floor": floor, "decode_logits_tol": tol,
+           "decode_collectives_per_step": s_coll[-1][0],
+           "decode_gathered_bytes_per_step": s_coll[-1][1],
+           "param_bytes_per_shard": placed.bytes_per_shard(),
+           "cache_bytes_per_shard": cache_shard_bytes,
+           "param_bytes_unsharded": sum(
+               p.numel() * p.element_size() for p in params.parameters()),
+           "memory_reckoned": reckoned, "card": card}
+    del params, placed, cell
+    peak_reset(device)
+    row["float32_decode"] = mc_mla_f32(device, name, mesh, over, toks,
+                                       rehearse)
+    return row, counts, designs
+
+
+def mc_mla_f32(device, name: str, mesh, over: dict, toks: list,
+               rehearse: bool) -> dict:
+    """(a)'s decode cell in float32 at full width (62 layers), the cache
+    cut to MC_F32_SLOTS, 8 steps against the unsharded route on the same
+    weights and seeded cache, each within MC_F32_LOGITS_ATOL."""
+    from repro_torch.launch import cells
+    from repro_torch.models import transformer as TF
+    over = dict(over, dtype="float32")
+    cfg, _ = sh_config(name, over["n_layers"], rehearse, moe_ep=False)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    S = 64 if rehearse else MC_F32_SLOTS
+    steps = len(toks)
+    params = TF.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg, device)
+    cache = sh_random_cache(cfg, 1, S, device, seed=3)
+    dcell = cells.build_cell(name, "long_500k", mesh, over, smoke=rehearse,
+                             seq_len=S, params=params,
+                             inputs={"cache": cache})
+    del cache
+    lens = [torch.full((1,), S - steps + t, dtype=torch.int32,
+                       device=device) for t in range(steps)]
+    zero_counts()
+    s_lg, s_ms, _ = sh_decode(
+        lambda t, n: dcell.step(dcell.args[0], t, dcell.args[2], n), toks,
+        lens, device)
+    mc_counts_zero(f"{name} float32 sharded decode")
+    notes = dcell.static_notes
+    del dcell
+    cache = sh_random_cache(cfg, 1, S, device, seed=3)
+    u_lg, u_ms, _ = sh_decode(
+        lambda t, n: TF.decode_step(params, cfg, t, cache, n), toks, lens,
+        device)
+    del cache, params
+    errs = [float((a - b).abs().max()) for a, b in zip(s_lg, u_lg)]
+    if not max(errs) <= MC_F32_LOGITS_ATOL:
+        fail(f"5p {name} float32: sharded decode logits {errs} from the "
+             f"unsharded (tolerance {MC_F32_LOGITS_ATOL})")
+    peak = peak_gb(device)
+    peak_reset(device)
+    return {"dtype": "float32", "S": S, "notes": notes,
+            "logits_max_abs_err": errs, "tol": MC_F32_LOGITS_ATOL,
+            "logits_absmax": float(u_lg[0].abs().max()),
+            "decode_ms": {"unsharded": u_ms, "sharded": s_ms},
+            "peak_gb": peak}
+
+
+def mc_train(device, card: str, rehearse: bool) -> dict:
+    """(b) minicpm3-4b's train cell at full width, depth cut to 2, bf16, on
+    (data 2, model 2) with fsdp_inner and act_shard: one step of 2 x 2048
+    tokens, then the unsharded route on the same weights and batch after
+    the cell is freed: loss within TM_LOSS_ATOL, grad_norm within
+    TM_GNORM_REL; counts zeroed before, none launched."""
+    from repro_torch.core import mesh as M
+    from repro_torch.launch import cells
+    name, layers, shape = MC_TRAIN
+    mesh = M.make_mesh(shape, ("data", "model"), device=device)
+    peak_reset(device)
+    cfg, over, params, batch = tm_setup(name, layers, MC_TRAIN_KNOBS,
+                                        MC_TRAIN_TOKENS, device, rehearse,
+                                        seed=23)
+    cell = cells.build_cell(name, "train_4k", mesh, over,
+                            batch=batch["tokens"].shape[0],
+                            seq_len=batch["tokens"].shape[1], smoke=rehearse,
+                            params=params, inputs=batch)
+    zero_counts()
+    out, ms = timed_call(cell.run, device)
+    mc_counts_zero(f"{name} train cell")
+    sharded = tm_metrics(out[2])
+    peak_s = peak_gb(device)
+    del cell, out
+    un, _, un_ms, peak_u = tm_unsharded(cfg, params, batch, 1, device)
+    del params, batch
+    diff = tm_check(f"5p {name} train", sharded, un, loss_atol=TM_LOSS_ATOL,
+                    gnorm_rel=TM_GNORM_REL)
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "mesh": dict(zip(("data", "model"), shape)),
+            "knobs": {k: getattr(cfg, k) for k in
+                      ("fsdp_inner", "act_shard", "remat")},
+            "tokens": list(MC_TRAIN_TOKENS), "sharded": sharded,
+            "unsharded": un, "diff": diff,
+            "step_ms": {"sharded": ms, "unsharded": un_ms},
+            "peak_gb": {"sharded": peak_s, "unsharded": peak_u},
+            "card": card}
+
+
+def mc_rel(what: str, got: float, want: float, tol: float) -> float:
+    rel = abs(got - want) / max(abs(want), 1e-30)
+    if not (np.isfinite(got) and rel <= tol):
+        fail(f"5p {what}: {got} against the unsharded {want}: relative "
+             f"{rel} > {tol}")
+    return rel
+
+
+def mc_recsys(device, card: str, rehearse: bool) -> dict:
+    """(c) dcn-v2 uncut (26 tables of 1,000,000 x 16, float32) on (data 1,
+    model 4), the tables row-sharded over model: serve_p99's probabilities
+    and retrieval_cand's 1,000,000 candidates (made on the card, unit rows)
+    against the unsharded route on the same weights (MC_RECSYS_TOL's
+    ``out``), the top 100 ids equal to a host sort of the scores; then one
+    train_batch step of 65,536 examples against the unsharded route's
+    (train_loop.make_train_step, the cells' OPT), loss and grad_norm within
+    MC_RECSYS_TOL; per-shard table bytes; counts zeroed before each sharded
+    step, none launched."""
+    from repro_torch import configs
+    from repro_torch.core import mesh as M
+    from repro_torch.launch import cells
+    from repro_torch.models import recsys as RS
+    from repro_torch.training import optimizer as OP
+    from repro_torch.training import train_loop as TL
+    arch = configs.get("dcn-v2")
+    cfg = arch.make_smoke() if rehearse else arch.make_full()
+    tol = MC_RECSYS_TOL
+    mesh = M.make_mesh(MC_RECSYS_MESH, ("data", "model"), device=device)
+    peak_reset(device)
+    params = RS.dcnv2_init(torch.Generator(device=device).manual_seed(0),
+                           cfg, device)
+    out = {"mesh": dict(zip(("data", "model"), MC_RECSYS_MESH)),
+           "card": card}
+    # serve_p99
+    cut = {"batch": 64} if rehearse else {}
+    cell = cells.build_cell("dcn-v2", "serve_p99", mesh, smoke=rehearse,
+                            params=params, sizes=cut)
+    b = {k: cell.args[1].gather(f"[{k!r}]") for k in ("dense", "sparse")}
+    zero_counts()
+    probs, ms = timed_call(cell.run, device)
+    mc_counts_zero("dcn-v2 serve")
+    with torch.no_grad():
+        want, ms_u = timed_call(lambda: RS.predict(params, cfg, b), device)
+    err = float((probs - want).abs().max())
+    if not err <= tol["out"]:
+        fail(f"5p dcn-v2 serve: probabilities {err} from the unsharded")
+    tables = [sum(t.numel() * t.element_size() for t in sh["tables"])
+              for sh in cell.args[0].shards]
+    out["serve_p99"] = {"batch": probs.shape[0], "max_abs_err": err,
+                        "ms": {"sharded": ms, "unsharded": ms_u}}
+    out["table_bytes_per_shard"] = tables
+    out["table_bytes_unsharded"] = sum(t.numel() * t.element_size()
+                                       for t in params["tables"])
+    del cell
+    # retrieval_cand: the candidates made on the card
+    NC = 8192 if rehearse else configs.common.RECSYS_SHAPES[
+        "retrieval_cand"]["n_candidates"]
+    gen = torch.Generator(device=device).manual_seed(7)
+    cand = torch.randn((NC, cfg.mlp_dims[-1]), generator=gen, device=device)
+    cand = cand / torch.linalg.vector_norm(cand, dim=1, keepdim=True)
+    cell = cells.build_cell("dcn-v2", "retrieval_cand", mesh, smoke=rehearse,
+                            params=params, sizes={"n_candidates": NC},
+                            inputs={"cand": cand})
+    zero_counts()
+    (scores, top_v, top_i), ms = timed_call(cell.run, device)
+    mc_counts_zero("dcn-v2 retrieval")
+    d, s = cell.args[1].gather(""), cell.args[2].gather("")
+    with torch.no_grad():
+        (su, _, iu), ms_u = timed_call(lambda: RS.retrieval_scores(
+            params, cfg, d, s, cand, top_k=RETRIEVAL_TOP_K), device)
+    host = scores.cpu().numpy()
+    order = np.argsort(-host, kind="stable")[:RETRIEVAL_TOP_K]
+    if not np.array_equal(top_i.cpu().numpy(), order):
+        fail("5p dcn-v2 retrieval: the merged top-100 is not a host sort "
+             "of the scores")
+    s_err = float((scores - su).abs().max())
+    if not s_err <= tol["out"]:
+        fail(f"5p dcn-v2 retrieval: scores {s_err} from the unsharded")
+    out["retrieval_cand"] = {
+        "n_candidates": NC, "top_k": RETRIEVAL_TOP_K,
+        "top_k_equals_host_sort": True,
+        "top_k_ids_equal_unsharded": bool(torch.equal(top_i, iu)),
+        "scores_max_abs_err": s_err,
+        "ms": {"sharded": ms, "unsharded": ms_u}}
+    del cell, cand, scores, su
+    # train_batch: the sharded step on the cell's copies, then the
+    # unsharded one on the weights in place
+    cut = {"batch": 64} if rehearse else {}
+    cell = cells.build_cell("dcn-v2", "train_batch", mesh, smoke=rehearse,
+                            params=params, sizes=cut)
+    batch = {k: cell.args[2].gather(f"[{k!r}]")
+             for k in ("dense", "sparse", "labels")}
+    zero_counts()
+    res, ms = timed_call(cell.run, device)
+    mc_counts_zero("dcn-v2 train cell")
+    sharded = tm_metrics(res[2])
+    peak_s = peak_gb(device)
+    del cell, res
+    step = TL.make_train_step(lambda p, bt: RS.ctr_loss(p, cfg, bt),
+                              cells.OPT, 1)
+    (_, _, m), ms_u = timed_call(
+        lambda: step(params, OP.init_opt_state(params), batch), device)
+    un = tm_metrics(m)
+    out["train_batch"] = {
+        "batch": batch["labels"].shape[0], "sharded": sharded,
+        "unsharded": un,
+        "loss_rel_diff": mc_rel("dcn-v2 train loss", sharded["loss"],
+                                un["loss"], tol["loss_rel"]),
+        "grad_norm_rel_diff": mc_rel("dcn-v2 train grad_norm",
+                                     sharded["grad_norm"], un["grad_norm"],
+                                     tol["gnorm_rel"]),
+        "ms": {"sharded": ms, "unsharded": ms_u},
+        "peak_gb_sharded": peak_s}
+    del params, batch
+    peak_reset(device)
+    return out
+
+
+def mc_gnn(device, card: str, rehearse: bool) -> dict:
+    """(d) gat-cora, meshgraphnet and gatedgcn at full width on
+    full_graph_sm and nequip on molecule, each on (data 2, model 2), edges
+    split over the mesh: one step of the cell against the unsharded route
+    (gnn.gnn_loss_fn on the cell's batch, train_loop.make_train_step, the
+    cells' OPT) on the same weights, loss and grad_norm within MC_GNN_TOL;
+    the halo GatedGCN cell on (data 1, model 4) against the replicated
+    loss and gradient norm on the partition's relabeled graph (HALO_REL,
+    HALO_NORM_REL); counts zeroed before each sharded step, none
+    launched."""
+    from repro_torch import configs
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.core import mesh as M
+    from repro_torch.launch import cells
+    from repro_torch.models import gnn as G
+    from repro_torch.training import optimizer as OP
+    from repro_torch.training import train_loop as TL
+    tol = MC_GNN_TOL
+    mesh = M.make_mesh(MC_GNN_MESH, ("data", "model"), device=device)
+    rows = {}
+    small = {"full_graph_sm": {"n_nodes": 200, "n_edges": 800,
+                               "d_feat": 16},
+             "molecule": {"batch": 4}}
+    for arch, shape in MC_GNN:
+        arch_def = configs.get(arch)
+        sizes = small[shape] if rehearse else {}
+        shp = dict(GNN_SHAPES[shape], **sizes)
+        model = arch_def.extras["model"]
+        cfg = cells._gnn_config(arch_def, shp, rehearse)
+        params = cells._gnn_init(model, cfg, device)
+        cell = cells.build_cell(arch, shape, mesh, smoke=rehearse,
+                                sizes=sizes, params=params)
+        b = cell.args[2]
+        batch = {p[2:-2]: b.gather(p) for p in b.shapes}
+        zero_counts()
+        res, ms = timed_call(cell.run, device)
+        mc_counts_zero(f"{arch} train cell")
+        sharded = tm_metrics(res[2])
+        del cell, res
+        loss_fn = G.gnn_loss_fn(arch_def, shp, cfg,
+                                batch["feats"].shape[0])
+        step = TL.make_train_step(loss_fn, cells.OPT, 1)
+        (_, _, m), ms_u = timed_call(
+            lambda: step(params, OP.init_opt_state(params), batch), device)
+        un = tm_metrics(m)
+        rows[arch] = {
+            "shape": shape, "nodes": batch["feats"].shape[0],
+            "edges": batch["src"].shape[0], "sharded": sharded,
+            "unsharded": un,
+            "loss_rel_diff": mc_rel(f"{arch} loss", sharded["loss"],
+                                    un["loss"], tol["loss_rel"]),
+            "grad_norm_rel_diff": mc_rel(f"{arch} grad_norm",
+                                         sharded["grad_norm"],
+                                         un["grad_norm"], tol["gnorm_rel"]),
+            "ms": {"sharded": ms, "unsharded": ms_u}}
+        del params, batch
+    # the halo GatedGCN on (1, 4): a graph drawn here, its replicated form
+    # from the same plan
+    shp = dict(GNN_SHAPES["full_graph_sm"],
+               **(small["full_graph_sm"] if rehearse else {}))
+    n, E = shp["n_nodes"], shp["n_edges"]
+    rng = np.random.default_rng(8)
+    arrays = {"src": rng.integers(0, n, E), "dst": rng.integers(0, n, E),
+              "feats": rng.standard_normal((n, shp["d_feat"])).astype(
+                  np.float32),
+              "labels": rng.integers(0, shp["n_classes"], n).astype(
+                  np.int32),
+              "train_mask": (rng.random(n) < 0.5).astype(np.float32)}
+    hmesh = M.make_mesh(MC_HALO_MESH, ("data", "model"), device=device)
+    cfg = cells._gnn_config(configs.get("gatedgcn"), shp, rehearse)
+    params = cells._gnn_init("gatedgcn", cfg, device)
+    cell = cells.build_cell("gatedgcn", "full_graph_sm", hmesh,
+                            {"halo": True}, smoke=rehearse,
+                            sizes=small["full_graph_sm"] if rehearse else {},
+                            params=params, inputs=arrays)
+    zero_counts()
+    res, ms = timed_call(cell.run, device)
+    mc_counts_zero("halo gatedgcn cell")
+    halo = tm_metrics(res[2])
+    notes = cell.static_notes
+    del cell, res
+    part, plan, _, rep = cells.halo_batch(*(arrays[k] for k in (
+        "src", "dst", "feats", "labels", "train_mask")), n, hmesh.size)
+    src, dst, feats, labels, mask = (torch.from_numpy(x).to(device)
+                                     for x in rep)
+    loss = G.node_classification_loss(G.gatedgcn_apply(
+        params, cfg, feats, src, dst, part.n_pad), labels, mask)
+    grads = torch.autograd.grad(loss, list(params.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    gnorm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+    lr_ = float(loss.detach())
+    if not abs(halo["loss"] - lr_) <= HALO_REL * abs(lr_):
+        fail(f"5p halo: loss {halo['loss']} against the replicated {lr_}")
+    if not abs(halo["grad_norm"] - gnorm) <= HALO_NORM_REL * gnorm:
+        fail(f"5p halo: grad_norm {halo['grad_norm']} against the "
+             f"replicated {gnorm}")
+    rows["halo_gatedgcn"] = {
+        "mesh": dict(zip(("data", "model"), MC_HALO_MESH)), "nodes": n,
+        "edges_symmetric": int(part.graph.n_edges), "n_loc": part.n_loc,
+        "max_boundary": int(plan.n_boundary.max()), "notes": notes,
+        "sharded": halo, "replicated_loss": lr_,
+        "replicated_grad_norm": gnorm, "ms": ms}
+    del params
+    return {"mesh": dict(zip(("data", "model"), MC_GNN_MESH)),
+            "models": rows, "card": card}
+
+
+def phase_mesh_cells(device, card: str, cmp: Cmp, rehearse: bool) -> tuple:
+    """Phase 5p: MLA and the GNN / recsys cells on the model mesh
+    (``launch.cells``), the shards sharing the one card: (a) ``mc_mla``,
+    (b) ``mc_train``, (c) ``mc_recsys``, (d) ``mc_gnn``.  Returns (row, the
+    sharded MLA prefill's counts, its B5 launches by design, the counts of
+    (b)-(d), all 0)."""
+    t0 = time.perf_counter()
+    mla, counts, designs = mc_mla(device, card, cmp, rehearse)
+    log("mesh_cells", json.dumps({"mla_serve": mla}))
+    zero_counts()
+    train = mc_train(device, card, rehearse)
+    log("mesh_cells", json.dumps({"mla_train": train}))
+    recsys = mc_recsys(device, card, rehearse)
+    log("mesh_cells", json.dumps({"recsys": recsys}))
+    gnn = mc_gnn(device, card, rehearse)
+    log("mesh_cells", json.dumps({"gnn": gnn}))
+    others = launch_counts()
+    peak_reset(device)
+    seconds = time.perf_counter() - t0
+    row = {"card": card, "mla_serve": mla, "mla_train": train,
+           "recsys": recsys, "gnn": gnn, "prefill_launches": counts,
+           "attention_designs": designs, "other_launches": others,
+           "seconds": seconds, "budget_s": MC_BUDGET_S}
+    log("mesh_cells", f"phase 5p: {seconds:.1f} s (budget {MC_BUDGET_S} s: "
+                      f"{'within' if seconds <= MC_BUDGET_S else 'PAST'} it)")
+    return row, counts, designs, others
 
 
 def exact_launch_counts(what: str, res):
@@ -6415,6 +7016,9 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
     # one shard's prefill in 5n: qwen3-32b at model 4, 16 / 2 heads, D 80
     cases.append((64 if rehearse else SH_PREFILL_LEN, torch.bfloat16,
                   (1, 4, 1, 80) if rehearse else (1, 16, 2, 80)))
+    # one shard's MLA prefill in 5p: minicpm3-4b at model 4, 10 / 10 heads
+    cases.append((64 if rehearse else MC_PREFILL_LEN, torch.bfloat16,
+                  (1, 2, 2, 96) if rehearse else (1, 10, 10, 96)))
     for L, dt, (B, Hq, Hkv, D) in cases:
         q, k, v = (torch.randn((B, H, L, D), generator=gen, device=device,
                                dtype=torch.float32).to(dt)
@@ -6445,7 +7049,9 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
                "head_dim_80": D == 80 and Hq == (8 if rehearse else 64),
                "shard_head_dim_80": D == 80 and Hq == (4 if rehearse
                                                         else 16),
-               "head_dim_96": D == 96,
+               "head_dim_96": D == 96 and Hq == (8 if rehearse else 40),
+               "shard_head_dim_96": D == 96 and Hq == (2 if rehearse
+                                                        else 10),
                "design": route, "flops": flops, "bytes": nbytes,
                "ms": device_ms(fn, device, 10),
                "call_ms": time_ms(fn, device, 10),
@@ -6677,6 +7283,7 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
     d80 = next(r for r in model_rows if r.get("head_dim_80"))
     d96 = next(r for r in model_rows if r.get("head_dim_96"))
     shard80 = next(r for r in model_rows if r.get("shard_head_dim_80"))
+    shard96 = next(r for r in model_rows if r.get("shard_head_dim_96"))
     sp = next(r for r in model_rows
               if r["kernel"] == "ell_spmm" and r["kernels_line"])
     fa_src_of = {"sm90": "flash_attention_sm90.cu",
@@ -6712,10 +7319,12 @@ def kernels_line(kept, time_rows, model_rows, paths: dict, designs: dict,
     # D 80 (qwen3-32b, 5k d) and D 96 (minicpm3-4b's MLA, 5m): the sm90
     # design's tail panel, beside the fma kernel that served them before
     fa_line = next(k for k in kernels if k["name"] == "flash_attention")
-    # and one shard's attention on the sharded serving path (5n)
+    # and one shard's attention on the sharded serving paths (5n, 5p)
     for key, r, path in (("head_dim_80", d80, "lm_serve_32b"),
                          ("head_dim_96", d96, "mla_serve"),
-                         ("shard_head_dim_80", shard80, "lm_serve_sharded")):
+                         ("shard_head_dim_80", shard80, "lm_serve_sharded"),
+                         ("shard_head_dim_96", shard96,
+                          "mla_serve_sharded")):
         per_design = designs.get(path, {}).get("flash_attention", {})
         fa_line[key] = {
             "source": csrc + fa_src_of[r["design"]], "path": path,
@@ -6966,6 +7575,11 @@ def main() -> int:
         # ---- phase 5o: LM training on the model mesh ----
         tm_row, counts_tm = phase_lm_train_mesh(device, card, args.rehearse)
 
+        # ---- phase 5p: MLA and the GNN / recsys cells on the mesh ----
+        mc_row, counts_mc, mc_designs, counts_mc_other = phase_mesh_cells(
+            device, card, cmp, args.rehearse)
+        designs["mla_serve_sharded"] = {"flash_attention": mc_designs}
+
         # ---- phase 6: kernel times ----
         slot_row = phase_times_slots(device, svc_states, cmp, launch)
         del svc_states
@@ -6992,7 +7606,8 @@ def main() -> int:
              "lm_train": counts_lm_train, "lm_serve_32b": counts_lm_32b,
              "models": counts_models, "moe_mla_serve": counts_mm_serve,
              "moe_mla_train": counts_mm_train,
-             "lm_serve_sharded": counts_sh, "lm_train_mesh": counts_tm}
+             "lm_serve_sharded": counts_sh, "lm_train_mesh": counts_tm,
+             "mla_serve_sharded": counts_mc, "mesh_cells": counts_mc_other}
     kernels = kernels_line(kept, time_rows, model_rows, paths, designs, cmp,
                            t1_path, slot_row, svc_path)
     if args.rehearse:
@@ -7015,6 +7630,7 @@ def main() -> int:
     print(json.dumps({"moe_mla_path": mm_row}), flush=True)
     print(json.dumps({"lm_serve_sharded_path": sh_row}), flush=True)
     print(json.dumps({"lm_train_mesh_path": tm_row}), flush=True)
+    print(json.dumps({"mesh_cells_path": mc_row}), flush=True)
     print(json.dumps({"kernel_times": time_rows + model_rows + [slot_row]}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

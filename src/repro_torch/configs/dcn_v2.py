@@ -2,8 +2,8 @@
 mlp=1024-1024-512 interaction=cross.  [arXiv:2008.13535; paper]
 
 Embedding tables default to 1M rows per field (criteo-class); the lookup is
-the hot path.  The port keeps every table whole on one device (the
-reference row-shards them over the model axis)."""
+the hot path.  On a mesh the tables are row-sharded over the model axis,
+as in the reference (``models/recsys_mesh.py``)."""
 from repro_torch.configs.common import ArchDef
 from repro_torch.models.recsys import DCNv2Config
 

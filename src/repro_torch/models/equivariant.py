@@ -252,7 +252,15 @@ def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _interaction(lp, cfg: NequIPConfig, feats, sh, rbf_w, src, dst, n_nodes):
     """One NequIP interaction block. feats: {l: (N, C, 2l+1)}."""
-    C = cfg.channels
+    msgs = messages(cfg, feats, sh, rbf_w, src)
+    return node_update(lp, cfg, feats, {
+        l: None if m is None else segment_sum(m, dst, n_nodes)
+        for l, m in msgs.items()})
+
+
+def messages(cfg: NequIPConfig, feats, sh, rbf_w, src) -> dict:
+    """An interaction block's edge side: per l the (E, C, 2l+1) messages
+    (None where no path ends at l)."""
     msgs = {l: None for l in range(cfg.l_max + 1)}
     hj_of = {}                       # one gather a source order
     for pi, (l1, l2, l3) in enumerate(cfg.paths):
@@ -264,10 +272,16 @@ def _interaction(lp, cfg: NequIPConfig, feats, sh, rbf_w, src, dst, n_nodes):
         m = torch.einsum("ecx,ey,xyz->ecz", hj_of[l1], y, w)   # (E, C, d3)
         m = m * r[..., None]
         msgs[l3] = m if msgs[l3] is None else msgs[l3] + m
+    return msgs
+
+
+def node_update(lp, cfg: NequIPConfig, feats, aggs: dict) -> dict:
+    """An interaction block's node side, from the messages summed into
+    their destinations (``aggs``: per l (N, C, 2l+1), or None)."""
+    C = cfg.channels
     out = {}
     for l in range(cfg.l_max + 1):
-        agg = segment_sum(msgs[l], dst, n_nodes) \
-            if msgs[l] is not None else torch.zeros_like(feats[l])
+        agg = aggs[l] if aggs[l] is not None else torch.zeros_like(feats[l])
         selfi = torch.einsum("ncx,cd->ndx", feats[l], lp["self"][l])
         h = selfi + torch.einsum("ncx,cd->ndx", agg, lp["post"][l])
         out[l] = h
@@ -283,13 +297,10 @@ def _interaction(lp, cfg: NequIPConfig, feats, sh, rbf_w, src, dst, n_nodes):
     return new
 
 
-def nequip_apply(params, cfg: NequIPConfig, species, positions, src, dst,
-                 n_nodes, scalar_feats=None, node_mask=None):
-    """Per-node energy contributions.
-
-    species: (N,) int; positions: (N, 3); src/dst: (E,) edges (messages
-    flow src -> dst; an id < 0 marks a padding edge); scalar_feats:
-    optional (N, d_scalar_in).  Returns per-node scalar energy (N,)."""
+def embed_nodes(params, cfg: NequIPConfig, species, n_nodes,
+                scalar_feats=None) -> dict:
+    """The input features {l: (N, C, 2l+1)}: species (and scalar inputs)
+    at l = 0, zeros above."""
     C = cfg.channels
     h0 = gather(params["species_embed"],
                 torch.clamp(species, 0, cfg.n_species - 1))
@@ -298,27 +309,50 @@ def nequip_apply(params, cfg: NequIPConfig, species, positions, src, dst,
     feats = {0: h0[..., None]}
     for l in range(1, cfg.l_max + 1):
         feats[l] = h0.new_zeros((n_nodes, C, 2 * l + 1))
+    return feats
 
+
+def edge_basis(cfg: NequIPConfig, positions, src, dst) -> tuple:
+    """Per edge (spherical harmonics by l, the radial basis (E, n_rbf), the
+    valid mask, dst with padding edges sent to node 0)."""
     rel = _take(positions, src) - _take(positions, dst)       # (E, 3)
     dist = torch.sqrt((rel * rel).sum(-1) + 1e-12)
     unit = rel / dist[..., None]
     sh = spherical_harmonics(unit, cfg.l_max)
     rbf = bessel_basis(dist, cfg.n_rbf, cfg.cutoff)            # (E, n_rbf)
     edge_valid = (src >= 0) & (dst >= 0)
-    dst_safe = torch.where(edge_valid, dst, 0)
+    return sh, rbf, edge_valid, torch.where(edge_valid, dst, 0)
 
-    n_paths = len(cfg.paths)
-    for lp in params["layers"]:
-        rw = mlp_apply(lp["radial"], rbf, act=F.silu)
-        rw = rw.reshape(-1, n_paths, C)
-        rw = rw * edge_valid[:, None, None]
-        feats = _interaction(lp, cfg, feats, sh, rw, src, dst_safe, n_nodes)
 
+def radial_weights(lp, cfg: NequIPConfig, rbf, edge_valid):
+    """A layer's per-(edge, path, channel) radial weights."""
+    rw = mlp_apply(lp["radial"], rbf, act=F.silu)
+    rw = rw.reshape(-1, len(cfg.paths), cfg.channels)
+    return rw * edge_valid[:, None, None]
+
+
+def readout(params, feats, node_mask=None):
+    """Per-node energy (N,) from the l = 0 features."""
     e = F.silu(feats[0][..., 0] @ params["readout1"]) @ params["readout2"]
     e = e[..., 0]
     if node_mask is not None:
         e = e * node_mask
     return e
+
+
+def nequip_apply(params, cfg: NequIPConfig, species, positions, src, dst,
+                 n_nodes, scalar_feats=None, node_mask=None):
+    """Per-node energy contributions.
+
+    species: (N,) int; positions: (N, 3); src/dst: (E,) edges (messages
+    flow src -> dst; an id < 0 marks a padding edge); scalar_feats:
+    optional (N, d_scalar_in).  Returns per-node scalar energy (N,)."""
+    feats = embed_nodes(params, cfg, species, n_nodes, scalar_feats)
+    sh, rbf, edge_valid, dst_safe = edge_basis(cfg, positions, src, dst)
+    for lp in params["layers"]:
+        rw = radial_weights(lp, cfg, rbf, edge_valid)
+        feats = _interaction(lp, cfg, feats, sh, rw, src, dst_safe, n_nodes)
+    return readout(params, feats, node_mask)
 
 
 def energy_and_forces(params, cfg: NequIPConfig, species, positions, src, dst,

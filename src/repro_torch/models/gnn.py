@@ -223,14 +223,26 @@ def _gated_layer(blk, h, e, tab, src, dst, n_nodes):
     products ``h[src] @ D`` of the reference are taken per node and then
     gathered, ``(tab @ D)[src]``: the same sums, and an (E, d) tensor less
     for autograd to keep."""
-    d = h.shape[1]
+    m, e_new = gated_edges(blk, h, e, tab, src, dst)
+    return gated_nodes(blk, h, segment_sum(m, dst, n_nodes)), e_new
+
+
+def gated_edges(blk, h, e, tab, src, dst):
+    """A GatedGCN layer's edge side: (the (E, 2d) rows the destinations
+    sum — the gate and the gated message side by side, one scatter —, the
+    new edge state)."""
     e_new = e + gather(tab @ blk["D"], src) + gather(h @ blk["E"], dst)
     eta = torch.sigmoid(e_new)
     msg = eta * gather(tab @ blk["B"], src)
-    s = segment_sum(torch.cat([eta, msg], 1), dst, n_nodes)   # one scatter
+    return torch.cat([eta, msg], 1), e_new
+
+
+def gated_nodes(blk, h, s):
+    """A GatedGCN layer's node side, from the summed rows ``s`` (N, 2d)."""
+    d = h.shape[1]
     agg = s[:, d:] / (s[:, :d] + 1e-6)
     h_new = h @ blk["A"] + agg
-    return h + torch.relu(_bn_free_norm(h_new)), e_new
+    return h + torch.relu(_bn_free_norm(h_new))
 
 
 def gatedgcn_apply(params, cfg: GatedGCNConfig, feats, src, dst, n_nodes):
@@ -378,21 +390,25 @@ def gnn_loss_fn(arch_def, shp: dict, cfg, n_nodes: int):
                               batch["dst"], n_nodes)
 
     def loss(params, batch):
-        out = forward(params, batch)
-        if mode == "batched":
-            e_graph = segment_sum(out.mean(-1), batch["graph_id"],
-                                  batch["energy"].shape[0])
-            return ((e_graph - batch["energy"]) ** 2).mean()
-        if model == "nequip":                     # regression head elsewhere
-            tgt = (batch["labels"] % 2).to(torch.float32)
-            pred = out[: tgt.shape[0], 0]
-            return ((pred - tgt) ** 2).mean()
-        n_lab = batch["labels"].shape[0]
-        mask = batch.get("train_mask")
-        mask = mask[:n_lab] if mask is not None else None
-        return node_classification_loss(out[:n_lab], batch["labels"], mask)
+        return output_loss(model, mode, forward(params, batch), batch)
 
     return loss
+
+
+def output_loss(model: str, mode: str, out, batch: dict):
+    """A GNN train cell's loss of the model's node outputs ``out`` (N, c)."""
+    if mode == "batched":
+        e_graph = segment_sum(out.mean(-1), batch["graph_id"],
+                              batch["energy"].shape[0])
+        return ((e_graph - batch["energy"]) ** 2).mean()
+    if model == "nequip":                     # regression head elsewhere
+        tgt = (batch["labels"] % 2).to(torch.float32)
+        pred = out[: tgt.shape[0], 0]
+        return ((pred - tgt) ** 2).mean()
+    n_lab = batch["labels"].shape[0]
+    mask = batch.get("train_mask")
+    mask = mask[:n_lab] if mask is not None else None
+    return node_classification_loss(out[:n_lab], batch["labels"], mask)
 
 
 # --------------------------------------------------------------------------

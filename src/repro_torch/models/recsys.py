@@ -10,8 +10,9 @@ gather's gradient is ``scatter.gather``'s scatter: on the card an accumulating
 ``index_put_`` over sorted ids, so a training step, and a restart from a
 checkpoint, repeat bit for bit however many ids repeat.
 
-The reference row-shards its tables over a mesh's ``model`` axis; the port
-keeps every table whole on one device.
+On a mesh the tables are row-sharded over ``model`` and the deep tower
+split by columns, as the reference shards them (``models/recsys_mesh.py``,
+the recsys cells of ``launch/cells.py``).
 
 Three entry points mirror the assigned shapes:
   ctr_loss(params, cfg, batch)         train_batch / serve shapes (BCE)

@@ -39,9 +39,26 @@ sanitized spec names):
   ``decode_write_then_attend`` the write comes first; without, the step's
   own K / V join the merge as one more block and the write comes after.
 
+MLA (``_mla_*``): ``lm_param_spec_tp`` splits the three latent projections
+``w_dq`` / ``w_dkv`` / ``w_kr`` by their output columns, and their outputs
+go through an rmsnorm over the whole rank or the rope over the whole of dr,
+so each position gathers the products' columns first.  ``w_uq`` /
+``w_uk`` / ``w_uv`` are per-head column blocks: a position computes its own
+heads (in prefill one attention launch on them, B5 at head dim dn + dr on
+the card, V zero-padded), or every head from the gathered weights where the
+split would cut a head.  ``w_o``'s path has no ``wo``, so it is split by its
+output columns (d): the heads' outputs are gathered, each position takes
+its column block of the product, and the blocks are gathered.  The latent
+cache holds its sequence at dim 2; ``prefill`` keeps each position's
+sequence block of the whole latents, and ``decode_step`` writes the step's
+latents (computed whole on every position) into the owning block and runs
+the absorbed decode by blocks: the softmax's max and sum merged by
+log-sum-exp first, so that each block's probabilities are normalised
+before the reference's cast, then the blocks' ``o_c`` summed
+(``models/mla.py``).
+
 Logits come back as one (B, vocab) tensor on the first shard's device (a
-fetch to the caller, not counted); caches as a ``Placed``.  MLA on a mesh
-raises (ROADMAP A.7.3).
+fetch to the caller, not counted); caches as a ``Placed``.
 
 Training (the reference's ``_lm_train_cell`` loss, ``launch/cells.py``
 takes the step): the stored tree goes to the compute layout by
@@ -73,6 +90,7 @@ from repro_torch.core.mesh import Sharded
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models.scatter import gather
 
@@ -96,10 +114,6 @@ class _Run:
     the axes each leaf is split over."""
 
     def __init__(self, placed: SH.Placed, cfg=None):
-        if cfg is not None and cfg.attn_type == "mla":
-            raise NotImplementedError(
-                f"{cfg.name}: MLA under a mesh is not ported yet (ROADMAP "
-                f"A.7.3)")
         self.p, self.cfg, self.mesh = placed, cfg, placed.mesh
         self.positions = range(self.mesh.size)
         # every leaf under "layers" is stacked on the layer axis
@@ -471,6 +485,149 @@ def _merge_heads(o):
     return o.transpose(1, 2).reshape(B, Lq, -1)
 
 
+# --------------------------------------------------------------------------
+# MLA: latent projections split by columns, per-head blocks, w_o by columns
+# --------------------------------------------------------------------------
+
+_MLA_HEADS = ("w_uq", "w_uk", "w_uv")
+
+
+def _mla_plan(run: _Run) -> tuple:
+    """(the axes the heads are split over, or () where a position computes
+    every head; per position its heads [h0, h1)).  A position owns whole
+    heads when ``w_uq`` / ``w_uk`` / ``w_uv`` are split over the same axes
+    and the heads divide over them; otherwise the split would cut a head
+    and the weights are gathered (``_mla_weights``)."""
+    H, dn = run.cfg.mla.n_heads, run.cfg.mla.qk_nope_dim
+    axes = {run.split(("layers", "attn", k), 2) for k in _MLA_HEADS}
+    if len(axes) == 1:
+        ax = axes.pop()
+        if ax and H % len(run.mesh.groups(ax)[0]) == 0:
+            return ax, [tuple(c // dn for c in run.range(
+                ("layers", "attn", "w_uk"), 2, pos)) for pos in run.positions]
+    return (), [(0, H)] * run.mesh.size
+
+
+def _mla_weights(run: _Run, i: int, plan) -> list:
+    """Per position layer ``i``'s ``w_uq`` / ``w_uk`` / ``w_uv`` for the heads
+    it computes: its own column blocks, or every column (gathered where
+    split)."""
+    if plan[0]:
+        return [{k: run.layer(pos, i, "attn", k) for k in _MLA_HEADS}
+                for pos in run.positions]
+    full = {k: _weight_full(run, i, ("attn", k)) for k in _MLA_HEADS}
+    return [{k: full[k][pos] for k in _MLA_HEADS} for pos in run.positions]
+
+
+def _mla_latents(run: _Run, i: int, xn: list, positions: list) -> list:
+    """Per position (c_q, c_kv, k_r) of its rows, each whole: ``w_dq``,
+    ``w_dkv`` and ``w_kr`` are split by their output columns, and the norms
+    over the whole rank and the rope over the whole of dr need every
+    column, so the products are gathered first (one gather for the
+    projections that share their axes)."""
+    m = run.cfg.mla
+    a = ("attn",)
+    lin = _cols_full(run, i, [a + ("w_dq",), a + ("w_dkv",), a + ("w_kr",)],
+                     xn)
+    out = []
+    for pos, (cq, ckv, kr) in enumerate(lin):
+        lp = run.layer(pos, i, "attn")
+        out.append((L.rmsnorm(lp["q_norm"], cq),
+                    L.rmsnorm(lp["kv_norm"], ckv),
+                    L.rope(kr, positions[pos], m.rope_theta)))
+    return out
+
+
+def _mla_attention(run: _Run, i: int, xn: list, positions: list, plan,
+                   training: bool) -> tuple:
+    """One layer's materialised MLA on each position's heads: (per position
+    its heads' output (B, L, h·dv), per position (c_q, c_kv, k_r)).  One
+    attention call a position: ``chunked_attention`` when ``training``,
+    else ``prefill_attention`` (B5 on the card, at head dim dn + dr)."""
+    cfg = run.cfg
+    m = cfg.mla
+    lat = _mla_latents(run, i, xn, positions)
+    ws = _mla_weights(run, i, plan)
+    hs = []
+    for pos, (c_q, c_kv, k_r) in enumerate(lat):
+        w = ws[pos]
+        q_n, q_r = MLA.head_queries(m, c_q, w["w_uq"], positions[pos])
+        q, k, vp = MLA.head_qkv(m, q_n, q_r, c_kv, k_r, w["w_uk"],
+                                w["w_uv"])
+        attend = (L.chunked_attention if training else L.prefill_attention)
+        kw = {"flash_bwd": cfg.flash_bwd} if training else {}
+        o = attend(q, k, vp, causal=True, chunk_q=cfg.chunk_q,
+                   chunk_k=cfg.chunk_k, **kw)
+        hs.append(_merge_heads(o[..., :m.v_head_dim]))
+    return hs, lat
+
+
+def _mla_out(run: _Run, i: int, hs: list, plan, seq_axes=()) -> list:
+    """``o @ w_o`` with ``w_o`` split by its output columns (d): the heads'
+    outputs gathered over the head axes (every head, in order), each
+    position's column block of the product, the blocks gathered; with
+    ``seq_axes`` (``act_shard``) each position keeps its sequence block."""
+    mesh = run.mesh
+    full = _concat_gathered(mesh, plan[0], hs)
+    keys = ("layers", "attn", "w_o")
+    parts = [h @ run.layer(pos, i, *keys[1:]) for pos, h in enumerate(full)]
+    ys = _concat_gathered(mesh, run.split(keys, 2), parts)
+    if seq_axes:
+        ys = [_seq_block(mesh, seq_axes, y, pos) for pos, y in enumerate(ys)]
+    return ys
+
+
+def _mla_decode(run: _Run, i: int, xn: list, positions: list, lens: list,
+                bufs: list, s0: list, S: int, seq_axes, plan) -> list:
+    """One layer's absorbed decode on the sequence-sharded latent cache:
+    per position its heads' (B, 1, h·dv) before ``w_o``.  The step's
+    latents are computed whole on every position (``_mla_latents``), its
+    query in latent space on each position's heads and gathered over the
+    head axes, so that every position scores every head against its block
+    of slots.  One gather of the blocks' softmax statistics gives the
+    global max and sum, each block's probabilities are normalised and cast
+    as the reference casts them, and one ``psum`` adds the blocks' ``o_c``
+    (``models/mla.py``).  With ``decode_write_then_attend`` the latents are
+    written into the position that owns slot ``length`` first; without,
+    they are one more block and written after."""
+    cfg, mesh = run.cfg, run.mesh
+    m = cfg.mla
+    r = m.kv_lora_rank
+    lat = _mla_latents(run, i, xn, positions)
+    ws = _mla_weights(run, i, plan)
+    qs = []
+    for pos, (c_q, _, _) in enumerate(lat):
+        q_c, q_r = MLA.absorbed_query(m, *MLA.head_queries(
+            m, c_q, ws[pos]["w_uq"], positions[pos]), ws[pos]["w_uk"])
+        qs.append(torch.cat([q_c, q_r], -1))
+    if plan[0]:         # every head on every position, in head order
+        qs = [g.movedim(0, 1).reshape(g.shape[1], -1, g.shape[-1])
+              for g in M.all_gather_groups(mesh, plan[0], qs)]
+    wta = cfg.decode_write_then_attend
+
+    def write():
+        for pos, (_, c_new, kr_new) in enumerate(lat):
+            for buf, val in zip(bufs[pos], (c_new, kr_new)):
+                _write_local(buf, val[:, 0], lens[pos], s0[pos], S, axis=1)
+
+    if wta:
+        write()
+    new = None if wta else [
+        (c_new.to(b[0].dtype), kr_new.to(b[1].dtype))
+        for (_, c_new, kr_new), b in zip(lat, bufs)]
+    o_c = MLA.sharded_o_c(m, mesh, seq_axes,
+                          [(q[..., :r], q[..., r:]) for q in qs], bufs,
+                          [n + 1 if wta else n for n in lens], s0, new)
+    hs = []
+    for pos, o in enumerate(o_c):
+        h0, h1 = plan[1][pos]
+        hs.append(MLA.absorbed_output(m, o.to(xn[pos].dtype)[:, h0:h1],
+                                      ws[pos]["w_uv"]))
+    if not wta:
+        write()
+    return hs
+
+
 def _prefill_attention(run: _Run, i: int, xn: list, positions: list,
                        plan) -> tuple:
     """One layer's attention: (h per position, (k, v) per position with
@@ -502,12 +659,26 @@ def _token_axes(mesh, spec, shape) -> tuple:
     return SH.entry_axes(spec[0]) if spec else ()
 
 
+def _cache_layout(cfg, n_layers: int, B: int, S: int) -> tuple:
+    """(the cache's global shapes by key, the dimension of its sequence):
+    GQA's {"k", "v"} of (n_layers, B, Hkv, S, Dh), sequence at dim 3; MLA's
+    {"c_kv", "k_rope"} of (n_layers, B, S, r) / (n_layers, B, S, dr),
+    sequence at dim 2."""
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        return {"c_kv": (n_layers, B, S, m.kv_lora_rank),
+                "k_rope": (n_layers, B, S, m.qk_rope_dim)}, 2
+    shape = (n_layers, B, cfg.n_kv_heads, S, cfg.head_dim)
+    return {"k": shape, "v": shape}, 3
+
+
 def prefill(placed: SH.Placed, cfg, tokens):
     """tokens (B, L) -> (last-position logits (B, vocab), the caches placed
     by ``lm_cache_spec``: GQA's {"k", "v"} of global shape (n_layers, B,
-    Hkv, L, Dh))."""
+    Hkv, L, Dh), MLA's {"c_kv", "k_rope"} of (n_layers, B, L, r / dr))."""
     run = _Run(placed, cfg)
     mesh = run.mesh
+    mla = cfg.attn_type == "mla"
     bspec = SH.lm_batch_spec(mesh)
     B, Lq = (tokens.shapes[""] if isinstance(tokens, SH.Placed)
              else tuple(tokens.shape))
@@ -516,59 +687,69 @@ def prefill(placed: SH.Placed, cfg, tokens):
     xs = _embed(run, toks)
     positions = [torch.arange(Lq, dtype=torch.int32, device=t.device)[
         None].expand(t.shape[0], Lq) for t in toks]
-    plan = _head_plan(run)
+    plan = _mla_plan(run) if mla else _head_plan(run)
     n_layers = run.n_layers
-    shape = (n_layers, B, cfg.n_kv_heads, Lq, cfg.head_dim)
-    cspec = {k: SH.sanitize_spec(s, shape, mesh) for k, s in
+    shapes, sdim = _cache_layout(cfg, n_layers, B, Lq)
+    cspec = {k: SH.sanitize_spec(s, shapes[k], mesh) for k, s in
              SH.lm_cache_spec(mesh, cfg.attn_type, B, cfg.n_kv_heads).items()}
+    first = next(iter(shapes))
     tspec = SH.sanitize_spec(bspec, (B, Lq), mesh)
     seq = []
     for pos in run.positions:
-        b = SH.block_range(mesh, cspec["k"], shape, 1, pos)
+        b = SH.block_range(mesh, cspec[first], shapes[first], 1, pos)
         if b != SH.block_range(mesh, tspec, (B, Lq), 0, pos):
             raise ValueError(f"cache batch rows {b} differ from the tokens'")
-        seq.append(slice(*SH.block_range(mesh, cspec["k"], shape, 3, pos)))
-    cache = [([], []) for _ in run.positions]
+        # the shard's sequence block of a layer's (B_loc, ...) tensor
+        seq.append((slice(None),) * (sdim - 2) + (slice(*SH.block_range(
+            mesh, cspec[first], shapes[first], sdim, pos)),))
+    cache = [{k: [] for k in shapes} for _ in run.positions]
     for i in range(n_layers):
         xn = [L.rmsnorm(run.layer(pos, i, "ln1"), x)
               for pos, x in enumerate(xs)]
-        h, kvs = _prefill_attention(run, i, xn, positions, plan)
+        if mla:
+            hs, lat = _mla_attention(run, i, xn, positions, plan, False)
+            h = _mla_out(run, i, hs, plan)
+            kvs = [(c_kv, k_r) for _, c_kv, k_r in lat]
+        else:
+            h, kvs = _prefill_attention(run, i, xn, positions, plan)
         xs = [x + hh for x, hh in zip(xs, h)]
         xs = [x + y for x, y in zip(xs, _ffn(run, i, xs, tok_axes))]
         for pos, kv in enumerate(kvs):     # the shard's sequence block
-            cache[pos][0].append(kv[0][:, :, seq[pos]])
-            cache[pos][1].append(kv[1][:, :, seq[pos]])
+            for key, t in zip(shapes, kv):
+                cache[pos][key].append(t[(slice(None),) + seq[pos]])
     xs = [L.rmsnorm(run.leaf(pos, "final_norm"), x[:, -1:])
           for pos, x in enumerate(xs)]
     logits = [lg[:, 0] for lg in _unembed(run, xs)]
     caches = SH.Placed(
-        mesh, {"['k']": shape, "['v']": shape},
-        {"['k']": cspec["k"], "['v']": cspec["v"]},
-        tuple({"k": torch.stack(k), "v": torch.stack(v)} for k, v in cache))
+        mesh, {f"[{k!r}]": s for k, s in shapes.items()},
+        {f"[{k!r}]": cspec[k] for k in shapes},
+        tuple({k: torch.stack(v) for k, v in c.items()} for c in cache))
     return _assemble(mesh, logits, bspec, (B, placed.shapes[
         _path("embed", "table")][0])), caches
 
 
-def _write_local(buf, val, length, s0: int, S: int) -> None:
-    """Write val (B, Hkv, Dh) into a shard's block buf (B, Hkv, n, Dh) of
-    slots s0 .. s0 + n - 1 at the global slot clip(length, 0, S - 1), in
-    the rows whose slot the block holds (no host sync)."""
-    n = buf.shape[2]
+def _write_local(buf, val, length, s0: int, S: int, axis: int = 2) -> None:
+    """Write val (B, ...) into a shard's block buf of slots s0 .. s0 + n - 1
+    along ``axis`` (GQA's (B, Hkv, n, Dh): 2; MLA's (B, n, r): 1) at the
+    global slot clip(length, 0, S - 1), in the rows whose slot the block
+    holds (no host sync)."""
+    n = buf.shape[axis]
     loc = length.long().clamp(0, S - 1) - s0
     own = (loc >= 0) & (loc < n)
     loc = loc.clamp(0, n - 1)
     rows = torch.arange(buf.shape[0], device=buf.device)
-    view = buf.movedim(2, 1)
-    view[rows, loc] = torch.where(own[:, None, None], val.to(buf.dtype),
-                                  view[rows, loc])
+    view = buf.movedim(axis, 1)
+    own = own.reshape((-1,) + (1,) * (val.dim() - 1))
+    view[rows, loc] = torch.where(own, val.to(buf.dtype), view[rows, loc])
 
 
 def decode_step(placed: SH.Placed, cfg, token, cache: SH.Placed, length):
     """token (B,), cache placed by ``lm_cache_spec`` (``prefill``'s, or
     ``launch.cells``'), length (B,) -> (logits (B, vocab), cache), the
-    step's K / V written into the cache's blocks in place."""
+    step's K / V (MLA: latents) written into the cache's blocks in place."""
     run = _Run(placed, cfg)
     mesh = run.mesh
+    mla = cfg.attn_type == "mla"
     B = token.shapes[""][0] if isinstance(token, SH.Placed) else \
         token.shape[0]
     b_axes = batch_axes(mesh)       # the reference's decode cell's rule
@@ -577,54 +758,36 @@ def decode_step(placed: SH.Placed, cfg, token, cache: SH.Placed, length):
     tok_axes = _token_axes(mesh, bspec, (B,))
     toks = _batch_rows(mesh, token, bspec)
     lens = _batch_rows(mesh, length, bspec)
-    kshape = cache.shapes["['k']"]
-    S = kshape[3]
-    seq_axes = cache.split("['k']", 3)
+    keys = ("c_kv", "k_rope") if mla else ("k", "v")
+    key0 = f"[{keys[0]!r}]"
+    sdim = 2 if mla else 3
+    kshape = cache.shapes[key0]
+    S = kshape[sdim]
+    seq_axes = cache.split(key0, sdim)
     for pos in run.positions:
-        b = cache.range("['k']", 1, pos)
+        b = cache.range(key0, 1, pos)
         rows = SH.block_range(mesh, SH.sanitize_spec(bspec, (B,), mesh),
                               (B,), 0, pos)
         if b != rows:
             raise ValueError(f"cache batch rows {b} differ from the "
                              f"tokens' {rows}")
-    acfg = cfg.attn_cfg()
+    s0 = [cache.range(key0, sdim, pos)[0] for pos in run.positions]
+    acfg = None if mla else cfg.attn_cfg()
+    plan = _mla_plan(run) if mla else None
     xs = _embed(run, [t[:, None] for t in toks])
     positions = [ln[:, None] for ln in lens]
-    a = ("attn",)
     for i in range(kshape[0]):
         xn = [L.rmsnorm(run.layer(pos, i, "ln1"), x)
               for pos, x in enumerate(xs)]
-        lin = _cols_full(run, i, [a + ("wq",), a + ("wk",), a + ("wv",)], xn)
-        qkv = [L.gqa_heads(run.layer(pos, i, "attn"), acfg, *lin[pos],
-                           positions[pos]) for pos in run.positions]
-        kb = [cache.shards[pos]["k"][i] for pos in run.positions]
-        vb = [cache.shards[pos]["v"][i] for pos in run.positions]
-        s0 = [cache.range("['k']", 3, pos)[0] for pos in run.positions]
-        if cfg.decode_write_then_attend:
-            for pos, (q, k, v) in enumerate(qkv):
-                _write_local(kb[pos], k[:, :, 0], lens[pos], s0[pos], S)
-                _write_local(vb[pos], v[:, :, 0], lens[pos], s0[pos], S)
-            o = L.decode_attention(
-                Sharded(mesh, tuple(q for q, _, _ in qkv)),
-                Sharded(mesh, tuple(kb)), Sharded(mesh, tuple(vb)),
-                Sharded(mesh, tuple(ln + 1 for ln in lens)),
-                seq_axis=seq_axes, extra_slot=False).blocks
-        else:           # the step's own K / V: one more block of the merge
-            parts = [L.decode_partial(qkv[pos][0], kb[pos], vb[pos],
-                                      lens[pos], s0[pos], S, False)
-                     for pos in run.positions]
-            o = []
-            for pos, g in enumerate(M.all_gather_groups(mesh, seq_axes,
-                                                        parts)):
-                q, k, v = qkv[pos]
-                own = L.decode_partial(q, k, v, None, 0, 1, False)
-                o.append(L.merge_partials(torch.cat([g, own[None]]),
-                                          q.dtype))
-            for pos, (q, k, v) in enumerate(qkv):
-                _write_local(kb[pos], k[:, :, 0], lens[pos], s0[pos], S)
-                _write_local(vb[pos], v[:, :, 0], lens[pos], s0[pos], S)
-        hs = [t.transpose(1, 2).reshape(t.shape[0], 1, -1) for t in o]
-        h = _rows(run, i, a + ("wo",), hs, own=False)
+        bufs = [tuple(cache.shards[pos][k][i] for k in keys)
+                for pos in run.positions]
+        if mla:
+            hs = _mla_decode(run, i, xn, positions, lens, bufs, s0, S,
+                             seq_axes, plan)
+            h = _mla_out(run, i, hs, plan)
+        else:
+            h = _gqa_decode(run, i, xn, positions, lens, bufs, s0, S,
+                            seq_axes, acfg)
         xs = [x + hh for x, hh in zip(xs, h)]
         xs = [x + y for x, y in zip(xs, _ffn(run, i, xs, tok_axes))]
     xs = [L.rmsnorm(run.leaf(pos, "final_norm"), x)
@@ -632,6 +795,49 @@ def decode_step(placed: SH.Placed, cfg, token, cache: SH.Placed, length):
     logits = [lg[:, 0] for lg in _unembed(run, xs)]
     return _assemble(mesh, logits, bspec, (B, placed.shapes[
         _path("embed", "table")][0])), cache
+
+
+def _gqa_decode(run: _Run, i: int, xn: list, positions: list, lens: list,
+                bufs: list, s0: list, S: int, seq_axes, acfg) -> list:
+    """One layer's GQA decode on the sequence-sharded K / V cache: per
+    position the attention's output after ``wo``.  q and the step's K / V
+    for every head (their projections' columns gathered), the K / V
+    written into the shard that owns slot ``length``, flash-decoding over
+    the blocks (``layers.decode_attention(..., seq_axis=)``); without
+    ``decode_write_then_attend`` the step's own K / V join the merge as one
+    more block and are written after."""
+    cfg, mesh = run.cfg, run.mesh
+    a = ("attn",)
+    lin = _cols_full(run, i, [a + ("wq",), a + ("wk",), a + ("wv",)], xn)
+    qkv = [L.gqa_heads(run.layer(pos, i, "attn"), acfg, *lin[pos],
+                       positions[pos]) for pos in run.positions]
+    kb = [b[0] for b in bufs]
+    vb = [b[1] for b in bufs]
+
+    def write():
+        for pos, (q, k, v) in enumerate(qkv):
+            _write_local(kb[pos], k[:, :, 0], lens[pos], s0[pos], S)
+            _write_local(vb[pos], v[:, :, 0], lens[pos], s0[pos], S)
+
+    if cfg.decode_write_then_attend:
+        write()
+        o = L.decode_attention(
+            Sharded(mesh, tuple(q for q, _, _ in qkv)),
+            Sharded(mesh, tuple(kb)), Sharded(mesh, tuple(vb)),
+            Sharded(mesh, tuple(ln + 1 for ln in lens)),
+            seq_axis=seq_axes, extra_slot=False).blocks
+    else:           # the step's own K / V: one more block of the merge
+        parts = [L.decode_partial(qkv[pos][0], kb[pos], vb[pos],
+                                  lens[pos], s0[pos], S, False)
+                 for pos in run.positions]
+        o = []
+        for pos, g in enumerate(M.all_gather_groups(mesh, seq_axes, parts)):
+            q, k, v = qkv[pos]
+            own = L.decode_partial(q, k, v, None, 0, 1, False)
+            o.append(L.merge_partials(torch.cat([g, own[None]]), q.dtype))
+        write()
+    hs = [t.transpose(1, 2).reshape(t.shape[0], 1, -1) for t in o]
+    return _rows(run, i, a + ("wo",), hs, own=False)
 
 
 # --------------------------------------------------------------------------
@@ -648,14 +854,20 @@ def _train_layer(run: _Run, i: int, xs: list, aux: list, positions: list,
     ``seq_axes`` (``act_shard``) its sequence block, all-gathered before
     the layer's products; ``aux``: per position the MoE aux loss so far."""
     cfg, mesh = run.cfg, run.mesh
-    plan = _head_plan(run)
     xn = [L.rmsnorm(run.layer(pos, i, "ln1"), x)
           for pos, x in enumerate(_seq_gather(mesh, seq_axes, xs))]
-    hs = [_merge_heads(L.chunked_attention(
-        q, ka, va, causal=True, chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k,
-        flash_bwd=cfg.flash_bwd))
-        for q, _, _, ka, va in _project(run, i, xn, positions, plan)]
-    h = _rows(run, i, ("attn", "wo"), hs, own=plan[0], seq_axes=seq_axes)
+    if cfg.attn_type == "mla":
+        plan = _mla_plan(run)
+        hs, _ = _mla_attention(run, i, xn, positions, plan, True)
+        h = _mla_out(run, i, hs, plan, seq_axes)
+    else:
+        plan = _head_plan(run)
+        hs = [_merge_heads(L.chunked_attention(
+            q, ka, va, causal=True, chunk_q=cfg.chunk_q,
+            chunk_k=cfg.chunk_k, flash_bwd=cfg.flash_bwd))
+            for q, _, _, ka, va in _project(run, i, xn, positions, plan)]
+        h = _rows(run, i, ("attn", "wo"), hs, own=plan[0],
+                  seq_axes=seq_axes)
     xs = [x + t for x, t in zip(xs, h)]
     got = []
     ys = _ffn(run, i, xs, tok_axes, seq_axes, aux_out=got)

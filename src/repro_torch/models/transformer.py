@@ -49,8 +49,8 @@ its body, ``act_shard`` holds the residual stream as sequence blocks.  On
 one device (a ``TransformerParams``) the reference's mesh knobs change no
 value and are accepted: ``wire_barrier`` (the port's partial sums already
 cross the mesh in the activation dtype), ``decode_seq_axis``, ``ep_axes``,
-``act_shard`` and ``fsdp_inner``.  A mesh on an MLA config raises
-(ROADMAP A.7.3).
+``act_shard`` and ``fsdp_inner``.  MLA configs run on a mesh too
+(``models/spmd.py``'s ``_mla_*``).
 """
 from __future__ import annotations
 

@@ -7,9 +7,11 @@ prefill and decode cells run here on the smoke configs (float32, CPU
 meshes) with the reference's weights, against the reference's ``prefill``
 / ``decode_step`` under a 1 x 1 mesh, within ``TOL`` (1e-4, float32 in
 another order); a train cell runs a step with each mesh knob
-(``tests/test_torch_train_mesh.py`` holds it to the reference); MLA on a
-mesh, the GNN / recsys cells and a train cell over several devices raise,
-naming their ROADMAP items.
+(``tests/test_torch_train_mesh.py`` holds it to the reference); a train
+cell over several devices raises, naming its ROADMAP item (B.19); every
+cell of the reference's 40-cell grid runs on a (2, 2) mesh.  MLA,
+GNN and recsys cells: ``tests/test_torch_mla_mesh.py`` and
+``tests/test_torch_cells_gnn_recsys.py``.
 """
 import dataclasses
 import types
@@ -168,16 +170,6 @@ def test_default_cell_inputs_run():
     assert cell.run()[0].shape == (1, 512)
 
 
-@pytest.mark.parametrize("arch,shape,item", [
-    ("minicpm3-4b", "prefill_32k", "A.7.3"),
-    ("gatedgcn", "full_graph_sm", "A.7.4"),
-    ("dcn-v2", "serve_p99", "A.7.4")])
-def test_unported_cells_raise(arch, shape, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TC.build_cell(arch, shape, _mesh((1, 2)), smoke=True, batch=1,
-                      seq_len=8)
-
-
 @pytest.mark.parametrize("knob", ["plain", "act_shard", "fsdp_inner"])
 def test_train_cell_runs_with_each_knob(knob):
     """A train cell with its default weights and batch (seeded) on a (1, 2)
@@ -205,12 +197,61 @@ def test_train_cell_runs_with_each_knob(knob):
 
 def test_train_cell_refusals():
     """A train cell whose positions sit on different devices raises (their
-    replicated blocks' gradients would need summing across devices), and
-    MLA on a mesh raises, each naming its ROADMAP item."""
+    replicated blocks' gradients would need summing across devices),
+    naming its ROADMAP item, whatever the family."""
     two = TM.make_mesh((1, 2), ("data", "model"), devices=["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="B.19"):
-        TC.build_cell("qwen3-1.7b", "train_4k", two, smoke=True, batch=2,
-                      seq_len=8)
-    with pytest.raises(NotImplementedError, match="A.7.3"):
-        TC.build_cell("minicpm3-4b", "train_4k", _mesh((1, 2)), smoke=True,
-                      batch=2, seq_len=8)
+    for arch, shape, cut in (
+            ("qwen3-1.7b", "train_4k", {"batch": 2, "seq_len": 8}),
+            ("gatedgcn", "full_graph_sm", {"n_nodes": 8, "n_edges": 8}),
+            ("dcn-v2", "train_batch", {"batch": 2})):
+        with pytest.raises(NotImplementedError, match="B.19"):
+            TC.build_cell(arch, shape, two, smoke=True, sizes=cut)
+
+
+# --------------------------------------------------------------------------
+# every cell of the reference's grid
+# --------------------------------------------------------------------------
+
+GRID_CUTS = {
+    "lm": {"batch": 2, "seq_len": 16},
+    "full_graph_sm": {"n_nodes": 48, "n_edges": 128, "d_feat": 8},
+    "ogb_products": {"n_nodes": 48, "n_edges": 128, "d_feat": 8},
+    "minibatch_lg": {"batch_nodes": 4, "fanouts": (3, 2), "d_feat": 8},
+    "molecule": {"batch": 4, "d_feat": 8},
+    "train_batch": {"batch": 64}, "serve_p99": {"batch": 48},
+    "serve_bulk": {"batch": 16}, "retrieval_cand": {"n_candidates": 512}}
+GRID = [(a, s) for a in jconfigs.ARCHS
+        for s in jconfigs.common.shapes_for(jconfigs.get(a).family)]
+# the shapes' cuts to smoke size, by family (LM) or shape
+
+
+def test_the_grid_is_the_references():
+    assert len(GRID) == 40
+    assert [(a, s) for a in tconfigs.ARCHS for s in
+            tconfigs.common.shapes_for(tconfigs.get(a).family)] == GRID
+
+
+@pytest.mark.parametrize("arch,shape", GRID, ids=[f"{a}-{s}"
+                                                  for a, s in GRID])
+def test_every_cell_of_the_grid_runs(arch, shape):
+    """Every (arch, shape) cell of the reference's 40 builds and runs one
+    step on a (2, 2) mesh at smoke width, its shape cut, with finite
+    outputs of the step's kind."""
+    family = tconfigs.get(arch).family
+    cut = GRID_CUTS["lm" if family == "lm" else shape]
+    cell = TC.build_cell(arch, shape, _mesh((2, 2)), smoke=True, sizes=cut)
+    assert cell.kind == jconfigs.common.shapes_for(family)[shape]["kind"]
+    out = cell.run()
+    if cell.kind == "train":
+        assert int(out[1]["step"]) == 1
+        vals = [out[2]["loss"], out[2]["grad_norm"]]
+    elif cell.kind in ("prefill", "decode"):
+        vals = [out[0]]
+        assert out[0].shape == (2, cell.cfg.vocab)
+    elif cell.kind == "serve":
+        vals = [out]
+        assert out.shape == (cut["batch"],)
+    else:
+        vals = list(out)
+        assert out[2].shape == (100,)
+    assert all(bool(torch.isfinite(v).all()) for v in vals)

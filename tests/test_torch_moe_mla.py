@@ -33,6 +33,7 @@ from repro.models import mla as JMLA
 from repro.models import moe as JMOE
 from repro.models import transformer as JTF
 from repro_torch import configs as tconfigs
+from repro_torch.core import mesh as TM
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as TL
@@ -316,14 +317,34 @@ def test_mla_attend_decode_equals_the_reference():
 def test_mla_attend_decode_refuses_the_mesh_knobs(knob):
     """``prewritten=True`` (the reference's write-then-attend decode: the
     cache already holds this step's latents, ``length`` counts them)
-    equals the reference's; ``seq_axis`` (a sequence-sharded cache) is MLA
-    under a mesh, not ported yet."""
+    equals the reference's; ``seq_axis`` (the cache sequence-sharded over
+    a (1, 2) mesh's ``model``, two ``Sharded`` blocks of 10 slots, the
+    step's own latent one more block of the log-sum-exp merge) equals the
+    reference's unsharded decode on every position, new latents too."""
     pj, x, pos, c, kr, length = _decode_inputs()
     if "seq_axis" in knob:
-        with pytest.raises(NotImplementedError, match="A.7.3"):
-            TMLA.mla_attend_decode(_tree_t(pj), MLA_SMOKE_T, _t(x),
-                                   _t(pos), (_t(c), _t(kr)), _t(length),
-                                   **knob)
+        mesh = TM.make_mesh((1, 2), ("data", "model"), device="cpu")
+        n = c.shape[1] // 2
+
+        def blocks(a):
+            return TM.Sharded(mesh, tuple(_t(a[:, i * n:(i + 1) * n])
+                                          for i in range(2)))
+
+        out_s, new_s = TMLA.mla_attend_decode(
+            _tree_t(pj), MLA_SMOKE_T, _t(x), _t(pos), (blocks(c),
+                                                       blocks(kr)),
+            _t(length), **knob)
+        jfn = jax.jit(lambda p, x, q, c, k, n: JMLA.mla_attend_decode(
+            p, MLA_SMOKE_J, x, q, (c, k), n))
+        out_j, new_j = jfn(pj, jnp.asarray(x), jnp.asarray(pos),
+                           jnp.asarray(c), jnp.asarray(kr),
+                           jnp.asarray(length))
+        for b in out_s.blocks:
+            np.testing.assert_allclose(b.numpy(), np.asarray(out_j), **TOL)
+        for got, want in zip(new_s, new_j, strict=True):
+            for b in got.blocks:
+                np.testing.assert_allclose(b.numpy(), np.asarray(want),
+                                           **TOL)
         return
     n = np.minimum(length + 1, c.shape[1]).astype(np.int32)
     jfn = jax.jit(lambda p, x, q, c, k, n: JMLA.mla_attend_decode(

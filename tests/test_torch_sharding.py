@@ -404,12 +404,9 @@ def test_sharded_moe_routes_and_drops_as_the_reference(shape):
 
 
 def test_mla_and_training_knobs_refused_on_a_mesh():
+    """The sharded MoE refuses an ``ep_axes`` it does not run (MLA on a
+    mesh runs: ``tests/test_torch_mla_mesh.py``)."""
     mesh = _mesh((1, 2))
-    cfg = tconfigs.get("minicpm3-4b").make_smoke()
-    params = TTF.init_params(torch.Generator().manual_seed(0), cfg)
-    placed = TSH.place(params, mesh, TSH.lm_param_spec_tp)
-    with pytest.raises(NotImplementedError, match="A.7.3"):
-        TTF.prefill(placed, cfg, torch.ones((2, 4), dtype=torch.int32))
     bad = dataclasses.replace(_cfgs("phi3.5-moe-42b-a6.6b")[1].moe,
                               ep_axes=("data",))
     with pytest.raises(NotImplementedError, match="capacity"):
