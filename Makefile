@@ -6,6 +6,9 @@
 #                     tests/test_api_surface.py vs tests/api_surface.json)
 #   make test-torch   the PyTorch/CUDA port's differential tests only
 #                     (tests/test_torch_*.py: port vs reference, on the CPU)
+#   make dryrun-torch the port's dry run of every cell on the production
+#                     meshes, on the CPU (meta tensors, no GPU): 80 records
+#                     appended to build/dryrun/dryrun.jsonl
 #   make bench-smoke  SCALE-parameterized run of every benchmark section
 #                     (default tiny) — catches import rot and shape bugs in
 #                     minutes, not numbers; writes BENCH_<section>.json
@@ -29,13 +32,17 @@ CHAOS_FAULTS ?= kernel.fallback cap.exhaust ovf.exhaust color.corrupt \
 	service.step service.submit
 CHAOS_BACKENDS ?= pallas_interpret jnp
 
-.PHONY: test test-torch bench-smoke bench bench-report chaos
+.PHONY: test test-torch dryrun-torch bench-smoke bench bench-report chaos
 
 test:
 	python -m pytest -x -q
 
 test-torch:
 	python -m pytest -q tests/test_torch_*.py
+
+dryrun-torch:
+	python -m repro_torch.launch.dryrun --all --multi-pod both \
+	    --out build/dryrun/dryrun.jsonl --skip-done
 
 chaos:
 	@mkdir -p deadletters

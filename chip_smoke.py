@@ -5913,6 +5913,196 @@ def attention_designs() -> dict:
     return design_counts()["flash_attention"]
 
 
+# --------------------------------------------------------------------------
+# phase 5q: the dry run against the card; the four examples on the card
+# --------------------------------------------------------------------------
+
+DR_PREFILL_LEN = 4096     # qwen3-1.7b prefill_32k cut to 1 x 4096
+DR_PEAK_BAND = (0.75, 1.33)   # dry-run peak / the allocator's rise
+DR_TRAIN_STEPS = 10           # train_lm's 100M config on the card
+
+
+def dr_cell(device, arch, shape, dm, rehearse: bool, **cut):
+    """One cell dry-run on a meta mesh of shape ``dm``, then built on the
+    card and run once under the counter (and, on (1, 1), the allocator's
+    peak over that step), then once more without the counter, timed.
+    Returns the cell's row; fails on any disagreement in FLOPs,
+    collectives or B5 calls."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import analysis as AN
+    from repro_torch.launch import cells as CELLS
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.cost import count_step
+    axes = ("data", "model")
+    over = {"n_layers": 2} if rehearse and arch.startswith("qwen") else None
+    t0 = time.perf_counter()
+    dry = DR.run_cell(arch, shape, False, verbose=False, overrides=over,
+                      mesh=make_mesh(dm, axes, device="meta"), smoke=rehearse,
+                      **cut)
+    t_dry = time.perf_counter() - t0
+    mesh = make_mesh(dm, axes, device=device)
+    sync(device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(device)
+    cell = CELLS.build_cell(arch, shape, mesh, overrides=over, smoke=rehearse,
+                            **cut)
+    sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    before = FA.flash_attention.launches
+    _, cost = count_step(lambda *_: cell.run(), cell.args, mesh)
+    sync(device)
+    b5 = FA.flash_attention.launches - before
+    rise = (torch.cuda.max_memory_allocated(device) - base
+            if device.type == "cuda" else None)
+    label = f"{arch} {shape} {dm[0]}x{dm[1]}"
+    card_an = AN.analyze(cost, mesh.size)
+    got = {"flops": cost["flops"]["total"],
+           "collectives": card_an["collectives"],
+           "b5": b5 if device.type == "cuda" else
+           cost["kernels"].get("flash_attention", {}).get("calls", 0)}
+    want = {"flops": dry["flops"]["total"], "collectives": dry["collectives"],
+            "b5": dry["kernels"].get("flash_attention", {}).get("calls", 0)}
+    if device.type == "cuda" and got != want:
+        fail(f"5q {label}: the card's step counted {got}, the dry run "
+             f"{want}")
+    # the step's wall without the counter (its Python dispatch slows a
+    # step, so the counted run is not timed)
+    sync(device)
+    t = time.perf_counter()
+    cell.run()
+    sync(device)
+    wall = time.perf_counter() - t
+    row = {"cell": label, "cut": cut, "static_notes": dry["static_notes"],
+           "flops": want["flops"], "collectives_total_count":
+           want["collectives"]["total_count"], "collectives_total_bytes":
+           want["collectives"]["total_bytes"], "b5_calls": want["b5"],
+           "b5_launches_on_card": got["b5"], "ops": dry["ops"],
+           "t_bound_s": max(dry["roofline"]["t_compute_s"],
+                            dry["roofline"]["t_memory_s"],
+                            dry["roofline"]["t_collective_s"]),
+           "bottleneck": dry["roofline"]["bottleneck"],
+           "step_wall_s": wall, "dry_run_s": round(t_dry, 2),
+           "peak_bytes_per_device": dry["memory"]["peak_bytes_per_device"]}
+    if rise is not None and dm == (1, 1):
+        ratio = dry["memory"]["peak_bytes_per_device"] / rise
+        row.update(allocator_rise_bytes=rise, peak_ratio=ratio,
+                   peak_band=DR_PEAK_BAND)
+        if not DR_PEAK_BAND[0] <= ratio <= DR_PEAK_BAND[1]:
+            fail(f"5q {label}: the dry run's peak "
+                 f"{dry['memory']['peak_bytes_per_device']} B is "
+                 f"{ratio:.3f} of the allocator's rise {rise} B, outside "
+                 f"{DR_PEAK_BAND}")
+    del cell
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def dr_examples(device, rehearse: bool) -> tuple:
+    """Phase 5q (b): the four examples on the card, the counts zeroed
+    before each and read after.  Returns (row, per example its launches)."""
+    from repro_torch.examples import (color_then_train_gnn, quickstart,
+                                      serve_lm, train_lm)
+    dev = str(device)
+    runs = {
+        "quickstart": lambda: quickstart.main(
+            ["--device", dev] + (["--side", "6"] if rehearse else [])),
+        "serve_lm": lambda: serve_lm.main(["--device", dev]),
+        "train_lm": lambda: train_lm.main(
+            ["--device", dev, "--steps", str(DR_TRAIN_STEPS),
+             "--log-every", "1"] + (["--tiny"] if rehearse else [])),
+        "color_then_train_gnn": lambda: color_then_train_gnn.main(
+            ["--device", dev] + (["--side", "12", "--steps", "11"]
+                                 if rehearse else [])),
+    }
+    row, counts = {}, {}
+    for name, fn in runs.items():
+        zero_counts()
+        sync(device)
+        t = time.perf_counter()
+        out = fn()
+        sync(device)
+        secs = time.perf_counter() - t
+        c = launch_counts()
+        counts[name] = c
+        row[name] = {"seconds": round(secs, 2), "launches": c,
+                     "slot_stride_launches": slot_counts()["launches"]}
+        if name == "quickstart":
+            row[name].update(rsoc_colors=out["rsoc"]["n_colors"],
+                             distance2_colors=out["distance2"]["n_colors"],
+                             replay_equal=out["replay_equal"],
+                             tenant2_healed=out["tenant2"]["healed"])
+            if not (out["replay_equal"] and out["tenant2"]["healed"]):
+                fail(f"5q quickstart: {row[name]}")
+        elif name == "serve_lm":
+            row[name]["tokens"] = out["tokens"]
+            if out["tokens"] <= 0:
+                fail("5q serve_lm: no token was served")
+        elif name == "train_lm":
+            row[name].update(first_loss=out["first_loss"],
+                             last_loss=out["last_loss"])
+            if not out["last_loss"] < out["first_loss"]:
+                fail(f"5q train_lm: the loss did not fall: {row[name]}")
+        else:
+            row[name].update(losses=out["losses"],
+                             deterministic=out["deterministic"])
+            if not out["deterministic"] or not (
+                    out["losses"][max(out["losses"])] < out["losses"][0]):
+                fail(f"5q color_then_train_gnn: {row[name]}")
+        log("dryrun", json.dumps({name: row[name]}))
+    if device.type == "cuda":
+        need = {"firstfit": ("quickstart", "color_then_train_gnn"),
+                "detect_recolor": ("quickstart", "color_then_train_gnn"),
+                "twohop_detect_recolor": ("quickstart",),
+                "flash_attention": ("serve_lm",)}
+        for k, names in need.items():
+            for n in names:
+                if not counts[n][k]:
+                    fail(f"5q {n} launched no {k} (counts {counts[n]})")
+        if not row["quickstart"]["slot_stride_launches"]:
+            fail("5q quickstart: the service's megabatched step launched "
+                 "no slot-stride B2")
+    return row, counts
+
+
+def phase_dryrun(device, card: str, rehearse: bool) -> tuple:
+    """Phase 5q: (a) the dry run (``launch/dryrun.py`` on meta) against the
+    card: ``qwen3-1.7b`` ``prefill_32k`` cut to 1 x ``DR_PREFILL_LEN`` at
+    full width on (1, 1) and on 5n's (1, 4), ``gatedgcn``
+    ``full_graph_sm`` train on (2, 2); FLOPs, collectives (kind, count,
+    bytes) and B5's calls equal exactly, on (1, 1) the dry run's peak
+    within ``DR_PEAK_BAND`` of the allocator's rise over the step (from
+    before the cell was built), and ``t_bound`` beside the step's wall
+    (timed in a run without the counter); (b) the four examples on the
+    card (``dr_examples``).  Returns (row, (a)'s counts, (b)'s counts)."""
+    t0 = time.perf_counter()
+    L = 64 if rehearse else DR_PREFILL_LEN
+    cells = []
+    zero_counts()
+    for dm in ((1, 1), (1, 4)):
+        cells.append(dr_cell(device, "qwen3-1.7b", "prefill_32k", dm,
+                             rehearse, batch=1, seq_len=L))
+        log("dryrun", json.dumps(cells[-1]))
+    cells.append(dr_cell(device, "gatedgcn", "full_graph_sm", (2, 2),
+                         rehearse))
+    log("dryrun", json.dumps(cells[-1]))
+    counts = launch_counts()
+    t_a = time.perf_counter() - t0
+    ex, ex_counts = dr_examples(device, rehearse)
+    row = {"cells": cells, "examples": ex, "seconds_a": round(t_a, 2),
+           "seconds_b": round(time.perf_counter() - t0 - t_a, 2),
+           "card": card,
+           "note": "t_bound_s: the dry run's bound from the H100 SXM data "
+                   "sheet (989 TFLOP/s bf16, 3.35 TB/s, 450 GB/s NVLink); "
+                   "bytes are eager unfused traffic"}
+    log("dryrun", json.dumps({k: v for k, v in row.items()
+                              if k not in ("cells", "examples")}))
+    return row, counts, ex_counts
+
+
 def phase_plain(device, kept, prepared: PreparedCache, skip=("rmat_b",),
                 **kw):
     """The kept problems through the plain versions on the card: the same
@@ -6467,57 +6657,6 @@ def timed(kernel: str, fn, device, reps: int, launch: bool) -> dict:
     return out
 
 
-def gather_bytes(ell_k, colors, vids, work, test, *, own: bool, ell=None):
-    """The gathered part of the bytes a pass must move, each input read
-    once, counted on this call's data.  ``vids`` (R,) are the rows' vertex
-    ids, ``work`` the rows that can work, ``test`` the rows whose defect
-    test reads priorities (in U, unforced, coloured).  Counted:
-
-      * the ELL row of each working row, W*4 B;
-      * with ``ell`` (the full table: a two-hop pass), the row of each
-        distinct live hop-1 neighbour of a working row, once, W*4 B;
-      * 4 B of colour per distinct vertex in a live slot of a working row
-        (either hop; the row itself is no hop-2 slot), and of every row
-        itself where ``own`` (its colour is its output when it keeps it);
-      * 4 B of priority per distinct vertex that is a tested row or sits in
-        a live slot of a tested row with the row's colour: the defect test
-        reads no other.
-
-    Returns (bytes, live slots of the working rows)."""
-    n = colors.shape[0]
-    W = ell_k.shape[1]
-    need_row = torch.zeros(n, dtype=torch.bool, device=colors.device)
-    need_col = torch.zeros_like(need_row)
-    need_pri = torch.zeros_like(need_row)
-    if own:
-        need_col[vids.long()] = True
-    need_pri[vids[test].long()] = True
-    rows = torch.nonzero(work)[:, 0]
-    live = 0
-    step = max(1, 2 ** 24 // (W * (W if ell is not None else 1)))
-    for s in range(0, rows.numel(), step):
-        r = rows[s:s + step]
-        v = vids[r].long()
-        c_v, t = colors[v][:, None], test[r][:, None]
-        e = ell_k[r].long()
-        ok = e >= 0
-        e = e.clamp(0, n - 1)
-        slots = [(e, ok)]
-        if ell is not None:
-            need_row[e[ok]] = True
-            e2 = ell[e].long()                                # (b, W, W)
-            ok2 = ok[:, :, None] & (e2 >= 0) & (e2 != v[:, None, None])
-            slots.append((e2.clamp(0, n - 1).reshape(len(r), -1),
-                          ok2.reshape(len(r), -1)))
-        for ids, ok_s in slots:
-            live += int(ok_s.sum())
-            need_col[ids[ok_s]] = True
-            need_pri[ids[ok_s & t & (colors[ids] == c_v)]] = True
-    nbytes = (int(work.sum()) * W * 4 + int(need_row.sum()) * W * 4
-              + 4 * int(need_col.sum()) + 4 * int(need_pri.sum()))
-    return nbytes, live
-
-
 def phase_times(device, kept, kept_compact, cmp: Cmp, launch: bool,
                 prepared: PreparedCache):
     """One chunk of each kept graph: kernel ms, plain ms, bound ms; and on
@@ -6525,7 +6664,7 @@ def phase_times(device, kept, kept_compact, cmp: Cmp, launch: bool,
     (``check_compact_pass``).
 
     Bound: the bytes the function must move over the card's memory rate,
-    inputs read once and outputs written once (``gather_bytes`` for the ELL
+    inputs read once and outputs written once (``kernels/cost.py``'s ``gather_bytes`` for the ELL
     rows, colours and priorities), plus the per-row flags, the forb0 words
     where given, and the outputs.  The integer work (a few operations per
     slot) is far below any operation peak of the card, so bytes bound both
@@ -6534,6 +6673,7 @@ def phase_times(device, kept, kept_compact, cmp: Cmp, launch: bool,
     from repro_torch import api
     from repro_torch.core import coloring, frontier
     from repro_torch.core.context import PassContext
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.firstfit import firstfit
     spec = api.ColoringSpec()
@@ -6574,9 +6714,9 @@ def phase_times(device, kept, kept_compact, cmp: Cmp, launch: bool,
 
         vids = torch.arange(lo, hi, device=device)
         all_k = torch.ones(cs, dtype=torch.bool, device=device)
-        ff_bytes, live = gather_bytes(ell_k, colors, vids, all_k, ~all_k,
-                                      own=False)
-        ff_bytes += (cs * nW * 4 if has_ovf else 0) + cs * 5
+        ff_bytes, live = kcost.gather_bytes(ell_k, colors, vids, all_k,
+                                            ~all_k, own=False)
+        ff_bytes = kcost.firstfit_bytes(ff_bytes, cs, nW, has_ovf)
         ff = lambda: ops.firstfit(ell_k, colors, C, backend=kb, forb0=f0)
         ff_plain = lambda: ref.firstfit_ref(ell_k, colors, C, forb0=f0)
         cmp.check("firstfit", f"{name} chunk R{cs} W{W} n{n_pad} C{C}",
@@ -6610,11 +6750,10 @@ def phase_times(device, kept, kept_compact, cmp: Cmp, launch: bool,
                                         prob.pri, n_pad)[lo:hi]
         work_k = valid_k & (U_k | force_k)
         test_k = work_k & U_k & ~force_k & (colors[lo:hi] >= 0)
-        dr_bytes, live_may = gather_bytes(ell_k, colors, vids, work_k, test_k,
-                                          own=True)
+        dr_bytes, live_may = kcost.gather_bytes(ell_k, colors, vids, work_k,
+                                                test_k, own=True)
         may = int(work_k.sum())
-        dr_bytes += (cs * (3 + (1 if has_ovf else 0))
-                     + (may * nW * 4 if has_ovf else 0) + cs * 6)
+        dr_bytes = kcost.detect_recolor_bytes(dr_bytes, cs, may, nW, has_ovf)
         kw = dict(forb0=f0, extra_defect=xd, force=force_k, valid=valid_k)
         dr = lambda: ops.detect_recolor(ell_k, colors, prob.pri, U_k, lo, C,
                                         backend=kb, **kw)
@@ -6658,6 +6797,7 @@ def phase_times_slots(device, states, cmp: Cmp, launch: bool) -> dict:
     bytes; the forb0 words and ``extra_defect`` flag of the rows that can
     work, ``U | force``, alone: a dead row reads neither)."""
     from repro_torch.core import frontier
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import detect_recolor as dr_mod, ops
     from repro_torch.kernels.firstfit import n_words
     st0 = states[0]
@@ -6734,7 +6874,8 @@ def phase_times_slots(device, states, cmp: Cmp, launch: bool) -> dict:
     work = valid_k[0] | force_k[0]
     c_r = colors[r]
     test = valid_k[0] & ~force_k[0] & (c_r >= 0)
-    nbytes, live = gather_bytes(e_glob, colors, r, work, test, own=True)
+    nbytes, live = kcost.gather_bytes(e_glob, colors, r, work, test,
+                                      own=True)
     R, may = r.numel(), int(work.sum())
     nbytes += R * (4 + 1 + 1 + 6) + may * (4 * nW + 1)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -6772,6 +6913,7 @@ def time_detect_only(name, prob, colors, C: int, has_ovf: bool, cmp: Cmp,
     extra_defect) masks, and the 1-byte output; the full pass adds the
     forb0 words of its working rows and 5 more output bytes a row."""
     from repro_torch.core import bitset, coloring
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import ops, ref
     n_pad = prob.n_pad
     ell, pri = prob.ell, prob.pri
@@ -6810,7 +6952,8 @@ def time_detect_only(name, prob, colors, C: int, has_ovf: bool, cmp: Cmp,
               ("newc", "recolored", "ovf"))
     vids = torch.arange(n_pad, device=device)
     test = valid & (colors >= 0)
-    nbytes, live = gather_bytes(ell, colors, vids, valid, test, own=True)
+    nbytes, live = kcost.gather_bytes(ell, colors, vids, valid, test,
+                                      own=True)
     n_valid = int(valid.sum())
     det_bytes = nbytes + n_pad * (2 + (1 if has_ovf else 0)) + n_pad
     full_bytes = (nbytes + n_pad * (2 + (1 if has_ovf else 0))
@@ -6855,6 +6998,7 @@ def phase_times_twohop(device, kept_d2, cmp: Cmp, launch: bool):
     from repro_torch import api
     from repro_torch.core import distance2
     from repro_torch.core.context import PassContext
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import ops, ref
     spec = api.ColoringSpec()
     kb = "cuda" if launch else "torch"
@@ -6889,10 +7033,10 @@ def phase_times_twohop(device, kept_d2, cmp: Cmp, launch: bool):
                   ("newc", "recolored", "ovf"))
         work_k = U_k            # valid & (U | force), with valid = U here
         test_k = work_k & ~force_k & (colors[lo:hi] >= 0)
-        nbytes, live = gather_bytes(
+        nbytes, live = kcost.gather_bytes(
             ell_k, colors, torch.arange(lo, hi, device=device), work_k,
             test_k, own=True, ell=prob.ell)
-        nbytes += cs * (3 + 6)
+        nbytes = kcost.twohop_bytes(nbytes, cs)
         big = live > 2 ** 26                     # the plain panels are large
         rows.append({"kernel": K, "graph": name, "R": cs, "W": W, "n": n_pad,
                      "C": C, "live_slots": live, "bytes": nbytes,
@@ -6953,15 +7097,6 @@ def fma_kernel(q, k, v, launch: bool):
     return out
 
 
-def attention_pairs(Lq: int, Lk: int, causal: bool) -> int:
-    """(query, key) pairs a head computes: with causal, query r sees keys
-    <= r + (Lk - Lq)."""
-    if not causal:
-        return Lq * Lk
-    r = np.arange(Lq, dtype=np.int64)
-    return int(np.minimum(Lk, r + (Lk - Lq) + 1).sum())
-
-
 def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
                        rehearse: bool):
     """Times of the two float kernels at their paths' shapes.
@@ -6997,6 +7132,7 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
     of an (n + 1)-row copy of the features, built untimed) for every op,
     and for float32 ``sum`` also ``torch.sparse.mm`` of a CSR matrix of
     the same table (built untimed); both timed by ``device_ms``."""
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import design
     kb = "cuda" if launch else "torch"
@@ -7037,9 +7173,8 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
         del got
         lib = lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)
-        pairs = attention_pairs(L, L, True)
-        flops = 4 * B * Hq * D * pairs
-        nbytes = (2 * B * Hq * L * D + 2 * B * Hkv * L * D) * q.element_size()
+        flops, nbytes = kcost.attention_work(B, Hq, Hkv, L, L, D, True,
+                                             q.element_size())
         rate = BF16_TFLOPS if dt == torch.bfloat16 else F32_TFLOPS
         row = {"kernel": "flash_attention", "B": B, "Hq": Hq, "Hkv": Hkv,
                "L": L, "D": D, "dtype": name, "causal": True,
@@ -7093,7 +7228,7 @@ def phase_times_models(device, ell, feats32, cmp: Cmp, launch: bool,
         feats = feats32.to(dt)
         padded = torch.cat([feats, feats.new_zeros((1, d))])
         es = feats.element_size()
-        nbytes = R * W * 4 + distinct * d * es + R * d * es
+        nbytes = kcost.ell_spmm_bytes(R, W, distinct, d, es)
         floor = gather_floor_bytes(ell, n, d, es)
         for op in ("sum", "mean", "max"):
             fn = lambda: ops.ell_aggregate(ell, feats, op, backend=kb)
@@ -7580,6 +7715,10 @@ def main() -> int:
             device, card, cmp, args.rehearse)
         designs["mla_serve_sharded"] = {"flash_attention": mc_designs}
 
+        # ---- phase 5q: the dry run against the card; the examples ----
+        dr_row, counts_dr, counts_ex = phase_dryrun(device, card,
+                                                    args.rehearse)
+
         # ---- phase 6: kernel times ----
         slot_row = phase_times_slots(device, svc_states, cmp, launch)
         del svc_states
@@ -7607,7 +7746,9 @@ def main() -> int:
              "models": counts_models, "moe_mla_serve": counts_mm_serve,
              "moe_mla_train": counts_mm_train,
              "lm_serve_sharded": counts_sh, "lm_train_mesh": counts_tm,
-             "mla_serve_sharded": counts_mc, "mesh_cells": counts_mc_other}
+             "mla_serve_sharded": counts_mc, "mesh_cells": counts_mc_other,
+             "dryrun": counts_dr,
+             **{f"example_{k}": v for k, v in counts_ex.items()}}
     kernels = kernels_line(kept, time_rows, model_rows, paths, designs, cmp,
                            t1_path, slot_row, svc_path)
     if args.rehearse:
@@ -7631,6 +7772,7 @@ def main() -> int:
     print(json.dumps({"lm_serve_sharded_path": sh_row}), flush=True)
     print(json.dumps({"lm_train_mesh_path": tm_row}), flush=True)
     print(json.dumps({"mesh_cells_path": mc_row}), flush=True)
+    print(json.dumps({"dryrun_path": dr_row}), flush=True)
     print(json.dumps({"kernel_times": time_rows + model_rows + [slot_row]}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

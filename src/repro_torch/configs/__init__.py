@@ -15,3 +15,10 @@ def get(name: str) -> ArchDef:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def all_cells():
+    """Every assigned (arch, shape) pair — 40 cells, in the reference's
+    order."""
+    return [(a.name, s) for a in ARCHS.values()
+            for s in shapes_for(a.family)]

@@ -27,17 +27,96 @@ gather is a reduce-scatter, of a ``psum_scatter`` a gather, uncounted).
 Every collective counts one in
 ``mesh.collectives`` and the payloads' bytes (all shards' payloads
 together) in ``mesh.gathered_bytes`` (``obs.metrics``), so "RSOC: one
-collective a round, CAT: two" is a number a caller reads.
+collective a round, CAT: two" is a number a caller reads.  While a cost
+counter listens (``launch/cost.py``) each collective also reports its
+kind, result bytes and group size a position (``kernels/cost.py``), and
+``positions`` / ``each`` loops name the position a loop body works for.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.obs import metrics as obs_metrics
+
+# the mesh position whose work runs now (None: no position's), and the
+# group a collective is stacking for: the dry run's counter
+# (``launch/cost.py``) bills each op to the position it works for
+_POSITION = contextvars.ContextVar("mesh_position", default=None)
+_GROUP = contextvars.ContextVar("mesh_group", default=None)
+
+
+OUTSIDE = -1     # the position of work done for no position (a fetch)
+
+
+@contextlib.contextmanager
+def outside():
+    """Work in the scope is done for no mesh position: the fetch of a
+    result to the caller (``current_position`` is ``OUTSIDE``)."""
+    token = _POSITION.set(OUTSIDE)
+    try:
+        yield
+    finally:
+        _POSITION.reset(token)
+
+
+def current_position() -> Optional[int]:
+    """The mesh position a ``positions`` / ``each`` loop is working for."""
+    return _POSITION.get()
+
+
+def current_group() -> Optional[tuple]:
+    """The positions a collective is stacking a payload for."""
+    return _GROUP.get()
+
+
+def _at(var, value):
+    """Generator helper: ``var`` is ``value`` while the caller's loop body
+    runs, and is restored when the body asks for the next item."""
+    token = var.set(value)
+    try:
+        yield
+    finally:
+        try:
+            var.reset(token)
+        except ValueError:        # closed from another context: nothing set
+            pass
+
+
+class positions:
+    """``range(n)`` over mesh positions whose iteration makes each position
+    current (``current_position``) while the loop's body works for it.  The
+    port's sharded code runs every position in one host loop; this is how
+    the dry run tells the positions' work apart (a device index cannot: a
+    meta tensor has none)."""
+
+    def __init__(self, n: int):
+        self.n = int(n)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i):
+        return range(self.n)[i]
+
+    def __iter__(self):
+        for i in range(self.n):
+            for _ in _at(_POSITION, i):
+                yield i
+
+
+def each(items):
+    """``enumerate(items)`` with item i's position current while the loop's
+    body works on it (``positions``)."""
+    for i, x in enumerate(items):
+        for _ in _at(_POSITION, i):
+            yield i, x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,9 +238,18 @@ def all_gather(payloads: Sequence[torch.Tensor]) -> list:
     that shard's device.  Shards on one device share one stacked tensor (it
     is read, never written).  Counts one collective and the stacked
     payload's bytes."""
-    out = _stack(payloads)
+    D = len(payloads)
+    nb = _nbytes(payloads)
+    with cost.collective("all-gather", (tuple(range(D)),), nb,
+                         [D * b for b in nb]):
+        for _ in _at(_GROUP, tuple(range(D))):
+            out = _stack(payloads)
     _count(payloads)
     return out
+
+
+def _nbytes(payloads) -> list:
+    return [p.numel() * p.element_size() for p in payloads]
 
 
 def _stack(payloads: Sequence[torch.Tensor]) -> list:
@@ -177,6 +265,7 @@ def _stack(payloads: Sequence[torch.Tensor]) -> list:
         g = by_dev.get(p.device)
         if g is None:
             g = torch.stack([q.to(p.device) for q in payloads])
+            cost.stacked(g, _GROUP.get() or range(len(payloads)))
             by_dev[p.device] = g
         out.append(g)
     return out
@@ -198,14 +287,24 @@ def all_gather_groups(mesh: Mesh, axis, payloads: Sequence[torch.Tensor]
     share it).  One collective; a group of one shard moves nothing and
     counts nothing."""
     groups = mesh.groups(axis)
-    out = [None] * mesh.size
-    if len(groups[0]) == 1:
+    n = len(groups[0])
+    if n == 1:
         return [p[None] for p in payloads]
+    nb = _nbytes(payloads)
+    with cost.collective("all-gather", groups, nb, [n * b for b in nb]):
+        out = _group_stacks(mesh, groups, payloads)
+    _count(payloads)
+    return out
+
+
+def _group_stacks(mesh: Mesh, groups, payloads) -> list:
+    """Every position's stack of its group's payloads, uncounted."""
+    out = [None] * mesh.size
     for g in groups:
-        stacked = _stack([payloads[i] for i in g])
+        for _ in _at(_GROUP, g):
+            stacked = _stack([payloads[i] for i in g])
         for i, t in zip(g, stacked):
             out[i] = t
-    _count(payloads)
     return out
 
 
@@ -213,9 +312,15 @@ def psum(mesh: Mesh, axis, payloads: Sequence[torch.Tensor]) -> list:
     """``jax.lax.psum(x, axis)``: for every mesh position the sum of its
     group's payloads, in the payloads' dtype (the wire's), summed in group
     order.  One collective (a gather and a sum); none for groups of one."""
-    if len(mesh.groups(axis)[0]) == 1:
+    groups = mesh.groups(axis)
+    if len(groups[0]) == 1:
         return list(payloads)
-    return [g.sum(0) for g in all_gather_groups(mesh, axis, payloads)]
+    nb = _nbytes(payloads)
+    with cost.collective("all-reduce", groups, nb, nb):
+        out = [g.sum(0) for _, g in each(_group_stacks(mesh, groups,
+                                                         payloads))]
+    _count(payloads)
+    return out
 
 
 def psum_scatter(mesh: Mesh, axis, payloads: Sequence[torch.Tensor],
@@ -236,11 +341,12 @@ def psum_scatter(mesh: Mesh, axis, payloads: Sequence[torch.Tensor],
         raise ValueError(f"psum_scatter: dimension {dim} of size {size} does "
                          f"not divide over {n} positions")
     blk = size // n
-    out = [None] * mesh.size
-    for g in groups:
-        for i, t in zip(g, _stack([payloads[i] for i in g])):
-            j = mesh.group_index(i, axis)
-            out[i] = t.narrow(dim + 1, j * blk, blk).sum(0)
+    nb = _nbytes(payloads)
+    with cost.collective("reduce-scatter", groups, nb,
+                         [b // n for b in nb]):
+        out = [t.narrow(dim + 1, mesh.group_index(i, axis) * blk,
+                        blk).sum(0)
+               for i, t in each(_group_stacks(mesh, groups, payloads))]
     _count(payloads)
     return out
 

@@ -28,4 +28,6 @@ aggregation), their wrappers and plain PyTorch versions.
                        (``ops.ell_aggregate``) + its gather floor
 ``ref.py``             the plain versions (CPU path and on-card oracle)
 ``ops.py``             dispatchers the engines call
+``cost.py``            each kernel's work (phase 6's bounds, the dry run's
+                       bill), ``on_card``, the hooks a cost counter listens on
 """

@@ -83,7 +83,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import bitset
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 # the shape rule (``design``, ``default_lanes``) and the design ids are
 # first fit's: the two wrappers pick their designs alike
 from repro_torch.kernels.firstfit import (  # noqa: F401
@@ -166,11 +166,21 @@ def detect_recolor(ell, colors, pri, U_rows, row_start: int, C: int,
         raise ValueError(f"rows [{row_start}, {row_start + R}) lie outside "
                          f"the (n={n},) color vector")
     slot_rows = check_slot_rows(slot_rows, row_ids, n, detect_only)
-    if device.type != "cuda":
+    if not cost.on_card(ell):
         return ref.detect_recolor_ref(
             ell, colors, pri, row_start, U_rows, C, forb0=forb0,
             extra_defect=extra_defect, force=force, valid=valid,
             row_ids=row_ids, detect_only=detect_only, slot_rows=slot_rows)
+    if cost.listening() or device.type == "meta":
+        cost.record_kernel("detect_recolor", 0, cost.detect_recolor_bytes(
+            cost.gather_bytes_bound(R, W, n, own=True), R, R,
+            bitset.n_words(C), forb0 is not None), (ell, colors))
+    if device.type == "meta":            # the dry run: the outputs' shapes
+        rec = torch.empty((R,), dtype=torch.bool, device=device)
+        if detect_only:
+            return rec
+        return (torch.empty((R,), dtype=torch.int32, device=device), rec,
+                torch.empty((R,), dtype=torch.bool, device=device))
     aligned = ell.data_ptr() % 16 == 0
     route = design(W, aligned)
     if not lanes_given:

@@ -37,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.firstfit import check_launch, check_tensor, ptr
 # the plain version, as a module attribute (see kernels/firstfit.py)
 from repro_torch.kernels import ref
@@ -110,8 +110,13 @@ def ell_spmm(ell, feats, op: str = "sum", *, lanes: Optional[int] = None):
     Returns (R, d) in the feature type.  ``lanes`` overrides the group size
     (tests; the result does not depend on it)."""
     R, W, n, d = check_spmm(ell, feats, op)
-    if ell.device.type != "cuda":
+    if not cost.on_card(ell):
         return ref.ell_spmm_ref(ell, feats, op)
+    if cost.listening() or ell.device.type == "meta":
+        cost.record_kernel("ell_spmm", 0, cost.ell_spmm_bytes(
+            R, W, min(n, R * W), d, feats.element_size()), (ell, feats))
+    if ell.device.type == "meta":        # the dry run: the output's shape
+        return torch.empty((R, d), dtype=feats.dtype, device=feats.device)
     lib = _build.library()
     out = torch.empty((R, d), dtype=feats.dtype, device=feats.device)
     vec = pick_vec(d, feats, out)

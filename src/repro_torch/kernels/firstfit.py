@@ -39,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 LANES = (1, 2, 4, 8, 16, 32)     # lanes per row compiled into the library
 WINDOWS = (2, 8, 16)             # register-resident forbidden words
@@ -194,9 +194,16 @@ def firstfit(ell, colors, C: int, forb0=None, *, lanes: Optional[int] = None,
     if route == "vec16" and (W % 4 or not aligned):
         raise ValueError(f"the vec16 design needs W % 4 == 0 and a 16-B "
                          f"aligned ell (got W={W})")
-    if ell.device.type != "cuda":
+    if not cost.on_card(ell):
         from repro_torch.kernels import ref
         return ref.firstfit_ref(ell, colors, C, forb0=forb0)
+    if cost.listening() or ell.device.type == "meta":
+        cost.record_kernel("firstfit", 0, cost.firstfit_bytes(
+            cost.gather_bytes_bound(R, W, n, own=False), R,
+            n_words(C), forb0 is not None), (ell, colors))
+    if ell.device.type == "meta":        # the dry run: the outputs' shapes
+        return (torch.empty((R,), dtype=torch.int32, device=ell.device),
+                torch.empty((R,), dtype=torch.bool, device=ell.device))
     route = design(W, aligned) if route is None else route
     if not lanes_given and route == "vec16":
         lanes = default_lanes(W, aligned)

@@ -42,8 +42,10 @@ Bound on the card: operations at prefill shapes, 4 * B * Hq * Lq * Lk * D
 FLOPs (about half of it when causal) against the card's bf16 tensor-core
 rate.
 
-``flash_attention`` launches a kernel for CUDA tensors and takes the plain
-version for CPU tensors — for those only: on a CUDA tensor it launches or
+``flash_attention`` launches a kernel for CUDA tensors, returns an empty
+output of the kernel's shape for meta tensors (the dry run: the call's
+work goes to ``kernels/cost.py``) and takes the plain version for CPU
+tensors — for those only: on a CUDA tensor it launches or
 raises (no fallback from one design to the other either).  The kernels are
 forward only: on a CUDA tensor, under grad mode with an input that
 requires grad, the wrapper raises rather than return a tensor with no
@@ -55,7 +57,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.firstfit import check_launch, check_tensor, ptr
 # the plain version, as a module attribute (see kernels/firstfit.py)
 from repro_torch.kernels import ref
@@ -127,7 +129,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     D 12, which is padded into new tensors).  Returns a contiguous (B, Hq,
     Lq, D) in q's type.  The scale is 1 / sqrt(D), as in the reference."""
     (qk, kk, vk), (B, Hq, Hkv, Lq, Lk, D) = check_attention(q, k, v, causal)
-    if q.device.type != "cuda":
+    if not cost.on_card(q):
         return ref.flash_attention_ref(q, k, v, causal=causal)
     q, k, v = qk, kk, vk
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -136,6 +138,11 @@ def flash_attention(q, k, v, *, causal: bool = True):
             "grad under grad mode, and its output would carry no gradient "
             "(train through models.layers.chunked_attention, or call it "
             "under torch.no_grad)")
+    if cost.listening() or q.device.type == "meta":
+        cost.record_kernel("flash_attention", *cost.attention_work(
+            B, Hq, Hkv, Lq, Lk, D, causal, q.element_size()), (q, k, v))
+    if q.device.type == "meta":          # the dry run: the output's shape
+        return torch.empty((B, Hq, Lq, D), dtype=q.dtype, device=q.device)
     route = design(q.dtype, D)
     Dk = q.shape[-1]
     if route == "fma":

@@ -2,8 +2,10 @@
 
 ``backend="auto"`` follows the tensors: a CUDA tensor launches the
 hand-written CUDA kernel or raises (no build, load or launch failure ever
-gives way to the plain version), a CPU tensor takes the plain PyTorch
-version (``kernels/ref.py``) — the CPU tests run there.  ``backend="torch"``
+gives way to the plain version), a meta tensor takes the same route and
+records the kernel's work without computing (the dry run,
+``kernels/cost.py``), a CPU tensor takes the plain PyTorch version
+(``kernels/ref.py``) — the CPU tests run there.  ``backend="torch"``
 asks for the plain version wherever the tensors lie; ``backend="cuda"`` asks
 for the kernel and raises on a CPU tensor.
 
@@ -29,7 +31,7 @@ from repro_torch.kernels import detect_recolor as _dr_mod
 from repro_torch.kernels import ell_spmm as _spmm_mod
 from repro_torch.kernels import firstfit as _ff_mod
 from repro_torch.kernels import flash_attention as _fa_mod
-from repro_torch.kernels import ref
+from repro_torch.kernels import cost, ref
 from repro_torch.kernels import twohop as _twohop_mod
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.resilience import faults
@@ -42,8 +44,8 @@ def _resolve(backend: str, t: torch.Tensor) -> str:
         raise ValueError(f"unknown kernel backend {backend!r}; "
                          f"known: {BACKENDS}")
     if backend == "auto":
-        return "cuda" if t.device.type == "cuda" else "torch"
-    if backend == "cuda" and t.device.type != "cuda":
+        return "cuda" if cost.on_card(t) else "torch"
+    if backend == "cuda" and not cost.on_card(t):
         raise ValueError(
             f"backend='cuda' needs CUDA tensors (got a tensor on {t.device})")
     return backend

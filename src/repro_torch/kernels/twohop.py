@@ -67,7 +67,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.firstfit import (DIRECT_MAX_W, check_common,
                                           check_launch, check_row_ids,
                                           check_tensor, ptr)
@@ -158,10 +158,18 @@ def twohop_detect_recolor(ell_rows, ell_all, colors, pri, U_rows,
     for name, t in (("force", force), ("valid", valid)):
         if t is not None:
             check_tensor(name, t, torch.bool, (R,), device)
-    if device.type != "cuda":
+    if not cost.on_card(ell_all):
         return ref.twohop_ref(ell_rows, ell_all, colors, pri, row_start,
                               U_rows, C, force=force, valid=valid,
                               row_ids=row_ids, detect=detect)
+    if cost.listening() or device.type == "meta":
+        cost.record_kernel("twohop_detect_recolor", 0, cost.twohop_bytes(
+            cost.gather_bytes_bound(R, W, n, own=True, two_hop=True), R),
+            (ell_all, colors))
+    if device.type == "meta":            # the dry run: the outputs' shapes
+        return (torch.empty((R,), dtype=torch.int32, device=device),
+                torch.empty((R,), dtype=torch.bool, device=device),
+                torch.empty((R,), dtype=torch.bool, device=device))
     route = design(W, staged_fits(lanes, W), ell_all.data_ptr() % 16 == 0)
     lib = _build.library()
     newc = torch.empty((R,), dtype=torch.int32, device=device)

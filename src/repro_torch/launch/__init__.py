@@ -1,2 +1,3 @@
-"""Launchers of the port: ``python -m repro_torch.launch.serve`` and
-``python -m repro_torch.launch.train``."""
+"""Launchers of the port: ``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train`` and ``python -m
+repro_torch.launch.dryrun`` (every cell counted on meta tensors)."""

@@ -1,11 +1,13 @@
-"""Roofline bookkeeping: the three roofline terms and the useful-FLOPs
-(MODEL_FLOPS) estimates of every cell (the port of the reference's
-``launch/analysis.py``, against the H100 constants of ``launch/mesh.py``).
+"""Roofline bookkeeping: collective records with their ring factors, the
+three roofline terms and the useful-FLOPs (MODEL_FLOPS) estimates of every
+cell (the port of the reference's ``launch/analysis.py``, against the H100
+constants of ``launch/mesh.py``).
 
-The reference's ``parse_collectives`` and ``analyze`` read XLA's HLO text
-and have no counterpart: the port is eager PyTorch and compiles no HLO.
-``Roofline`` takes its FLOPs, bytes and collective bytes from the caller.
-The model-FLOPs functions are the reference's arithmetic, unchanged.
+The reference reads its collectives from XLA's HLO text; the port records
+them as ``core/mesh.py`` runs them (``launch/cost.py``), and
+``parse_collectives`` applies the same ring factors to those records.
+``analyze`` takes ``launch/cost.py``'s count of a step.  The model-FLOPs
+functions are the reference's arithmetic, unchanged.
 """
 from __future__ import annotations
 
@@ -13,6 +15,39 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.launch.mesh import HBM_BW, ICI_BW, PEAK_FLOPS_BF16
+
+
+# ring-schedule wire bytes a position from the result bytes R and the group
+# size G (the reference's ``parse_collectives``)
+COLLECTIVE_FACTORS = {
+    "all-reduce": lambda R, G: 2.0 * R * (G - 1) / G,
+    "all-gather": lambda R, G: R * (G - 1) / G,
+    "reduce-scatter": lambda R, G: float(R) * (G - 1),
+    "all-to-all": lambda R, G: R * (G - 1) / G,
+    "collective-permute": lambda R, G: float(R),
+}
+
+
+def parse_collectives(records) -> dict:
+    """Per-device wire bytes and counts from ``(kind, R, G)`` records (one
+    a collective a position ran: result bytes R, group size G), with the
+    reference's ring-schedule factors:
+        all-reduce          2 * R * (G-1)/G     (reduce-scatter + all-gather)
+        all-gather          R * (G-1)/G         (R = gathered result)
+        reduce-scatter      R * (G-1)            (operand = R*G)
+        all-to-all          R * (G-1)/G
+        collective-permute  R
+    Returns the reference's dict: ``{kind: {"bytes", "count"}}``,
+    ``total_bytes``, ``total_count``."""
+    out = {k: {"bytes": 0.0, "count": 0} for k in COLLECTIVE_FACTORS}
+    for kind, R, G in records:
+        out[kind]["bytes"] += COLLECTIVE_FACTORS[kind](R, G)
+        out[kind]["count"] += 1
+    out["total_bytes"] = sum(v["bytes"] for v in out.values()
+                             if isinstance(v, dict))
+    out["total_count"] = sum(v["count"] for v in out.values()
+                             if isinstance(v, dict))
+    return out
 
 
 @dataclasses.dataclass
@@ -73,6 +108,25 @@ class Roofline:
             "useful_ratio": self.useful_ratio,
             "roofline_fraction": self.roofline_fraction,
         }
+
+
+def analyze(cost: dict, n_chips: int, model_flops: float = 0.0) -> dict:
+    """The reference's ``{"roofline", "collectives", "memory"}`` from
+    ``launch/cost.py``'s count of one step (``count_step``'s second value):
+    FLOPs and bytes a device as the positions' mean (the reference's
+    devices run one SPMD program; the port's backward attribution is not
+    exact a position, see ``launch/cost.py``), the collectives of the
+    position that moves the most, the memory a device as the positions'
+    mean.  The reference's ``xla_cost_crosscheck`` has no
+    counterpart: there is no XLA.  Bytes are the eager step's unfused
+    traffic, an upper bound on a fused program's."""
+    coll = cost["collectives"]
+    roof = Roofline(flops_per_device=float(cost["flops"]["mean"]),
+                    hbm_bytes_per_device=float(cost["bytes"]["mean"]),
+                    coll_bytes_per_device=float(coll["total_bytes"]),
+                    n_chips=n_chips, model_flops=model_flops)
+    return {"roofline": roof.as_dict(), "collectives": coll,
+            "memory": dict(cost["memory"])}
 
 
 # --------------------------------------------------------------------------

@@ -24,7 +24,11 @@ real tensors placed on the mesh (``launch.sharding.place``) and
                   candidates split over the mesh, top 100
 
 A train cell on a mesh whose positions sit on different devices (ROADMAP
-B.19) raises ``NotImplementedError``.  The full shapes are large
+B.19) raises ``NotImplementedError``.  On a mesh of ``meta`` positions (the
+dry run, ``launch/dryrun.py``) a cell holds empty meta tensors at the
+shape's full sizes: weights made with no generator, inputs never drawn,
+a GNN batch shaped by ``_gnn_batch_shapes``, the halo cell sized by
+``boundary_frac``; ``launch/cost.py`` counts its step.  The full shapes are large
 (``train_4k`` is 256 x 4096 tokens, ``long_500k`` a 524,288-slot cache,
 ``ogb_products`` 61.9M edges): ``batch=`` / ``seq_len=`` / ``sizes=`` cut
 them, and a cut is written into the cell's ``static_notes``;
@@ -71,6 +75,22 @@ class Cell:
             return out
         with torch.no_grad():
             return self.step(*self.args)
+
+
+def _generator(dev):
+    """The default weights' generator: seed 0 on ``dev``; none on meta,
+    which has no generator (nothing is drawn there)."""
+    if dev.type == "meta":
+        return None
+    return torch.Generator(device=dev).manual_seed(0)
+
+
+def _drawn(dev, make, shape, dtype):
+    """``make()``'s numpy array on ``dev``; on meta an empty tensor of its
+    ``shape`` and ``dtype``, never drawn."""
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
+    return torch.from_numpy(make()).to(dev)
 
 
 def _place(x, mesh: Mesh, rule) -> SH.Placed:
@@ -175,8 +195,7 @@ def build_cell(arch: str, shape: str, mesh: Mesh,
     dev = mesh.devices[0]
     rng = np.random.default_rng(0)
     if params is None:
-        params = TF.init_params(torch.Generator(device=dev).manual_seed(0),
-                                cfg, dev)
+        params = TF.init_params(_generator(dev), cfg, dev)
     if shp["kind"] == "train":
         return _train_cell(arch, shape, mesh, cfg, params, inputs, rng, B, L,
                            microbatches, "; ".join(notes))
@@ -184,8 +203,8 @@ def build_cell(arch: str, shape: str, mesh: Mesh,
     if shp["kind"] == "prefill":
         tokens = inputs.get("tokens")
         if tokens is None:
-            tokens = torch.from_numpy(rng.integers(
-                1, cfg.vocab, (B, L)).astype(np.int32)).to(dev)
+            tokens = _drawn(dev, lambda: rng.integers(
+                1, cfg.vocab, (B, L)).astype(np.int32), (B, L), torch.int32)
         args = (placed, _place(tokens, mesh, SH.lm_batch_spec(mesh)))
         step = lambda p, t: TF.prefill(p, cfg, t)       # noqa: E731
         kind = "prefill"
@@ -195,8 +214,8 @@ def build_cell(arch: str, shape: str, mesh: Mesh,
             [mesh.shape[a] for a in b_axes])) else SH.P()
         token = inputs.get("token")
         if token is None:
-            token = torch.from_numpy(rng.integers(
-                1, cfg.vocab, (B,)).astype(np.int32)).to(dev)
+            token = _drawn(dev, lambda: rng.integers(
+                1, cfg.vocab, (B,)).astype(np.int32), (B,), torch.int32)
         length = inputs.get("length")
         if length is None:
             length = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -259,8 +278,8 @@ def _train_cell(arch, shape, mesh: Mesh, cfg, params, inputs: dict, rng,
     for key in ("tokens", "labels"):
         x = inputs.get(key)
         if x is None:
-            x = torch.from_numpy(rng.integers(1, cfg.vocab, (B, L)).astype(
-                np.int32)).to(dev)
+            x = _drawn(dev, lambda: rng.integers(1, cfg.vocab, (B, L)).astype(
+                np.int32), (B, L), torch.int32)
         batch[key] = _place(x, mesh, bspec)
     placed = SH.trainable(_place(params, mesh, SH.lm_param_spec))
     leaves = [b for _, b in SH.distinct(placed)]
@@ -344,24 +363,25 @@ def _recsys_cell(arch, shape, shp, mesh: Mesh, arch_def, smoke: bool,
     dev = mesh.devices[0]
     rng = np.random.default_rng(0)
     if params is None:
-        params = RS.dcnv2_init(torch.Generator(device=dev).manual_seed(0),
-                               cfg, dev)
+        params = RS.dcnv2_init(_generator(dev), cfg, dev)
     placed = _place(params, mesh, SH.recsys_param_spec)
     kind, B = shp["kind"], shp["batch"]
     bspec = SH.P(batch_axes(mesh))
     rows = bspec if B >= 32 else SH.P()
 
-    def get(key, make):
+    def get(key, make, shape, dtype):
         x = inputs.get(key)
-        return torch.from_numpy(make()).to(dev) if x is None else x
+        return _drawn(dev, make, shape, dtype) if x is None else x
 
     arrays = {"dense": get("dense", lambda: rng.standard_normal(
-        (B, cfg.n_dense)).astype(np.float32)),
-        "sparse": get("sparse", lambda: _sparse_ids(rng, cfg, B))}
+        (B, cfg.n_dense)).astype(np.float32), (B, cfg.n_dense),
+        torch.float32),
+        "sparse": get("sparse", lambda: _sparse_ids(rng, cfg, B),
+                      (B, cfg.n_sparse, cfg.max_hots), torch.int32)}
     notes = "; ".join(notes)
     if kind == "train":
         arrays["labels"] = get("labels", lambda: rng.integers(
-            0, 2, (B,)).astype(np.int32))
+            0, 2, (B,)).astype(np.int32), (B,), torch.int32)
         batch = SH.place(arrays, mesh, {"dense": rows, "sparse": rows,
                                         "labels": bspec})
         return _placed_train_cell(
@@ -380,7 +400,8 @@ def _recsys_cell(arch, shape, shp, mesh: Mesh, arch_def, smoke: bool,
         c = rng.standard_normal((NC, cfg.mlp_dims[-1])).astype(np.float32)
         return c / np.linalg.norm(c, axis=1, keepdims=True)
 
-    cand = _place(get("cand", candidates), mesh, SH.P(mesh.axis_names))
+    cand = _place(get("cand", candidates, (NC, cfg.mlp_dims[-1]),
+                      torch.float32), mesh, SH.P(mesh.axis_names))
     args = (placed, _place(arrays["dense"], mesh, rows),
             _place(arrays["sparse"], mesh, rows), cand)
     return Cell(arch, shape, "retrieval", lambda p, d, s, c:
@@ -414,7 +435,49 @@ def _gnn_init(model: str, cfg, dev):
     from repro_torch.models import gnn as G
     init = {"gat": G.gat_init, "mgn": G.mgn_init,
             "gatedgcn": G.gatedgcn_init, "nequip": EQ.nequip_init}[model]
-    return init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    return init(_generator(dev), cfg, dev)
+
+
+_GNN_DTYPES = {"feats": torch.float32, "edge_feats": torch.float32,
+               "positions": torch.float32, "energy": torch.float32,
+               "train_mask": torch.float32}
+
+
+def _gnn_batch_shapes(model: str, shp: dict) -> tuple:
+    """The reference's ``_gnn_batch_shapes``: the shape of every array of
+    one GNN cell's batch, and N.  Every graph gets one SINK padding node
+    (index N - 1) and edge arrays padded to a multiple of ``EDGE_PAD`` with
+    sink -> sink self-loops, so edge arrays shard evenly over the mesh and
+    padding never reaches a real node."""
+    from repro_torch.graphs.sampler import union_caps
+    mode = shp["mode"]
+    if mode == "full":
+        N, E = shp["n_nodes"] + 1, shp["n_edges"]
+        B = None
+    elif mode == "sampled":
+        fan = tuple(reversed(shp["fanouts"]))
+        caps = union_caps(shp["batch_nodes"], fan)
+        N = caps[-1] + 1
+        E = sum(c * f for c, f in zip(caps[:-1], fan))
+        B = shp["batch_nodes"]
+    else:                                     # batched molecules
+        B = shp["batch"]
+        N, E = B * shp["n_nodes"] + 1, B * shp["n_edges"]
+    E = -(-E // EDGE_PAD) * EDGE_PAD
+    out = {"src": (E,), "dst": (E,), "feats": (N, shp["d_feat"])}
+    if mode != "batched":                     # batched target = energy
+        out["labels"] = (B,) if mode == "sampled" else (N,)
+    if model == "mgn":
+        out["edge_feats"] = (E, 4)
+    if model == "nequip":
+        out["positions"] = (N, 3)
+        out["species"] = (N,)
+    if mode == "batched":
+        out["graph_id"] = (N,)
+        out["energy"] = (B,)
+    if mode == "full":
+        out["train_mask"] = (N,)
+    return out, N
 
 
 def _gnn_batch(model: str, shp: dict, cfg, rng) -> dict:
@@ -500,10 +563,14 @@ def _gnn_cell(arch, shape, shp, mesh: Mesh, arch_def, overrides: dict,
     if halo:
         return _gnn_halo_cell(arch, shape, shp, mesh, cfg, placed, inputs,
                               notes, boundary_frac)
-    rng = np.random.default_rng(0)
-    arrays = _gnn_batch(model, shp, cfg, rng)
-    arrays = {k: inputs[k] if k in inputs else torch.from_numpy(v).to(dev)
-              for k, v in arrays.items()}
+    if dev.type == "meta":
+        arrays = {k: torch.empty(s, dtype=_GNN_DTYPES.get(k, torch.int32),
+                                 device=dev)
+                  for k, s in _gnn_batch_shapes(model, shp)[0].items()}
+    else:
+        arrays = _gnn_batch(model, shp, cfg, np.random.default_rng(0))
+        arrays = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    arrays.update({k: v for k, v in inputs.items() if k in arrays})
     espec = SH.gnn_edge_spec(mesh)
     rule = {k: (espec if k in ("src", "dst") else SH.P(espec[0])
                 if k == "edge_feats" else SH.P()) for k in arrays}
@@ -568,6 +635,31 @@ def halo_batch(src, dst, feats, labels, mask, n: int, D: int) -> tuple:
                                 e[:, 1].astype(np.int32), feats, labels, mask)
 
 
+def _halo_meta_batch(shp: dict, cfg, mesh: Mesh, notes: list,
+                     boundary_frac: float) -> tuple:
+    """The halo cell's per-shard batch on a meta mesh, sized as the
+    reference's ``_gnn_halo_train_cell`` sizes it: ``n_loc`` nodes and
+    ``e_loc`` edges a shard (rounded up to 128 / 512), ``boundary_frac`` of
+    a shard's nodes on its boundary and as many ghosts.  There is no graph
+    to plan on meta (``core.partition.build_halo`` reads the edges)."""
+    D, dev = mesh.size, mesh.devices[0]
+    n_loc = -(-shp["n_nodes"] // (D * 128)) * 128
+    e_loc = -(-shp["n_edges"] // (D * 512)) * 512
+    max_b = max(128, int(n_loc * boundary_frac) // 128 * 128)
+    shapes = {"feats": ((n_loc, cfg.d_in), torch.float32),
+              "labels": ((n_loc,), torch.int32),
+              "train_mask": ((n_loc,), torch.float32),
+              "src": ((e_loc,), torch.int32), "dst": ((e_loc,), torch.int32),
+              "boundary": ((max_b,), torch.int32),
+              "ghost_flat": ((max_b,), torch.int32)}
+    batch = [{k: torch.empty(s, dtype=t, device=dev)
+              for k, (s, t) in shapes.items()} for _ in range(D)]
+    return batch, notes + [
+        f"halo over {D} shards sized by boundary_frac {boundary_frac}: "
+        f"n_loc {n_loc}, e_loc {e_loc}, max_b = max_g {max_b} (a meta "
+        f"mesh has no graph to plan)"]
+
+
 def _gnn_halo_cell(arch, shape, shp, mesh: Mesh, cfg, placed, inputs: dict,
                    notes: list, boundary_frac: float) -> Cell:
     """The reference's ``_gnn_halo_train_cell``: GatedGCN with its nodes
@@ -578,6 +670,14 @@ def _gnn_halo_cell(arch, shape, shp, mesh: Mesh, cfg, placed, inputs: dict,
     its largest boundary against ``boundary_frac``."""
     from repro_torch.models import gnn as G
     D, n = mesh.size, shp["n_nodes"]
+    axis = ",".join(mesh.axis_names)
+    if mesh.devices[0].type == "meta":
+        batch, notes = _halo_meta_batch(shp, cfg, mesh, notes, boundary_frac)
+        return _placed_train_cell(
+            arch, shape, mesh, placed, batch,
+            lambda p, b: G.gatedgcn_halo_loss(p.shards[0], cfg, b, mesh,
+                                              axis),
+            cfg, "; ".join(notes))
     rng = np.random.default_rng(0)
     arrays = {"src": rng.integers(0, n, shp["n_edges"]),
               "dst": rng.integers(0, n, shp["n_edges"]),
@@ -599,7 +699,6 @@ def _gnn_halo_cell(arch, shape, shp, mesh: Mesh, cfg, placed, inputs: dict,
                      f"largest boundary {int(plan.n_boundary.max())} nodes "
                      f"({real:.4f} of n_loc) against boundary_frac "
                      f"{boundary_frac}"]
-    axis = ",".join(mesh.axis_names)
     return _placed_train_cell(
         arch, shape, mesh, placed, batch,
         lambda p, b: G.gatedgcn_halo_loss(p.shards[0], cfg, b, mesh, axis),

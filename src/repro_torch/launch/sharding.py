@@ -239,15 +239,18 @@ class Placed:
 
     def gather(self, path: str) -> torch.Tensor:
         """The global leaf, assembled from the blocks on the first shard's
-        device (a fetch to the caller, not a collective)."""
+        device (a fetch to the caller, not a collective: done for no mesh
+        position)."""
         shape, spec = self.shapes[path], self.specs[path]
         dev = self.mesh.devices[0]
         first = _leaf(self.shards[0], path)
-        out = torch.empty(shape, dtype=first.dtype, device=dev)
-        for pos in range(self.mesh.size):
-            idx = tuple(slice(*block_range(self.mesh, spec, shape, d, pos))
-                        for d in range(len(shape)))
-            out[idx] = _leaf(self.shards[pos], path).to(dev)
+        with M.outside():
+            out = torch.empty(shape, dtype=first.dtype, device=dev)
+            for pos in range(self.mesh.size):
+                idx = tuple(slice(*block_range(self.mesh, spec, shape, d,
+                                               pos))
+                            for d in range(len(shape)))
+                out[idx] = _leaf(self.shards[pos], path).to(dev)
         return out
 
 
@@ -282,7 +285,7 @@ def place(tree, mesh: Mesh, rule) -> Placed:
         spec = _spec(rule, path, leaf, tuple(leaf.shape), mesh)
         shapes[path], specs[path] = tuple(leaf.shape), spec
         made = {}
-        for pos in range(mesh.size):
+        for pos in M.positions(mesh.size):
             dev = mesh.devices[pos]
             key = (dev, block_key(mesh, spec, pos))
             if key not in made:
@@ -323,7 +326,7 @@ def reshard(placed: Placed, mesh: Mesh, rule) -> Placed:
         dst = _spec(rule, path, first, shape, mesh)
         specs[path] = dst
         blocks = [f[j][1] for f in flat]
-        for pos, b in enumerate(_moved(mesh, blocks, shape, src, dst)):
+        for pos, b in M.each(_moved(mesh, blocks, shape, src, dst)):
             per_pos[pos].append(b)
     shards = tuple(T.unflatten(s, b) for s, b in zip(placed.shards, per_pos))
     return Placed(mesh, dict(placed.shapes), specs, shards)
@@ -349,7 +352,7 @@ def _moved(mesh: Mesh, blocks: list, shape, src: P, dst: P) -> list:
             grow.append(int(np.prod([mesh.shape[a] for a in s_ax[d]]))
                         if moves[d] else 1)
         assembled = {}
-        for pos, g in enumerate(M.all_gather_groups(mesh, axes, blocks)):
+        for pos, g in M.each(M.all_gather_groups(mesh, axes, blocks)):
             if id(g) not in assembled:
                 assembled[id(g)] = g.reshape(
                     [mesh.shape[a] for a in axes] + list(g.shape[1:])
@@ -357,7 +360,7 @@ def _moved(mesh: Mesh, blocks: list, shape, src: P, dst: P) -> list:
                     [g.shape[1 + d] * grow[d] for d in range(nd)])
             full[pos] = assembled[id(g)]
     out, made = [], {}
-    for pos, t in enumerate(full):
+    for pos, t in M.each(full):
         key = (id(t), block_key(mesh, dst, pos))
         if key not in made:
             # a dimension gathered, or held whole, is cut to the position's

@@ -72,7 +72,7 @@ def gat_apply(ps: list, cfg, feats: list, E: EdgeShards) -> list:
     for li in range(n_layers):
         last = li == n_layers - 1
         scores, msgs = [], []
-        for pos, x in enumerate(xs):
+        for pos, x in M.each(xs):
             lp = ps[pos]["layers"][li]
             h = (x @ lp["w"]).reshape(-1, H, lp["w"].shape[1] // H)
             hs = gather(h, E.src[pos])
@@ -93,11 +93,11 @@ def mgn_apply(ps: list, cfg, feats: list, edge_feats: list,
     for bi in range(len(ps[0]["blocks"])):
         es = [e + G.mlp_apply(ps[pos]["blocks"][bi]["edge_mlp"], torch.cat(
             [e, gather(h, E.src[pos]), gather(h, E.dst[pos])], -1))
-            for pos, (e, h) in enumerate(zip(es, hs))]
+            for pos, (e, h) in M.each(zip(es, hs))]
         agg = E.sum(es)
         hs = [h + G.mlp_apply(ps[pos]["blocks"][bi]["node_mlp"],
                               torch.cat([h, a], -1))
-              for pos, (h, a) in enumerate(zip(hs, agg))]
+              for pos, (h, a) in M.each(zip(hs, agg))]
     return [G.mlp_apply(p["decoder"], h) for p, h in zip(ps, hs)]
 
 
@@ -107,11 +107,11 @@ def gatedgcn_apply(ps: list, cfg, feats: list, E: EdgeShards) -> list:
     for bi in range(len(ps[0]["blocks"])):
         out = [G.gated_edges(ps[pos]["blocks"][bi], h, e, h, E.src[pos],
                              E.dst[pos])
-               for pos, (h, e) in enumerate(zip(hs, es))]
+               for pos, (h, e) in M.each(zip(hs, es))]
         es = [e for _, e in out]
         summed = E.sum([m for m, _ in out])
         hs = [G.gated_nodes(ps[pos]["blocks"][bi], h, s)
-              for pos, (h, s) in enumerate(zip(hs, summed))]
+              for pos, (h, s) in M.each(zip(hs, summed))]
     return [h @ p["readout"] for p, h in zip(ps, hs)]
 
 
@@ -127,7 +127,7 @@ def nequip_apply(ps: list, cfg, species: list, positions: list,
     E = EdgeShards(E.mesh, E.axes, E.src, dst_safe, E.n)
     for li in range(len(ps[0]["layers"])):
         msgs = []
-        for pos, (sh, rbf, valid, _) in enumerate(basis):
+        for pos, (sh, rbf, valid, _) in M.each(basis):
             lp = ps[pos]["layers"][li]
             msgs.append(EQ.messages(cfg, feats[pos], sh, EQ.radial_weights(
                 lp, cfg, rbf, valid), E.src[pos]))
@@ -140,7 +140,7 @@ def nequip_apply(ps: list, cfg, species: list, positions: list,
             for a, t in zip(aggs, E.sum([m[l] for m in msgs])):
                 a[l] = t
         feats = [EQ.node_update(ps[pos]["layers"][li], cfg, f, a)
-                 for pos, (f, a) in enumerate(zip(feats, aggs))]
+                 for pos, (f, a) in M.each(zip(feats, aggs))]
     return [EQ.readout(p, f) for p, f in zip(ps, feats)]
 
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.cost import on_card
 
 MASKED = -1e30          # the reference's hidden score
 
@@ -318,11 +319,12 @@ def merge_partials(parts, dtype):
 
 
 def _decode_attention_sharded(q, k, v, length, seq_axis, extra_slot):
+    from repro_torch.core import mesh as M
     from repro_torch.core.mesh import Sharded, all_gather_groups
     mesh = k.mesh
     n_blocks = len(mesh.groups(seq_axis)[0])
     parts = []
-    for pos in range(mesh.size):
+    for pos in M.positions(mesh.size):
         kb = k.blocks[pos]
         n = kb.shape[2]
         parts.append(decode_partial(
@@ -331,15 +333,16 @@ def _decode_attention_sharded(q, k, v, length, seq_axis, extra_slot):
             mesh.group_index(pos, seq_axis) * n, n * n_blocks, extra_slot))
     return Sharded(mesh, tuple(
         merge_partials(g, q.blocks[pos].dtype) for pos, g in
-        enumerate(all_gather_groups(mesh, seq_axis, parts))))
+        M.each(all_gather_groups(mesh, seq_axis, parts))))
 
 
 def prefill_attention(q, k, v, *, causal: bool, chunk_q: int, chunk_k: int):
     """Attention of the Lq queries at the end of Lk keys (causal offset
     Lk - Lq): on CUDA tensors the hand-written kernel (``ops.attention``,
     which launches it or raises; it reads the (B, L, H, D)-ordered views of
-    the projections as they are), on CPU tensors ``chunked_attention``."""
-    if q.device.type == "cuda":
+    the projections as they are), on meta tensors the same route (the dry
+    run costs the kernel), on CPU tensors ``chunked_attention``."""
+    if on_card(q):
         return ops.attention(q, k, v, causal=causal)
     return chunked_attention(q, k, v, causal=causal,
                              q_offset=k.shape[2] - q.shape[2],

@@ -203,13 +203,14 @@ def sharded_o_c(cfg: MLAConfig, mesh, seq_axis, queries: list,
     reference casts them, and one ``psum`` adds the blocks' shares.
     ``new[pos]``: the step's own latents (c, kr) in the cache's type, one
     more block counted once, or None (write-then-attend)."""
+    from repro_torch.core import mesh as M
     from repro_torch.core.mesh import all_gather_groups, psum
     scores = [decode_scores(cfg, *q, *b, n, s0)
               for q, b, n, s0 in zip(queries, blocks, lengths, starts)]
     own = None if new is None else [decode_scores(cfg, *q, *nw, None, 0)
                                     for q, nw in zip(queries, new)]
     tops = []
-    for pos, g in enumerate(all_gather_groups(
+    for pos, g in M.each(all_gather_groups(
             mesh, seq_axis, [score_stats(s) for s in scores])):
         if own is not None:
             g = torch.cat([g, score_stats(own[pos])[None]])
@@ -280,6 +281,7 @@ def mla_attend_decode(params, cfg: MLAConfig, x, positions, cache, length,
 
 def _attend_decode_sharded(params, cfg: MLAConfig, x, positions, cache,
                            length, prewritten: bool, seq_axis):
+    from repro_torch.core import mesh as M
     from repro_torch.core.mesh import Sharded
     c_sh, kr_sh = cache
     mesh = c_sh.mesh
@@ -289,7 +291,7 @@ def _attend_decode_sharded(params, cfg: MLAConfig, x, positions, cache,
                 else v.to(mesh.devices[pos]))
 
     ps, queries, new, starts = [], [], [], []
-    for pos in range(mesh.size):
+    for pos in M.positions(mesh.size):
         c, kr = c_sh.blocks[pos], kr_sh.blocks[pos]
         p = T.tree_map(lambda t: t.to(c.device), params)
         xb, pb = block(x, pos), block(positions, pos)
@@ -301,10 +303,10 @@ def _attend_decode_sharded(params, cfg: MLAConfig, x, positions, cache,
         ps.append(p)
     o_c = sharded_o_c(cfg, mesh, seq_axis, queries,
                       list(zip(c_sh.blocks, kr_sh.blocks)),
-                      [block(length, pos) for pos in range(mesh.size)],
+                      [block(length, pos) for pos in M.positions(mesh.size)],
                       starts, None if prewritten else new)
     outs = [absorbed_output(cfg, o.to(block(x, pos).dtype), ps[pos]["w_uv"])
-            @ ps[pos]["w_o"] for pos, o in enumerate(o_c)]
+            @ ps[pos]["w_o"] for pos, o in M.each(o_c)]
     if prewritten:
         return Sharded(mesh, tuple(outs)), (None, None)
     return Sharded(mesh, tuple(outs)), (

@@ -42,7 +42,7 @@ def build_x0(placed: SH.Placed, cfg, dense: list, sparse: list) -> list:
     embs = [[None] * cfg.n_sparse for _ in range(mesh.size)]
     for axes, fields in by_axes.items():
         parts = []
-        for pos in range(mesh.size):
+        for pos in M.positions(mesh.size):
             sp = sparse[pos] if sparse[pos].dim() == 3 else sparse[pos][
                 ..., None]
             bags = []
@@ -57,7 +57,7 @@ def build_x0(placed: SH.Placed, cfg, dense: list, sparse: list) -> list:
                     idx.shape + (tab.shape[1],))
                 bags.append((rows * hit[..., None].to(rows.dtype)).sum(1))
             parts.append(torch.cat(bags, -1))
-        for pos, t in enumerate(M.psum(mesh, axes, parts)):
+        for pos, t in M.each(M.psum(mesh, axes, parts)):
             for f, b in zip(fields, t.split(cfg.embed_dim, -1)):
                 embs[pos][f] = b
     return [torch.cat([d] + e, -1) for d, e in zip(dense, embs)]
@@ -70,7 +70,7 @@ def deep(placed: SH.Placed, hs: list) -> list:
     for j in range(len(placed.shards[0]["mlp_w"])):
         path = f"['mlp_w'][{j}]"
         parts = []
-        for pos, h in enumerate(hs):
+        for pos, h in M.each(hs):
             sh = placed.shards[pos]
             c0, c1 = placed.range(path, 1, pos)
             parts.append(torch.relu(h @ sh["mlp_w"][j] + sh["mlp_b"][j][c0:c1]))
@@ -84,7 +84,7 @@ def forward(placed: SH.Placed, cfg, dense: list, sparse: list) -> list:
     xs = list(x0)
     for i in range(len(placed.shards[0]["cross"])):
         xs = [RS.cross_layer(placed.shards[pos]["cross"][i], x0[pos], x)
-              for pos, x in enumerate(xs)]
+              for pos, x in M.each(xs)]
     hs = deep(placed, xs)
     if cfg.structure == "parallel":
         hs = [torch.cat([h, x], -1) for h, x in zip(hs, xs)]
@@ -129,7 +129,7 @@ def retrieval_scores(placed: SH.Placed, cfg, dense: SH.Placed,
         placed, cfg, list(dense.shards), list(sparse.shards)))]
     axes = cand.split("", 0)
     scores, vals, ids = [], [], []
-    for pos, (q, c) in enumerate(zip(qs, cand.shards)):
+    for pos, (q, c) in M.each(zip(qs, cand.shards)):
         s = (c @ q[0]).to(torch.float32)
         v, i = torch.sort(s, descending=True, stable=True)
         k = min(top_k, s.shape[0])
@@ -147,6 +147,6 @@ def retrieval_scores(placed: SH.Placed, cfg, dense: SH.Placed,
     dev = mesh.devices[0]
     n = cand.shapes[""][0]
     out = torch.empty((n,), dtype=torch.float32, device=dev)
-    for pos, s in enumerate(scores):
+    for pos, s in M.each(scores):
         out[slice(*cand.range("", 0, pos))] = s.to(dev)
     return out, merged[0][0], merged[0][1]

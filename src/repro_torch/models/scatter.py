@@ -20,6 +20,8 @@ import contextvars
 
 import torch
 
+from repro_torch.kernels.cost import on_card
+
 _ATOMIC = contextvars.ContextVar("gnn_atomic_scatter", default=False)
 
 
@@ -37,7 +39,7 @@ def atomic_scatter():
 def _scatter_add(src: torch.Tensor, idx: torch.Tensor, n: int,
                  atomic: bool) -> torch.Tensor:
     out = src.new_zeros((n,) + tuple(src.shape[1:]))
-    if atomic or not src.is_cuda:      # the CPU adds in index order anyway
+    if atomic or not on_card(src):     # the CPU adds in index order anyway
         return out.index_add_(0, idx, src)
     return out.index_put_((idx.long(),), src, accumulate=True)
 

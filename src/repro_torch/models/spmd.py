@@ -115,7 +115,7 @@ class _Run:
 
     def __init__(self, placed: SH.Placed, cfg=None):
         self.p, self.cfg, self.mesh = placed, cfg, placed.mesh
-        self.positions = range(self.mesh.size)
+        self.positions = M.positions(self.mesh.size)
         # every leaf under "layers" is stacked on the layer axis
         n = next((s[0] for p, s in placed.shapes.items()
                   if p.startswith("['layers']")), 0)
@@ -149,17 +149,19 @@ def _batch_rows(mesh, x, spec) -> list:
         return list(x.shards)
     spec = SH.sanitize_spec(spec, tuple(x.shape), mesh)
     return [x[slice(*SH.block_range(mesh, spec, tuple(x.shape), 0, pos))].to(
-        mesh.devices[pos]) for pos in range(mesh.size)]
+        mesh.devices[pos]) for pos in M.positions(mesh.size)]
 
 
 def _assemble(mesh, blocks, spec, shape):
     """The global tensor of per-position row blocks, on the first shard's
-    device."""
+    device (a fetch to the caller, done for no position)."""
     spec = SH.sanitize_spec(spec, shape, mesh)
-    out = torch.empty(shape, dtype=blocks[0].dtype, device=mesh.devices[0])
-    for pos, b in enumerate(blocks):
-        out[slice(*SH.block_range(mesh, spec, shape, 0, pos))] = b.to(
-            out.device)
+    with M.outside():
+        out = torch.empty(shape, dtype=blocks[0].dtype,
+                          device=mesh.devices[0])
+        for pos, b in enumerate(blocks):
+            out[slice(*SH.block_range(mesh, spec, shape, 0, pos))] = b.to(
+                out.device)
     return out
 
 
@@ -190,7 +192,7 @@ def _reduce(mesh, axes, parts: list, seq_axes=()) -> list:
     if tuple(axes) == tuple(seq_axes):
         return M.psum_scatter(mesh, axes, parts, 1)
     return [_seq_block(mesh, seq_axes, t, pos)
-            for pos, t in enumerate(M.psum(mesh, axes, parts))]
+            for pos, t in M.each(M.psum(mesh, axes, parts))]
 
 
 def _seq_block(mesh, seq_axes, x, pos: int):
@@ -212,7 +214,7 @@ def _seq_gather(mesh, seq_axes, xs: list) -> list:
 def _unembed(run: _Run, xs: list) -> list:
     keys = ("embed", "table")
     part = [x @ run.leaf(pos, *keys).T.to(x.dtype)
-            for pos, x in enumerate(xs)]
+            for pos, x in M.each(xs)]
     return _concat_gathered(run.mesh, run.split(keys, 0), part)
 
 
@@ -236,14 +238,14 @@ def _cols_full(run: _Run, i: int, keys_list, xs: list) -> list:
     for axes, js in by_axes.items():
         widths = [run.layer(0, i, *keys_list[j]).shape[-1] for j in js]
         loc = [torch.cat([x @ run.layer(pos, i, *keys_list[j]) for j in js],
-                         -1) for pos, x in enumerate(xs)]
+                         -1) for pos, x in M.each(xs)]
         if axes:
             parts = [[t.movedim(0, -2).reshape(*t.shape[1:-1], -1)
                       for t in g.split(widths, -1)]
                      for g in M.all_gather_groups(run.mesh, axes, loc)]
         else:
             parts = [t.split(widths, -1) for t in loc]
-        for pos, ts in enumerate(parts):
+        for pos, ts in M.each(parts):
             for j, t in zip(js, ts):
                 out[pos][j] = t
     return out
@@ -269,7 +271,7 @@ def _rows(run: _Run, i: int, keys, hs: list, own: bool,
     keys = ("layers",) + tuple(keys)
     axes = run.split(keys, 1)
     out = []
-    for pos, h in enumerate(hs):
+    for pos, h in M.each(hs):
         if axes and not own:
             h = h[..., slice(*run.range(keys, 1, pos))]
         out.append(h @ run.layer(pos, i, *keys[1:]))
@@ -281,7 +283,7 @@ def _swiglu(run: _Run, i: int, keys, xs: list, seq_axes=()) -> list:
     psum_scatter with ``act_shard``)."""
     hs = [F.silu(x @ run.layer(pos, i, *keys, "w_gate"))
           * (x @ run.layer(pos, i, *keys, "w_up"))
-          for pos, x in enumerate(xs)]
+          for pos, x in M.each(xs)]
     return _rows(run, i, tuple(keys) + ("w_down",), hs, own=True,
                  seq_axes=seq_axes)
 
@@ -294,14 +296,14 @@ def _ffn(run: _Run, i: int, xs: list, tok_axes, seq_axes=(),
     ``_moe``'s."""
     cfg, mesh = run.cfg, run.mesh
     xn = [L.rmsnorm(run.layer(pos, i, "ln2"), x)
-          for pos, x in enumerate(_seq_gather(mesh, seq_axes, xs))]
+          for pos, x in M.each(_seq_gather(mesh, seq_axes, xs))]
     if not cfg.moe:
         return _swiglu(run, i, ("ffn",), xn, seq_axes)
     flat = [x.reshape(-1, x.shape[-1]) for x in xn]
     ys = [y.reshape(x.shape) for y, x in zip(
         _moe(run, cfg.moe, i, flat, tok_axes, aux_out)[0], xn)]
     if seq_axes:
-        ys = [_seq_block(mesh, seq_axes, y, pos) for pos, y in enumerate(ys)]
+        ys = [_seq_block(mesh, seq_axes, y, pos) for pos, y in M.each(ys)]
     return ys
 
 
@@ -349,7 +351,7 @@ def _moe(run: _Run, cfg, i: int, xs: list, tok_axes,
     E, k = cfg.e_pad, cfg.top_k
     fk = ("layers", "ffn")
     routes = [MOE.top_k(run.layer(pos, i, "ffn"), cfg, x)
-              for pos, x in enumerate(xs)]
+              for pos, x in M.each(xs)]
     ranks = [MOE.rank(r[2], E) for r in routes]
     pos_g = [p for p, _ in ranks]
     n_tok = len(mesh.groups(tok_axes)[0])
@@ -357,7 +359,7 @@ def _moe(run: _Run, cfg, i: int, xs: list, tok_axes,
     if n_tok > 1:       # after the earlier token shards' pairs
         counts = M.all_gather_groups(mesh, tok_axes, [c for _, c in ranks])
         pos_g = [p + counts[pos][:mesh.group_index(pos, tok_axes)].sum(0)[
-            routes[pos][2]] for pos, p in enumerate(pos_g)]
+            routes[pos][2]] for pos, p in M.each(pos_g)]
     cap = MOE.capacity(cfg, T_loc * n_tok)
     keep = [p < cap for p in pos_g]
     route = [torch.stack([r[2], p, kp.long()], -1)
@@ -461,7 +463,7 @@ def _project(run: _Run, i: int, xn: list, positions: list, plan) -> list:
     wkv = (None if own_kv else (_weight_full(run, i, a + ("wk",)),
                                 _weight_full(run, i, a + ("wv",))))
     out = []
-    for pos, x in enumerate(xn):
+    for pos, x in M.each(xn):
         lp = run.layer(pos, i, "attn")
         q_lin = x @ (lp["wq"] if own_q else wq[pos])
         if own_kv:
@@ -530,7 +532,7 @@ def _mla_latents(run: _Run, i: int, xn: list, positions: list) -> list:
     lin = _cols_full(run, i, [a + ("w_dq",), a + ("w_dkv",), a + ("w_kr",)],
                      xn)
     out = []
-    for pos, (cq, ckv, kr) in enumerate(lin):
+    for pos, (cq, ckv, kr) in M.each(lin):
         lp = run.layer(pos, i, "attn")
         out.append((L.rmsnorm(lp["q_norm"], cq),
                     L.rmsnorm(lp["kv_norm"], ckv),
@@ -549,7 +551,7 @@ def _mla_attention(run: _Run, i: int, xn: list, positions: list, plan,
     lat = _mla_latents(run, i, xn, positions)
     ws = _mla_weights(run, i, plan)
     hs = []
-    for pos, (c_q, c_kv, k_r) in enumerate(lat):
+    for pos, (c_q, c_kv, k_r) in M.each(lat):
         w = ws[pos]
         q_n, q_r = MLA.head_queries(m, c_q, w["w_uq"], positions[pos])
         q, k, vp = MLA.head_qkv(m, q_n, q_r, c_kv, k_r, w["w_uk"],
@@ -570,10 +572,10 @@ def _mla_out(run: _Run, i: int, hs: list, plan, seq_axes=()) -> list:
     mesh = run.mesh
     full = _concat_gathered(mesh, plan[0], hs)
     keys = ("layers", "attn", "w_o")
-    parts = [h @ run.layer(pos, i, *keys[1:]) for pos, h in enumerate(full)]
+    parts = [h @ run.layer(pos, i, *keys[1:]) for pos, h in M.each(full)]
     ys = _concat_gathered(mesh, run.split(keys, 2), parts)
     if seq_axes:
-        ys = [_seq_block(mesh, seq_axes, y, pos) for pos, y in enumerate(ys)]
+        ys = [_seq_block(mesh, seq_axes, y, pos) for pos, y in M.each(ys)]
     return ys
 
 
@@ -596,7 +598,7 @@ def _mla_decode(run: _Run, i: int, xn: list, positions: list, lens: list,
     lat = _mla_latents(run, i, xn, positions)
     ws = _mla_weights(run, i, plan)
     qs = []
-    for pos, (c_q, _, _) in enumerate(lat):
+    for pos, (c_q, _, _) in M.each(lat):
         q_c, q_r = MLA.absorbed_query(m, *MLA.head_queries(
             m, c_q, ws[pos]["w_uq"], positions[pos]), ws[pos]["w_uk"])
         qs.append(torch.cat([q_c, q_r], -1))
@@ -606,7 +608,7 @@ def _mla_decode(run: _Run, i: int, xn: list, positions: list, lens: list,
     wta = cfg.decode_write_then_attend
 
     def write():
-        for pos, (_, c_new, kr_new) in enumerate(lat):
+        for pos, (_, c_new, kr_new) in M.each(lat):
             for buf, val in zip(bufs[pos], (c_new, kr_new)):
                 _write_local(buf, val[:, 0], lens[pos], s0[pos], S, axis=1)
 
@@ -619,7 +621,7 @@ def _mla_decode(run: _Run, i: int, xn: list, positions: list, lens: list,
                           [(q[..., :r], q[..., r:]) for q in qs], bufs,
                           [n + 1 if wta else n for n in lens], s0, new)
     hs = []
-    for pos, o in enumerate(o_c):
+    for pos, o in M.each(o_c):
         h0, h1 = plan[1][pos]
         hs.append(MLA.absorbed_output(m, o.to(xn[pos].dtype)[:, h0:h1],
                                       ws[pos]["w_uv"]))
@@ -705,7 +707,7 @@ def prefill(placed: SH.Placed, cfg, tokens):
     cache = [{k: [] for k in shapes} for _ in run.positions]
     for i in range(n_layers):
         xn = [L.rmsnorm(run.layer(pos, i, "ln1"), x)
-              for pos, x in enumerate(xs)]
+              for pos, x in M.each(xs)]
         if mla:
             hs, lat = _mla_attention(run, i, xn, positions, plan, False)
             h = _mla_out(run, i, hs, plan)
@@ -714,11 +716,11 @@ def prefill(placed: SH.Placed, cfg, tokens):
             h, kvs = _prefill_attention(run, i, xn, positions, plan)
         xs = [x + hh for x, hh in zip(xs, h)]
         xs = [x + y for x, y in zip(xs, _ffn(run, i, xs, tok_axes))]
-        for pos, kv in enumerate(kvs):     # the shard's sequence block
+        for pos, kv in M.each(kvs):     # the shard's sequence block
             for key, t in zip(shapes, kv):
                 cache[pos][key].append(t[(slice(None),) + seq[pos]])
     xs = [L.rmsnorm(run.leaf(pos, "final_norm"), x[:, -1:])
-          for pos, x in enumerate(xs)]
+          for pos, x in M.each(xs)]
     logits = [lg[:, 0] for lg in _unembed(run, xs)]
     caches = SH.Placed(
         mesh, {f"[{k!r}]": s for k, s in shapes.items()},
@@ -778,7 +780,7 @@ def decode_step(placed: SH.Placed, cfg, token, cache: SH.Placed, length):
     positions = [ln[:, None] for ln in lens]
     for i in range(kshape[0]):
         xn = [L.rmsnorm(run.layer(pos, i, "ln1"), x)
-              for pos, x in enumerate(xs)]
+              for pos, x in M.each(xs)]
         bufs = [tuple(cache.shards[pos][k][i] for k in keys)
                 for pos in run.positions]
         if mla:
@@ -791,7 +793,7 @@ def decode_step(placed: SH.Placed, cfg, token, cache: SH.Placed, length):
         xs = [x + hh for x, hh in zip(xs, h)]
         xs = [x + y for x, y in zip(xs, _ffn(run, i, xs, tok_axes))]
     xs = [L.rmsnorm(run.leaf(pos, "final_norm"), x)
-          for pos, x in enumerate(xs)]
+          for pos, x in M.each(xs)]
     logits = [lg[:, 0] for lg in _unembed(run, xs)]
     return _assemble(mesh, logits, bspec, (B, placed.shapes[
         _path("embed", "table")][0])), cache
@@ -815,7 +817,7 @@ def _gqa_decode(run: _Run, i: int, xn: list, positions: list, lens: list,
     vb = [b[1] for b in bufs]
 
     def write():
-        for pos, (q, k, v) in enumerate(qkv):
+        for pos, (q, k, v) in M.each(qkv):
             _write_local(kb[pos], k[:, :, 0], lens[pos], s0[pos], S)
             _write_local(vb[pos], v[:, :, 0], lens[pos], s0[pos], S)
 
@@ -831,7 +833,7 @@ def _gqa_decode(run: _Run, i: int, xn: list, positions: list, lens: list,
                                   lens[pos], s0[pos], S, False)
                  for pos in run.positions]
         o = []
-        for pos, g in enumerate(M.all_gather_groups(mesh, seq_axes, parts)):
+        for pos, g in M.each(M.all_gather_groups(mesh, seq_axes, parts)):
             q, k, v = qkv[pos]
             own = L.decode_partial(q, k, v, None, 0, 1, False)
             o.append(L.merge_partials(torch.cat([g, own[None]]), q.dtype))
@@ -855,7 +857,7 @@ def _train_layer(run: _Run, i: int, xs: list, aux: list, positions: list,
     the layer's products; ``aux``: per position the MoE aux loss so far."""
     cfg, mesh = run.cfg, run.mesh
     xn = [L.rmsnorm(run.layer(pos, i, "ln1"), x)
-          for pos, x in enumerate(_seq_gather(mesh, seq_axes, xs))]
+          for pos, x in M.each(_seq_gather(mesh, seq_axes, xs))]
     if cfg.attn_type == "mla":
         plan = _mla_plan(run)
         hs, _ = _mla_attention(run, i, xn, positions, plan, True)
@@ -918,7 +920,7 @@ def _trunk(placed: SH.Placed, cfg, tokens) -> tuple:
         else:
             xs, aux = body(xs, aux)
     xs = [L.rmsnorm(top.leaf(pos, "final_norm"), x) for pos, x in
-          enumerate(_seq_gather(mesh, seq_axes, xs))]
+          M.each(_seq_gather(mesh, seq_axes, xs))]
     return top, xs, aux, bspec, tok_axes
 
 
@@ -948,7 +950,7 @@ def _cross_entropy(run: _Run, xs: list, labels: list, tok_axes) -> list:
     mesh = run.mesh
     axes = run.split(keys, 0)
     lse, pick = [], []
-    for pos, x in enumerate(xs):
+    for pos, x in M.each(xs):
         tab = run.leaf(pos, *keys)
         logits = (x @ tab.T.to(x.dtype)).float()
         lab = labels[pos].long().clamp(min=0) - run.range(keys, 0, pos)[0]
@@ -962,7 +964,7 @@ def _cross_entropy(run: _Run, xs: list, labels: list, tok_axes) -> list:
                for g in M.all_gather_groups(mesh, axes, lse)]
     pick = M.psum(mesh, axes, pick)
     parts = []
-    for pos, lab in enumerate(labels):
+    for pos, lab in M.each(labels):
         mask = lab != IGNORE_ID
         parts.append(torch.stack([((lse[pos] - pick[pos]) * mask).sum(),
                                   mask.sum().float()]))
