@@ -253,6 +253,26 @@ ends the run with a non-zero exit code:
               against the replicated loss; counts zeroed before each
               sharded step, read after (none but (a)'s prefill launches);
               the phase's seconds against MC_BUDGET_S
+  5q. the dry run against the card, and the four examples (phase_dryrun)
+  5r. train cells on a mesh whose positions sit on different devices
+              (phase_train_devices): (1, 2) with one position on cuda:0
+              and one on the host's cpu (TD_DEVICES), each cell against
+              the same cell on a one-card (1, 2) mesh, two steps on copies
+              of the same weights: (a) dcn-v2 at full width, 65,536 rows
+              (half the tables and their moments on the host); (b) the
+              smoke qwen3-1.7b (fsdp_inner, act_shard, remat, 2
+              microbatches) and gatedgcn at full width (Cora) train cells;
+              loss and grad_norm a step, every weight's update and moment
+              after the last within TD_TOL, every replicated block's
+              copies bit-equal after each step, each step's collectives
+              and bytes past the one-card cell's equal to the all-reduces
+              reckoned here from the specs; ms a step, the card's peak;
+              (b)'s cells again under two planted faults (TD_FAULTS), each
+              of which must trip the all-reduce count and the update or
+              moment limit; (c) where the host has two cards, qwen3-1.7b
+              at full width on (1, 2) over cuda:0 / cuda:1 against 5o
+              (a)'s steps (one line where it has one); no kernel
+              launched; the phase's seconds against TD_BUDGET_S
   (5, 5c: each row's prepare_ms + solve_ms must not pass e2e_traced_ms,
   the wall time of the call they split, by more than SPLIT_SLACK)
   6. times    per-kernel device time (device_ms; the back-to-back call time
@@ -6103,6 +6123,477 @@ def phase_dryrun(device, card: str, rehearse: bool) -> tuple:
     return row, counts, ex_counts
 
 
+# --------------------------------------------------------------------------
+# phase 5r: train cells on a mesh whose positions sit on different devices
+# --------------------------------------------------------------------------
+
+TD_MESH = (1, 2)                           # (data, model), a device each
+# the one cross-device mesh of a one-card host: one position on the card
+# and one on its host, asked for by name (a route under test, not a
+# fallback: every copy of a replicated block, its gradient's all-reduce and
+# its update cross the PCIe bus)
+TD_DEVICES = ("cuda:0", "cpu")
+TD_STEPS = 2
+# (a) dcn-v2's train_batch at full width: the host position holds half of
+# every table (13M rows x 16) and its moments and updates them on the
+# host's cores.  That update, not the batch, sets the host position's
+# step: 3.9-5.5 s at 16,384-65,536 rows (H100 80GB HBM3, 700.00 W, its
+# host's 8 cores), so the batch is not cut
+TD_RECSYS_BATCH = 65_536
+# (b) the smoke qwen3-1.7b (fsdp_inner, act_shard, remat, 2
+# microbatches): remat puts one checkpoint frame across the card's and the
+# host's positions, which the backward recomputes.  At full width it does
+# not fit the phase's budget: td_lm(full=True), at TD_LM_FULL's cut (1
+# layer, 2 x 64 tokens, float32), takes 4.5-6.2 s a step on this mesh
+# (H100 80GB HBM3, 700.00 W, its host's 8 cores), and as long at 2 layers
+# or 4 x 128 tokens: the host position's update of half the 151,936 x 2048
+# embedding and its moments, as (a)'s is of half the tables.  gatedgcn at
+# full width on full_graph_sm (Cora: 16 layers, d_hidden 70, 2,708
+# nodes), as 5p (d) runs it
+TD_LM = ("qwen3-1.7b", dict(fsdp_inner=True, act_shard=True, remat=True,
+                            microbatches=2), (4, 64))
+# in float32: in the config's bfloat16 a step's update (lr 3e-6 at warmup)
+# is below the weights' rounding, and no leaf would move for the updates'
+# check to see
+TD_LM_FULL = dict(n_layers=1, dtype="float32", tokens=(2, 64))
+TD_GNN = ("gatedgcn", "full_graph_sm")
+# float32 on a card and on its host: products and sums round differently.
+# The leaves are held by norms.  The moments are linear in the gradient.
+# The update is Adam's, which divides a gradient by its own size plus eps
+# (1e-8): an element whose gradient is near eps (a unit that barely fires)
+# turns a rounding difference into a share of its step (dcn-v2's
+# mlp_b[0] came 0.028 apart, a moment 2.3e-3, at 16,384 rows on H100 80GB
+# HBM3, 700.00 W).  Planted faults read 0.94-1.47 at the worst leaf's
+# update and 0.71-1.24 at its moments in every cell of (a) and (b), on the
+# same card: a set that skips the sum over its copies, and every copy
+# updated on its own gradient (before replica sets)
+TD_TOL = dict(loss_rel=1e-4, gnorm_rel=1e-3, update_rel=0.1,
+              moment_rel=1e-2)
+TD_BUDGET_S = 30.0                         # the phase's share of the limit
+# planted in (b)'s cells, each must trip the all-reduce count and the
+# update or moment limit: each set's first copy keeps its own gradient (no
+# sum over the copies); every copy is a set of its own (updated on its own
+# gradient, as before replica sets)
+TD_FAULTS = ("no_sum", "own_sets")
+_td_tripped = None      # while td_faults plants a fault: the limits tripped
+
+
+def td_fail(limit: str, msg: str):
+    """``fail``; while ``td_faults`` plants a fault, a tripped ``limit``
+    noted instead."""
+    if _td_tripped is None:
+        fail(msg)
+    _td_tripped.append((limit, msg))
+
+
+def td_faults(what: str, run) -> dict:
+    """``run()`` (one cell's ``td_pair``) under each of ``TD_FAULTS``,
+    planted in ``launch.sharding``: per fault the limits it trips (with
+    their counts), the worst readings and the loss and grad_norm relative
+    to the one-card cell a step.  Fails unless each trips the all-reduce
+    count and the update or moment limit."""
+    global _td_tripped
+    from repro_torch.launch import sharding as SH
+    planted = {
+        "no_sum": ("reduce_replicas", lambda mesh, sets, grads: [
+            grads[copies[0][1]] for _, copies in sets]),
+        "own_sets": ("replica_sets", lambda placed: [
+            (path, ((0, i),)) for i, (path, _) in enumerate(
+                SH.distinct(placed))])}
+    out = {}
+    for name in TD_FAULTS:
+        attr, fake = planted[name]
+        real, _td_tripped = getattr(SH, attr), []
+        setattr(SH, attr, fake)
+        try:
+            row = run()
+        finally:
+            setattr(SH, attr, real)
+            tripped, _td_tripped = _td_tripped, None
+        limits = {}
+        for limit, _ in tripped:
+            limits[limit] = limits.get(limit, 0) + 1
+        rel = {k: [abs(m[k] - o[k]) / max(abs(o[k]), 1e-30) for m, o in
+                   zip(row["steps"], row["one_card_steps"])]
+               for k in ("loss", "grad_norm")}
+        out[name] = {"tripped": limits, "worst": row["worst"], **rel}
+        if "all_reduces" not in limits or not {"update", "moment"} & set(
+                limits):
+            fail(f"5r {what}: the planted fault {name} tripped only "
+                 f"{limits}")
+    return out
+
+
+def tree_paths(tree) -> list:
+    from repro_torch import tree as T
+    return T.flatten_with_paths(tree)
+
+
+def td_copies(placed) -> dict:
+    """Per leaf path, per block (by its index along each dimension, from
+    the leaf's spec and the mesh's coordinates): {device: (the first
+    position holding it there, its tensor)}.  Reckoned here, not read from
+    ``launch.sharding``."""
+    mesh = placed.mesh
+    flat = [dict(tree_paths(s)) for s in placed.shards]
+    out = {}
+    for path, spec in placed.specs.items():
+        blocks = {}
+        for pos in range(mesh.size):
+            coords = dict(zip(mesh.axis_names,
+                              np.unravel_index(pos, mesh.axis_sizes)))
+            key = []
+            for entry in spec:
+                axes = () if entry is None else (
+                    entry if isinstance(entry, tuple) else (entry,))
+                idx = 0
+                for a in axes:
+                    idx = idx * mesh.shape[a] + int(coords[a])
+                key.append(idx)
+            blocks.setdefault(tuple(key), {}).setdefault(
+                mesh.devices[pos], (pos, flat[pos][path]))
+        out[path] = blocks
+    return out
+
+
+def td_reckoned(placed, grad_dtype=None) -> dict:
+    """A step's gradient all-reduces reckoned from the specs: a block held
+    on more than one device is summed over its copies; the leaves whose
+    copies sit at the same positions, in one gradient dtype, make one
+    collective; each copy's bytes count (``mesh.gathered_bytes``' rule)."""
+    patterns = {}
+    for path, blocks in td_copies(placed).items():
+        groups = tuple(sorted(tuple(sorted(p for p, _ in d.values()))
+                              for d in blocks.values() if len(d) > 1))
+        if not groups:
+            continue
+        t = next(iter(next(iter(blocks.values())).values()))[1]
+        dtype = grad_dtype or t.dtype
+        key = (groups, str(dtype))
+        patterns[key] = patterns.get(key, 0) + sum(
+            len(g) for g in groups) * t.numel() * dtype.itemsize
+    return {"all_reduces": len(patterns), "bytes": sum(patterns.values()),
+            "patterns": [[list(map(list, g)), d] for g, d in patterns]}
+
+
+def td_copies_equal(what: str, cell) -> int:
+    """Every block's copies on different devices bit-equal (weights and
+    moments); returns how many copies were compared."""
+    n = 0
+    for name, tree in (("weights", cell.args[0]),
+                       ("mu", cell.args[1]["mu"]), ("nu", cell.args[1]["nu"])):
+        for path, blocks in td_copies(tree).items():
+            for d in blocks.values():
+                ts = [t.detach().cpu() for _, t in d.values()]
+                for t in ts[1:]:
+                    if not torch.equal(t, ts[0]):
+                        td_fail("copies",
+                                f"5r {what}: the copies of {name} {path} "
+                             f"differ: {float((t - ts[0]).abs().max())}")
+                    n += 1
+    return n
+
+
+def td_steps(what: str, cell, device, check_copies: bool,
+             sync_all: bool = False) -> list:
+    """``TD_STEPS`` steps of ``cell``: per step its metrics, wall ms (every
+    card synchronised with ``sync_all``), collectives and gathered bytes
+    (counted from 0 each step), the copies held bit-equal after each; no
+    kernel launched."""
+    from repro_torch import obs
+    from repro_torch.core import mesh as M
+
+    def run():
+        out = cell.run()
+        if sync_all:
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+        return out
+
+    steps = []
+    for _ in range(TD_STEPS):
+        obs.metrics.reset()
+        zero_counts()
+        out, ms = timed_call(run, device)
+        counts = launch_counts()
+        if any(counts.values()):
+            td_fail("launches", f"5r {what}: the training path launched "
+                                f"kernels {counts}")
+        row = {**tm_metrics(out[2]), "ms": ms,
+               "collectives": M.collectives(),
+               "gathered_bytes": M.gathered_bytes()}
+        if check_copies:
+            row["copies_bit_equal"] = td_copies_equal(what, cell)
+        steps.append(row)
+    return steps
+
+
+def td_leaves(what: str, mixed, one, initial: dict) -> dict:
+    """After the last step, every weight leaf's update on the mixed mesh
+    against the one-card cell's (the norm of their difference over the
+    norm of the one-card update) and every moment leaf (the norm of the
+    difference over the one-card leaf's norm)."""
+    tol, worst = TD_TOL, {"update": [0.0, None], "mu": [0.0, None],
+                          "nu": [0.0, None]}
+
+    def note(k, rel, path):
+        if rel >= worst[k][0]:
+            worst[k] = [rel, path]
+
+    with torch.no_grad():
+        for path in one.args[0].shapes:
+            want = one.args[0].gather(path).float()
+            moved = float(torch.linalg.vector_norm(
+                want - initial[path].float()))
+            err = float(torch.linalg.vector_norm(
+                mixed.args[0].gather(path).float() - want))
+            if not err <= tol["update_rel"] * moved:
+                td_fail("update", f"5r {what}: {path}'s update is {err} "
+                                  f"from the "
+                     f"one-card cell's, which moved it by {moved}")
+            note("update", err / moved if moved else 0.0, path)
+            for k in ("mu", "nu"):
+                w = one.args[1][k].gather(path)
+                scale = float(torch.linalg.vector_norm(w))
+                err = float(torch.linalg.vector_norm(
+                    mixed.args[1][k].gather(path) - w))
+                if not err <= tol["moment_rel"] * scale:
+                    td_fail("moment", f"5r {what}: {k} {path} is {err} "
+                                      f"from the "
+                         f"one-card cell's, past {tol['moment_rel']} x "
+                         f"{scale}")
+                note(k, err / scale if scale else 0.0, path)
+    return worst
+
+
+def td_pair(what: str, build, params, device, mixed_mesh, one_mesh,
+            grad_dtype=None) -> dict:
+    """The cell ``build(mesh, params)`` on the one-card (1, 2) mesh and on
+    the mixed one, ``TD_STEPS`` steps each on copies of the same weights:
+    loss and grad_norm a step within ``TD_TOL``, the same lr, every leaf
+    after the last step (``td_leaves``), the copies bit-equal after each
+    step, and each step's collectives and gathered bytes past the one-card
+    cell's equal to the all-reduces reckoned from the specs."""
+    initial = {p: x.detach() for p, x in tree_paths(params)}
+    peaks = {}
+
+    def held():
+        return (torch.cuda.memory_allocated(device) / 1e9
+                if device.type == "cuda" else None)
+
+    before = held()
+    peak_reset(device)
+    one = build(one_mesh, params)
+    one_steps = td_steps(what, one, device, False)
+    peaks["one_card"] = {"peak_gb": peak_gb(device), "held_before_gb": before}
+    before = held()
+    peak_reset(device)
+    mixed = build(mixed_mesh, params)
+    reckoned = td_reckoned(mixed.args[0], grad_dtype)
+    steps = td_steps(what, mixed, device, True)
+    peaks["mixed"] = {"peak_gb": peak_gb(device), "held_before_gb": before}
+    tol = TD_TOL
+    for i, (m, o) in enumerate(zip(steps, one_steps)):
+        for k, rel in (("loss", tol["loss_rel"]),
+                       ("grad_norm", tol["gnorm_rel"])):
+            d = abs(m[k] - o[k]) / max(abs(o[k]), 1e-30)
+            if not (np.isfinite(m[k]) and d <= rel):
+                td_fail(k, f"5r {what} step {i + 1}: {k} {m[k]} against the "
+                     f"one-card {o[k]}: relative {d} > {rel}")
+        if m["lr"] != o["lr"]:
+            td_fail("lr", f"5r {what} step {i + 1}: lr {m['lr']} against "
+                          f"{o['lr']}")
+        got = (m["collectives"] - o["collectives"],
+               m["gathered_bytes"] - o["gathered_bytes"])
+        if got != (reckoned["all_reduces"], reckoned["bytes"]):
+            td_fail("all_reduces",
+                    f"5r {what} step {i + 1}: {got[0]} collectives of "
+                 f"{got[1]} bytes past the one-card cell's, against the "
+                 f"{reckoned['all_reduces']} all-reduces of "
+                 f"{reckoned['bytes']} bytes reckoned from the specs")
+        if not m["copies_bit_equal"]:
+            td_fail("copies", f"5r {what}: no block has copies on two "
+                              f"devices")
+    worst = td_leaves(what, mixed, one, initial)
+    moments = [a + b for a, b in zip(mixed.args[1]["mu"].bytes_per_shard(),
+                                     mixed.args[1]["nu"].bytes_per_shard())]
+    return {"mesh": {"devices": [str(d) for d in mixed_mesh.devices],
+                     "shape": dict(zip(("data", "model"), TD_MESH))},
+            "bytes_per_position": {"weights": mixed.args[0].bytes_per_shard(),
+                                   "moments": moments},
+            "notes": mixed.static_notes, "steps": steps,
+            "one_card_steps": one_steps, "all_reduces_reckoned": reckoned,
+            "worst": worst, "card_memory": peaks}
+
+
+def td_recsys(device, mixed, one, rehearse: bool) -> dict:
+    """(a) dcn-v2 at full width (26 tables of 1,000,000 x 16, row-sharded
+    over model: half of them and their moments on the host), train_batch
+    cut to TD_RECSYS_BATCH rows."""
+    from repro_torch import configs
+    from repro_torch.launch import cells
+    from repro_torch.models import recsys as RS
+    arch = configs.get("dcn-v2")
+    cfg = arch.make_smoke() if rehearse else arch.make_full()
+    params = RS.dcnv2_init(torch.Generator(device=device).manual_seed(0),
+                           cfg, device)
+    B = 64 if rehearse else TD_RECSYS_BATCH
+
+    def build(mesh, p):
+        return cells.build_cell("dcn-v2", "train_batch", mesh,
+                                smoke=rehearse, batch=B, params=p)
+
+    row = td_pair("dcn-v2", build, params, device, mixed, one)
+    del params
+    row.update(batch=B, tables=[len(cfg.vocab_sizes), cfg.vocab_sizes[0],
+                                cfg.embed_dim],
+               batch_cut="none: the host position's table update, not the "
+                         "batch, sets its step (TD_RECSYS_BATCH)")
+    return row
+
+
+def td_lm(device, mixed, one, full: bool = False) -> dict:
+    """(b) the smoke qwen3-1.7b train cell (``TD_LM``'s knobs and tokens)
+    on the two meshes; ``full``: at full width, cut to ``TD_LM_FULL`` (the
+    measurement that keeps it out of 5r)."""
+    from repro_torch import configs
+    from repro_torch.launch import cells
+    from repro_torch.models import transformer as TF
+    name, knobs, (B, L) = TD_LM
+    over = dict(knobs)
+    arch = configs.get(name)
+    if full:
+        cut = dict(TD_LM_FULL)
+        B, L = cut.pop("tokens")
+        over.update(cut)
+    cfg = dataclasses.replace(
+        arch.make_full() if full else arch.make_smoke(),
+        **{k: v for k, v in over.items() if k != "microbatches"})
+    params = TF.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg, device)
+    rng = np.random.default_rng(24)
+    batch = {k: torch.from_numpy(rng.integers(1, cfg.vocab, (B, L)).astype(
+        np.int32)).to(device) for k in ("tokens", "labels")}
+
+    def build(mesh, p):
+        return cells.build_cell(name, "train_4k", mesh, dict(over), batch=B,
+                                seq_len=L, smoke=not full, params=p,
+                                inputs=batch)
+
+    # the microbatches' gradients are summed in float32
+    row = td_pair(name, build, params, device, mixed, one,
+                  grad_dtype=torch.float32)
+    return dict(row, knobs=knobs, n_layers=cfg.n_layers,
+                width=[cfg.d_model, cfg.vocab], tokens=[B, L])
+
+
+def td_gnn(device, mixed, one, rehearse: bool) -> dict:
+    """(b) gatedgcn at full width on full_graph_sm (in the rehearsal its
+    smoke config) on the two meshes."""
+    from repro_torch import configs
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.launch import cells
+    arch, shape = TD_GNN
+    arch_def = configs.get(arch)
+    cfg = cells._gnn_config(arch_def, dict(GNN_SHAPES[shape]), rehearse)
+    params = cells._gnn_init(arch_def.extras["model"], cfg, device)
+
+    def build(mesh, p):
+        return cells.build_cell(arch, shape, mesh, smoke=rehearse, params=p)
+
+    row = td_pair(arch, build, params, device, mixed, one)
+    return dict(row, shape=shape, n_layers=cfg.n_layers,
+                d_hidden=cfg.d_hidden)
+
+
+def td_cards(device, card: str, rehearse: bool, dense: dict) -> dict:
+    """(c) qwen3-1.7b at full width, 28 layers, bf16, on a (1, 2) mesh of
+    cuda:0 and cuda:1 at 5o's batch, knobs and weights: two steps against
+    5o (a)'s one-card steps (TM_LOSS_ATOL, TM_GNORM_REL: another mesh in
+    bf16), the copies bit-equal after each.  Where the host has one card
+    it does not run and says so."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 0
+    if rehearse or n < 2:
+        log("train_devices", f"5r (c) did not run: {n} CUDA device(s) on "
+            f"this host, and qwen3-1.7b at full width on a (1, 2) mesh of "
+            f"cuda:0 / cuda:1 needs two (still owed)")
+        return {"ran": False, "cuda_devices": n,
+                "owed": "qwen3-1.7b at full width on (1, 2) over two cards"}
+    from repro_torch.core import mesh as M
+    from repro_torch.launch import cells
+    mesh = M.make_mesh(TD_MESH, ("data", "model"),
+                       devices=["cuda:0", "cuda:1"])
+    over = dict(TM_DENSE_KNOBS, microbatches=TM_MICRO)
+    for i in range(2):
+        peak_reset(torch.device("cuda", i))
+    cfg, over, params, batch = tm_setup(TM_DENSE, None, over,
+                                        (TM_BATCH, TM_SEQ), device, False,
+                                        seed=20)
+    cell = cells.build_cell(TM_DENSE, "train_4k", mesh, over,
+                            batch=TM_BATCH, seq_len=TM_SEQ, params=params,
+                            inputs=batch)
+    del params, batch
+    reckoned = td_reckoned(cell.args[0], torch.float32)
+    steps = td_steps("qwen3-1.7b on two cards", cell, device, True,
+                     sync_all=True)
+    for i, (m, o) in enumerate(zip(steps, dense["steps"])):
+        dl = abs(m["loss"] - o["loss"])
+        dg = abs(m["grad_norm"] - o["grad_norm"]) / abs(o["grad_norm"])
+        if not (dl <= TM_LOSS_ATOL and dg <= TM_GNORM_REL
+                and m["lr"] == o["lr"]):
+            fail(f"5r (c) step {i + 1}: {m} against 5o (a)'s one-card "
+                 f"{o}: loss {dl} (> {TM_LOSS_ATOL}?), grad_norm relative "
+                 f"{dg} (> {TM_GNORM_REL}?)")
+    peaks = [peak_gb(torch.device("cuda", i)) for i in range(2)]
+    del cell
+    return {"ran": True, "cuda_devices": n, "arch": cfg.name,
+            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "mesh": {"devices": ["cuda:0", "cuda:1"],
+                     "shape": dict(zip(("data", "model"), TD_MESH))},
+            "batch": [TM_BATCH, TM_SEQ], "microbatches": TM_MICRO,
+            "steps": steps, "five_o_steps": dense["steps"],
+            "all_reduces_reckoned": reckoned, "peak_gb_per_card": peaks,
+            "card": card}
+
+
+def phase_train_devices(device, card: str, rehearse: bool,
+                        dense: dict) -> dict:
+    """Phase 5r: the train cells on a mesh whose positions sit on different
+    devices: (1, 2) with one position on ``cuda:0`` and one on the host's
+    ``cpu`` (``TD_DEVICES``; in the rehearsal ``cpu:0`` / ``cpu:1``), each
+    cell against the same cell on a one-card (1, 2) mesh: (a)
+    ``td_recsys``, (b) ``td_lm``, ``td_gnn`` and both under
+    ``td_faults``; (c) ``td_cards`` where the host has two cards.  No
+    kernel launched.  Returns the row."""
+    from repro_torch.core import mesh as M
+    t0 = time.perf_counter()
+    mixed = M.make_mesh(TD_MESH, ("data", "model"), devices=list(
+        ("cpu:0", "cpu:1") if rehearse else TD_DEVICES))
+    one = M.make_mesh(TD_MESH, ("data", "model"), device=device)
+    recsys = td_recsys(device, mixed, one, rehearse)
+    log("train_devices", json.dumps({"dcn-v2": recsys}))
+    models = {TD_LM[0]: td_lm(device, mixed, one),
+              TD_GNN[0]: td_gnn(device, mixed, one, rehearse)}
+    log("train_devices", json.dumps({"models": models}))
+    faults = {TD_LM[0]: td_faults(TD_LM[0], lambda: td_lm(device, mixed,
+                                                          one)),
+              TD_GNN[0]: td_faults(TD_GNN[0], lambda: td_gnn(
+                  device, mixed, one, rehearse))}
+    log("train_devices", json.dumps({"planted_faults": faults}))
+    cards = td_cards(device, card, rehearse, dense)
+    log("train_devices", json.dumps({"two_cards": cards}))
+    peak_reset(device)
+    seconds = time.perf_counter() - t0
+    row = {"card": card, "dcn_v2": recsys, "models": models,
+           "planted_faults": faults,
+           "two_cards": cards, "tolerances": TD_TOL, "seconds": seconds,
+           "budget_s": TD_BUDGET_S}
+    log("train_devices", f"phase 5r: {seconds:.1f} s (budget {TD_BUDGET_S} "
+                         f"s: {'within' if seconds <= TD_BUDGET_S else 'PAST'}"
+                         f" it)")
+    return row
+
+
 def phase_plain(device, kept, prepared: PreparedCache, skip=("rmat_b",),
                 **kw):
     """The kept problems through the plain versions on the card: the same
@@ -7719,6 +8210,10 @@ def main() -> int:
         dr_row, counts_dr, counts_ex = phase_dryrun(device, card,
                                                     args.rehearse)
 
+        # ---- phase 5r: train cells on positions of different devices ----
+        td_row = phase_train_devices(device, card, args.rehearse,
+                                     tm_row["dense"])
+
         # ---- phase 6: kernel times ----
         slot_row = phase_times_slots(device, svc_states, cmp, launch)
         del svc_states
@@ -7773,6 +8268,7 @@ def main() -> int:
     print(json.dumps({"lm_train_mesh_path": tm_row}), flush=True)
     print(json.dumps({"mesh_cells_path": mc_row}), flush=True)
     print(json.dumps({"dryrun_path": dr_row}), flush=True)
+    print(json.dumps({"train_devices_path": td_row}), flush=True)
     print(json.dumps({"kernel_times": time_rows + model_rows + [slot_row]}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

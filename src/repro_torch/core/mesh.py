@@ -24,7 +24,10 @@ shards of one axis that share the other axes' coordinates (``groups``: the
 ``psum`` and ``psum_scatter`` run in every group at once; all three are
 stacks, views and sums, so autograd runs through them (the backward of a
 gather is a reduce-scatter, of a ``psum_scatter`` a gather, uncounted).
-Every collective counts one in
+Training on positions that sit on different devices adds
+``all_reduce_replicas``, the gradient all-reduce of a replicated block's
+copies over explicit groups (which need not be an axis's).  Every
+collective counts one in
 ``mesh.collectives`` and the payloads' bytes (all shards' payloads
 together) in ``mesh.gathered_bytes`` (``obs.metrics``), so "RSOC: one
 collective a round, CAT: two" is a number a caller reads.  While a cost
@@ -320,6 +323,62 @@ def psum(mesh: Mesh, axis, payloads: Sequence[torch.Tensor]) -> list:
         out = [g.sum(0) for _, g in each(_group_stacks(mesh, groups,
                                                          payloads))]
     _count(payloads)
+    return out
+
+
+def all_reduce_replicas(mesh: Mesh, leaves: list) -> list:
+    """The gradient all-reduce of a tree whose replicated blocks have a
+    copy a device: ``leaves[j]`` holds leaf j's replica sets, each a list
+    of ``(pos, tensor)`` (its copies, in position order, each on
+    ``mesh.devices[pos]``).  Returns for each leaf, for each set, the sum
+    of its copies added once in position order on its first copy's
+    device.  The other half of the all-reduce, the sum's way back to the
+    other copies, is the caller's: ``launch.cells`` updates each set once
+    from its sum and copies the new block and moments to the set's other
+    copies.  A leaf's pattern is the position groups of its sets of more
+    than one copy; the leaves of one pattern and dtype are flattened into
+    one payload a position, as XLA's all-reduce combiner joins them, so a
+    step costs one collective (``"all-reduce"``, every copy's payload
+    counted) a (pattern, dtype), never one a leaf.  Sets of one copy move
+    nothing."""
+    out = [[s[0][1] for s in sets] for sets in leaves]
+    batches = {}
+    for j, sets in enumerate(leaves):
+        multi = [k for k, s in enumerate(sets) if len(s) > 1]
+        if multi:
+            pattern = tuple(tuple(p for p, _ in sets[k]) for k in multi)
+            batches.setdefault((pattern, sets[multi[0]][0][1].dtype),
+                               []).append((j, multi))
+    for (pattern, _), members in batches.items():
+        # position p's payload: its copies of every member leaf, flattened
+        # and joined in leaf order
+        payload = {}
+        for j, multi in members:
+            for k in multi:
+                for p, t in leaves[j][k]:
+                    payload.setdefault(p, []).append(t.reshape(-1))
+        payload = {p: torch.cat(ts) for p, ts in payload.items()}
+        order = [p for g in pattern for p in g]
+        nb = [0] * mesh.size                # a cost record is by position
+        for p in order:
+            nb[p] = payload[p].numel() * payload[p].element_size()
+        total = {}
+        with cost.collective("all-reduce", pattern, nb, nb):
+            for g in pattern:
+                for _ in _at(_GROUP, g):
+                    s = payload[g[0]]
+                    for p in g[1:]:
+                        s = s + payload[p].to(mesh.devices[g[0]])
+                total[g[0]] = s
+        _count([payload[p] for p in order])
+        offset = dict.fromkeys(total, 0)
+        for j, multi in members:
+            for k in multi:
+                head, t = leaves[j][k][0]
+                n = t.numel()
+                out[j][k] = total[head][offset[head]:offset[head] + n] \
+                    .view(t.shape)
+                offset[head] += n
     return out
 
 

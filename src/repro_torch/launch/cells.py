@@ -23,12 +23,17 @@ real tensors placed on the mesh (``launch.sharding.place``) and
   recsys.serve    batched scoring; recsys.retrieval 1 query against the
                   candidates split over the mesh, top 100
 
-A train cell on a mesh whose positions sit on different devices (ROADMAP
-B.19) raises ``NotImplementedError``.  On a mesh of ``meta`` positions (the
-dry run, ``launch/dryrun.py``) a cell holds empty meta tensors at the
-shape's full sizes: weights made with no generator, inputs never drawn,
-a GNN batch shaped by ``_gnn_batch_shapes``, the halo cell sized by
-``boundary_frac``; ``launch/cost.py`` counts its step.  The full shapes are large
+A train cell runs on any mesh.  Where its positions sit on different
+devices, a replicated block has a copy a device: each replica set's
+gradients are summed across its copies (``launch.sharding.
+reduce_replicas``), the global norm counts each set once, and each set is
+updated once and copied to its other copies (``_adamw_update_placed``).
+
+On a mesh of ``meta`` positions (the dry run, ``launch/dryrun.py``) a
+cell holds empty meta tensors at the shape's full sizes: weights made with
+no generator, inputs never drawn, a GNN batch shaped by
+``_gnn_batch_shapes``, the halo cell sized by ``boundary_frac``;
+``launch/cost.py`` counts its step.  The full shapes are large
 (``train_4k`` is 256 x 4096 tokens, ``long_500k`` a 524,288-slot cache,
 ``ogb_products`` 61.9M edges): ``batch=`` / ``seq_len=`` / ``sizes=`` cut
 them, and a cut is written into the cell's ``static_notes``;
@@ -169,12 +174,6 @@ def build_cell(arch: str, shape: str, mesh: Mesh,
         shp = _cut(shp, {"seq_len": seq_len}, notes)
     shp = _cut(shp, dict(sizes or {}), notes)
     overrides = dict(overrides or {})
-    if shp["kind"] == "train" and len(set(mesh.devices)) > 1:
-        raise NotImplementedError(
-            f"{arch} {shape}: training on a mesh whose positions sit on "
-            f"different devices is not ported yet (ROADMAP B.19: a "
-            f"replicated block's copies would need their gradients summed "
-            f"across devices)")
     inputs = dict(inputs or {})
     if arch_def.family == "gnn":
         return _gnn_cell(arch, shape, shp, mesh, arch_def, overrides, smoke,
@@ -241,22 +240,51 @@ def _init_opt_state_placed(placed) -> dict:
             "step": zeros["step"]}
 
 
-def _adamw_update_placed(cfg: OPTIM.OptimizerConfig, placed, grads, state):
+def _adamw_update_placed(cfg: OPTIM.OptimizerConfig, placed, sets, grads,
+                         state):
     """``OPTIM.adamw_update`` on a placed tree: ``grads`` holds one gradient
-    a distinct block (``SH.distinct``'s order), and each block is one leaf:
-    the global norm sums every distinct block once, the update runs block
-    by block, written into the block, and a block's weight decay follows
-    its ndim, which is its global leaf's.  Returns ``(placed, new_state,
-    metrics)``; the moments stay in the blocks' layout.  Every block must
-    be on one device (one global norm)."""
+    a replica set (``sets``: ``SH.replica_sets(placed)``, summed over the
+    set's copies by ``SH.reduce_replicas``), and each set is one leaf: the
+    global norm sums each set once (on its first copy's device, moved to
+    the first set's device), the update runs on each set's first copy,
+    written into it, and its new value and moments are copied into the
+    set's other copies, so that the copies stay bit-equal whatever devices
+    they sit on.  A block's weight decay follows its ndim, which is its
+    global leaf's.  Returns ``(placed, new_state, metrics)``; the moments
+    stay in the blocks' layout.  On a one-device mesh every set is one
+    block."""
     blocks = [b for _, b in SH.distinct(placed)]
-    flat = {"mu": [b for _, b in SH.distinct(state["mu"])],
-            "nu": [b for _, b in SH.distinct(state["nu"])],
-            "step": state["step"]}
-    _, new, metrics = OPTIM.adamw_update(cfg, blocks, list(grads), flat)
-    return placed, {"mu": SH.with_blocks(state["mu"], new["mu"]),
-                    "nu": SH.with_blocks(state["nu"], new["nu"]),
+    mu = [b for _, b in SH.distinct(state["mu"])]
+    nu = [b for _, b in SH.distinct(state["nu"])]
+    first = [copies[0][1] for _, copies in sets]
+    _, new, metrics = OPTIM.adamw_update(
+        cfg, [blocks[i] for i in first], list(grads),
+        {"mu": [mu[i] for i in first], "nu": [nu[i] for i in first],
+         "step": state["step"]})
+    devices = placed.mesh.devices
+    with torch.no_grad():
+        for (_, copies), m, n in zip(sets, new["mu"], new["nu"]):
+            (_, lead), rest = copies[0], copies[1:]
+            mu[lead], nu[lead] = m, n
+            for pos, i in rest:
+                blocks[i].copy_(blocks[lead])
+                mu[i], nu[i] = m.to(devices[pos]), n.to(devices[pos])
+    return placed, {"mu": SH.with_blocks(state["mu"], mu),
+                    "nu": SH.with_blocks(state["nu"], nu),
                     "step": new["step"]}, metrics
+
+
+def _grad(mesh: Mesh, loss, leaves) -> tuple:
+    """``loss``'s gradient for every leaf (zeros for an unused one).  Where
+    the mesh's positions sit on several devices the backward runs on the
+    calling thread, as the forward's host loop does: the autograd engine's
+    thread a device would otherwise run one remat region's recompute
+    (``torch.utils.checkpoint``, a frame spanning the devices) from two
+    threads at once, which the checkpoint's bookkeeping does not allow."""
+    with torch.autograd.set_multithreading_enabled(
+            len(set(mesh.devices)) == 1):
+        return torch.autograd.grad(loss, leaves, allow_unused=True,
+                                   materialize_grads=True)
 
 
 def _train_cell(arch, shape, mesh: Mesh, cfg, params, inputs: dict, rng,
@@ -266,8 +294,9 @@ def _train_cell(arch, shape, mesh: Mesh, cfg, params, inputs: dict, rng,
     loss of each microbatch (rows ``[i·B/M, (i+1)·B/M)`` of the global
     batch, placed by ``lm_batch_spec``) on the storage tree — the sharded
     route moves it to the compute layout, and the gradient comes back to
-    storage — sums the gradients in float32, divides by M, and ends with
-    ``OPT``'s AdamW on the distinct blocks.  Metrics: ``loss`` (the mean of
+    storage — sums the gradients in float32, divides by M, sums each
+    replica set's over its copies (``SH.reduce_replicas``), and ends with
+    ``OPT``'s AdamW on the replica sets.  Metrics: ``loss`` (the mean of
     the microbatch losses), ``grad_norm``, ``lr``."""
     if B % microbatches:
         raise ValueError(f"batch {B} does not split into {microbatches} "
@@ -283,11 +312,11 @@ def _train_cell(arch, shape, mesh: Mesh, cfg, params, inputs: dict, rng,
         batch[key] = _place(x, mesh, bspec)
     placed = SH.trainable(_place(params, mesh, SH.lm_param_spec))
     leaves = [b for _, b in SH.distinct(placed)]
+    sets = SH.replica_sets(placed)
 
     def value_and_grad(p, b):
         loss = TF.train_step_loss(p, cfg, b)
-        return loss, torch.autograd.grad(loss, leaves, allow_unused=True,
-                                         materialize_grads=True)
+        return loss, _grad(mesh, loss, leaves)
 
     def step(p, opt_state, b):
         if microbatches == 1:
@@ -306,7 +335,9 @@ def _train_cell(arch, shape, mesh: Mesh, cfg, params, inputs: dict, rng,
                 loss = loss + loss_i.detach()
             grads = [g / microbatches for g in grads]
             loss = loss / microbatches
-        p, opt_state, m = _adamw_update_placed(OPT, p, grads, opt_state)
+        grads = SH.reduce_replicas(mesh, sets, grads)
+        p, opt_state, m = _adamw_update_placed(OPT, p, sets, grads,
+                                               opt_state)
         m["loss"] = loss.detach()
         return p, opt_state, m
 
@@ -318,16 +349,18 @@ def _train_cell(arch, shape, mesh: Mesh, cfg, params, inputs: dict, rng,
 def _placed_train_cell(arch, shape, mesh: Mesh, placed: SH.Placed, batch,
                        loss_of: Callable, cfg, notes: str) -> Cell:
     """A train cell on a placed tree: ``loss_of(params, batch)`` (the first
-    position's loss), its gradient for every distinct block, ``OPT``'s
-    AdamW on the distinct blocks (``_adamw_update_placed``)."""
+    position's loss), its gradient for every distinct block, summed over
+    each replica set (``SH.reduce_replicas``), ``OPT``'s AdamW on the
+    replica sets (``_adamw_update_placed``)."""
     placed = SH.trainable(placed)
     leaves = [b for _, b in SH.distinct(placed)]
+    sets = SH.replica_sets(placed)
 
     def step(p, opt_state, b):
         loss = loss_of(p, b)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        p, opt_state, m = _adamw_update_placed(OPT, p, grads, opt_state)
+        grads = SH.reduce_replicas(mesh, sets, _grad(mesh, loss, leaves))
+        p, opt_state, m = _adamw_update_placed(OPT, p, sets, grads,
+                                               opt_state)
         m["loss"] = loss.detach()
         return p, opt_state, m
 

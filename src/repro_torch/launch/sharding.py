@@ -393,6 +393,51 @@ def distinct(placed: Placed) -> list:
     return out
 
 
+def replica_sets(placed: Placed) -> list:
+    """``distinct(placed)``'s blocks grouped into replica sets: the copies
+    of one leaf's block (one ``block_key``) on different devices, keyed on
+    ``mesh.devices[pos]`` as ``place`` keys them (never on a tensor's
+    device: on a mesh of ``cpu:i`` positions every tensor reports ``cpu``).
+    ``[(path, ((pos, i), ...))]``: a set a block, the sets in the order of
+    their first copy in ``distinct``, each copy as the first position that
+    holds it and its index into ``distinct``, in position order.  On a
+    one-device mesh every set is one block."""
+    mesh = placed.mesh
+    index = {id(b): i for i, (_, b) in enumerate(distinct(placed))}
+    flat = [T.flatten_with_paths(s) for s in placed.shards]
+    sets = {}
+    for j, (path, _) in enumerate(flat[0]):
+        spec = placed.specs[path]
+        for pos in range(mesh.size):
+            copies = sets.setdefault((j, block_key(mesh, spec, pos)), [])
+            i = index[id(flat[pos][j][1])]
+            if all(i != k for _, k in copies):
+                copies.append((pos, i))
+    return sorted(((flat[0][j][0], tuple(c)) for (j, _), c in sets.items()),
+                  key=lambda s: s[1][0][1])
+
+
+def reduce_replicas(mesh, sets: list, grads: list) -> list:
+    """One gradient a replica set (``sets``: ``replica_sets``' list, in its
+    order): the gradients of its copies (``grads``, one a block of
+    ``distinct``) summed in position order on its first copy's device
+    (``core.mesh.all_reduce_replicas``: one collective a leaf pattern and
+    dtype).  On a one-device mesh every set is one block, whose gradient
+    comes back as it is."""
+    by_path = {}
+    for n, (path, _) in enumerate(sets):
+        by_path.setdefault(path, []).append(n)
+    members = list(by_path.values())
+    summed = M.all_reduce_replicas(mesh, [
+        [[(pos, grads[i]) for pos, i in sets[n][1]] for n in ns]
+        for ns in members])
+    out = [None] * len(sets)
+    for ns, sums in zip(members, summed):
+        for n, g in zip(ns, sums):
+            out[n] = g
+    return out
+
+
 def with_blocks(placed: Placed, blocks: list) -> Placed:
     """``placed`` with its distinct blocks (``distinct``'s order) replaced by
     ``blocks``: the same shapes, specs and sharing."""

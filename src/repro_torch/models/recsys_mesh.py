@@ -98,12 +98,17 @@ def _rows(batch: SH.Placed, key: str) -> list:
 
 def ctr_loss(placed: SH.Placed, cfg, batch: SH.Placed) -> list:
     """Per position the batch's mean binary cross entropy (the same float32
-    scalar on every position)."""
+    scalar on every position).  A position's logits are those of its
+    ``dense`` rows, which hold its ``labels`` rows (below 32 rows the cell
+    places the features whole and still splits the labels): each position
+    scores the logits of its label rows."""
     logits = forward(placed, cfg, _rows(batch, "dense"),
                      _rows(batch, "sparse"))
     parts = []
-    for lg, y in zip(logits, _rows(batch, "labels")):
-        lg = lg.to(torch.float32)
+    for pos, (lg, y) in enumerate(zip(logits, _rows(batch, "labels"))):
+        r0 = (batch.range("['labels']", 0, pos)[0]
+              - batch.range("['dense']", 0, pos)[0])
+        lg = lg[r0:r0 + y.shape[0]].to(torch.float32)
         y = y.to(torch.float32)
         bce = (torch.clamp(lg, min=0) - lg * y
                + torch.log1p(torch.exp(-torch.abs(lg))))

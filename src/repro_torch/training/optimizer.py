@@ -59,8 +59,13 @@ def init_opt_state(params) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in T.leaves(tree)))
+    """The leaves may sit on different devices: each leaf's sum of squares
+    is taken on its own device and moved to the first leaf's, where the
+    sums are added in leaf order (on one device the moves are no-ops)."""
+    leaves = T.leaves(tree)
+    dev = leaves[0].device
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))).to(dev)
+                          for x in leaves))
 
 
 def _fma(a, b, c) -> torch.Tensor:
@@ -77,7 +82,10 @@ def _fma(a, b, c) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, params, grads, state):
     """One AdamW step; returns ``(params, new_state, metrics)``.  ``params``
-    is the same tree, its tensors overwritten with the new values."""
+    is the same tree, its tensors overwritten with the new values.  The
+    leaves may sit on different devices: the norm is ``global_norm``'s,
+    and the step's scalars (clip scale, learning rate, bias corrections),
+    computed once, are copied to each leaf's device."""
     step = state["step"]
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -86,8 +94,15 @@ def adamw_update(cfg: OptimizerConfig, params, grads, state):
     t = (step + 1).to(torch.float32)
     bc1 = 1.0 - cfg.b1 ** t
     bc2 = 1.0 - cfg.b2 ** t
+    scalars = {}
+
+    def on(dev):
+        if dev not in scalars:
+            scalars[dev] = [x.to(dev) for x in (scale, lr, bc1, bc2)]
+        return scalars[dev]
 
     def upd(p, g, mu, nu):
+        scale, lr, bc1, bc2 = on(p.device)
         g = g.to(torch.float32) * scale
         mu = cfg.b1 * mu + (1 - cfg.b1) * g
         nu = cfg.b2 * nu + (1 - cfg.b2) * g * g

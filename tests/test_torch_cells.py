@@ -196,16 +196,28 @@ def test_train_cell_runs_with_each_knob(knob):
 
 
 def test_train_cell_refusals():
-    """A train cell whose positions sit on different devices raises (their
-    replicated blocks' gradients would need summing across devices),
-    naming its ROADMAP item, whatever the family."""
-    two = TM.make_mesh((1, 2), ("data", "model"), devices=["cpu", "meta"])
+    """No train cell refuses a mesh whose positions sit on different
+    devices (it did until the gradient all-reduce, ROADMAP B.19): each
+    family builds on a (1, 2) mesh of ``cpu:0`` / ``cpu:1`` and takes a
+    finite step, its replicated blocks' copies bit-equal after it
+    (``tests/test_torch_train_devices.py`` holds the steps to the
+    reference's)."""
+    two = TM.make_mesh((1, 2), ("data", "model"), devices=["cpu:0", "cpu:1"])
     for arch, shape, cut in (
             ("qwen3-1.7b", "train_4k", {"batch": 2, "seq_len": 8}),
             ("gatedgcn", "full_graph_sm", {"n_nodes": 8, "n_edges": 8}),
             ("dcn-v2", "train_batch", {"batch": 2})):
-        with pytest.raises(NotImplementedError, match="B.19"):
-            TC.build_cell(arch, shape, two, smoke=True, sizes=cut)
+        cell = TC.build_cell(arch, shape, two, smoke=True, sizes=cut)
+        params, opt, m = cell.run()
+        assert int(opt["step"]) == 1
+        assert all(bool(torch.isfinite(m[k])) for k in ("loss",
+                                                        "grad_norm"))
+        copies = [c for _, c in TSH.replica_sets(params) if len(c) > 1]
+        assert copies, arch
+        blocks = [b for _, b in TSH.distinct(params)]
+        for c in copies:
+            assert all(torch.equal(blocks[i], blocks[c[0][1]])
+                       for _, i in c), arch
 
 
 # --------------------------------------------------------------------------

@@ -136,9 +136,9 @@ def _recsys_cell(shape, mesh_shape, monkeypatch, **kw):
 
 
 @functools.lru_cache(maxsize=None)
-def _recsys_train_reference():
+def _recsys_train_reference(B=64):
     cj, pj = _recsys_weights()
-    b = _recsys_batch(cj, 64)
+    b = _recsys_batch(cj, B)
     return b, _jit_step(lambda p, bt: JRS.ctr_loss(p, cj, bt))(
         pj, {k: jnp.asarray(v) for k, v in b.items()})
 
@@ -157,6 +157,22 @@ def test_recsys_train_cell_equals_the_reference(mesh_shape, monkeypatch):
     metrics.reset()
     _check_step(cell, ref)
     assert TM.collectives() > 0
+
+
+@pytest.mark.parametrize("mesh_shape", MESHES, ids=_ids)
+def test_recsys_train_cell_below_32_rows(mesh_shape, monkeypatch):
+    """C.5: below 32 rows the cell places ``dense`` / ``sparse`` whole and
+    still splits ``labels`` over the data axes, as the reference places
+    them; each position scores the logits of its label rows, and the step
+    is the reference's mean BCE at B 8 (on (2, 2) it raised)."""
+    b, ref = _recsys_train_reference(8)
+    cell = _recsys_cell("train_batch", mesh_shape, monkeypatch, batch=8,
+                        inputs={k: torch.from_numpy(v) for k, v in
+                                b.items()})
+    batch = cell.args[2]
+    assert batch.split("['dense']", 0) == ()
+    assert batch.split("['labels']", 0) == ("data",)
+    _check_step(cell, ref)
 
 
 @pytest.mark.parametrize("mesh_shape", MESHES, ids=_ids)
